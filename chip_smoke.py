@@ -5,10 +5,12 @@
 Phases (each asserts; any failure exits non-zero before the result line):
 
 1. the card's name and power limit, and the CUDA version PyTorch was built for;
-2. build the hand-written kernels (``vggp_tpu_torch/csrc/cell_kuf.cu``);
+2. build the hand-written kernels (one ``nvcc`` per source of
+   ``vggp_tpu_torch/csrc/``, side by side);
 3. hold each kernel against its plain PyTorch version on the card, in
-   float64 and float32, at the main path's shapes and at a ragged shape, and
-   the float32 and float64 results against the cell-Kuf goldens of
+   float64 and float32, at the main path's shapes and at a ragged shape (the
+   fused kernel at the main path's precisions and at "highest" for both),
+   and the float32 and float64 results against the cell-Kuf goldens of
    ``bench.py`` (copied here; the port imports nothing of the JAX package),
    and the float32 closed-form F⁻¹ with and without its Newton–Schulz step
    against float64;
@@ -18,12 +20,14 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``fused_banded_whiten_kuf``, counting the launches of each;
 5. serve ``posterior`` at 4096 held-out points under ``torch.no_grad()``
    through ``cell_kuf``, and hold the trained model's loss and posterior on
-   the card (float32) against the same functions on the CPU in float64;
+   the card (float32) against the same functions on the CPU in float64,
+   the loss also at batch 16384 with gradients on, through the fused kernel;
 6. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
 7. time each kernel and its plain version (device time from the profiler's
-   CUDA trace, call time from CUDA events), and print them and the
-   steady-state step times with the card's name and power limit.
+   CUDA trace, call time from CUDA events), and the fused kernel beside the
+   unfused route it replaces, and print them and the steady-state step
+   times with the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -48,6 +52,16 @@ WARM_STEPS = 3
 # H100 SXM published peaks (dense, no sparsity) at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
+
+# The precisions the main path gives the fused kernel
+# (config.WHITEN_MATMUL_PRECISION, config.GRAD_MATMUL_PRECISION), and the
+# tensor-core products per needed FMA the float32 kernel issues for each
+# string: six bf16 ones for the fp32-accurate split, one TF32 one for
+# "default" (csrc/fused_whiten_tc.cu).
+MAIN_PRECISIONS = ("highest", "default")
+TC_PRODUCTS = {"highest": 6, "high": 6, "default": 1}
 
 # Operations per output element of the cell tile math, counted from
 # tile_kuf_dkuf in csrc/cell_kuf.cu with each exp and each division as one
@@ -75,12 +89,20 @@ GOLD_TOL_F64 = 1e-9
 #  f64: both sides are IEEE double with another order of summation (and
 #       FMA contraction in the kernel): roundoff, 1e-12.
 #  f32: Kuf and ∂Kuf/∂ℓ elementwise, and a = F⁻¹·Kuf, at 2e-5. t = F⁻¹·∂Kuf
-#       sums terms of both signs whose cancellation leaves the result far
-#       smaller than its terms, so the float32 summation order moves it
-#       more: 1e-3 (t is gradient-only signal).
+#       at "highest" sums terms of both signs whose cancellation leaves the
+#       result far smaller than its terms, so the float32 summation order
+#       moves it more: 1e-3 (t is gradient-only signal).
+#  t at "default" is one TF32 product (about 1e-2 to 4e-2 from f64 under
+#       that cancellation, by the CPU emulation in tests/test_torch_ops.py):
+#       its error against the f64 plain version may be at most
+#       TF32_ERR_RATIO times that of torch's own TF32 product (the plain
+#       version at "default").
+#  colsum(a²), the quadratic form of k_ff − ‖a‖², against f64: the bench's
+#       2e-4 (GOLD_TOL_F32).
 TOL_F64 = 1e-12
 TOL_F32 = 2e-5
 TOL_F32_T = 1e-3
+TF32_ERR_RATIO = 2.0
 
 # float32 F⁻¹ at m = 512 vs float64: relative error and ‖I − F·F⁻¹‖, each
 # about 40 ulp (the CPU's float32 gives ≤ 7e-7 for both).
@@ -99,7 +121,11 @@ _REPLACES = {
     "cell_kuf_with_dl": "vggp_tpu/ops/pallas_kernels.py:134",
     "fused_banded_whiten_kuf": "vggp_tpu/ops/pallas_kernels.py:231",
 }
-SOURCE = "vggp_tpu_torch/csrc/cell_kuf.cu"
+_SOURCES = {
+    "cell_kuf": "vggp_tpu_torch/csrc/cell_kuf.cu",
+    "cell_kuf_with_dl": "vggp_tpu_torch/csrc/cell_kuf.cu",
+    "fused_banded_whiten_kuf": "vggp_tpu_torch/csrc/fused_whiten_tc.cu",
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -145,8 +171,9 @@ def _kernel_ms(prof, kernel=None) -> float:
 def time_ms(fn, iters: int = 50, warm: int = 3, kernel=None):
     """(device ms, call ms) of one call of ``fn``: device time per call from
     torch.profiler's CUDA trace (host launch overhead excluded), of the
-    device kernel named ``kernel`` alone (one launch per call) or else of
-    every kernel the call launches; call time is CUDA events around
+    device kernel named ``kernel`` alone (one launch per call, averaged over
+    the launches the trace kept) or else of every kernel the call launches;
+    call time is CUDA events around
     ``iters`` back-to-back calls (host overhead included where it exceeds
     the device time)."""
     import torch
@@ -162,11 +189,20 @@ def time_ms(fn, iters: int = 50, warm: int = 3, kernel=None):
     e1.record()
     e1.synchronize()
     call = e0.elapsed_time(e1) / iters
-    prof, _ = _profiled(fn, iters)
-    if kernel is not None:
-        n_ev = len(_device_events(prof, kernel))
-        check(n_ev == iters, f"profiler saw {n_ev} launches of {kernel}, not {iters}")
-    device = _kernel_ms(prof, kernel) / iters
+    if kernel is None:
+        prof, _ = _profiled(fn, iters)
+        device = _kernel_ms(prof) / iters
+    else:
+        # one launch per call. The trace drops device records now and then
+        # (seen on the H100: 41 and 0 of 50), so a window that kept fewer
+        # than half of them is taken again, up to three times.
+        for _ in range(3):
+            prof, _ = _profiled(fn, iters)
+            n_ev = len(_device_events(prof, kernel))
+            if iters // 2 <= n_ev <= iters:
+                break
+        check(iters // 2 <= n_ev <= iters, f"profiler saw {n_ev} launches of {kernel} in {iters} calls")
+        device = _kernel_ms(prof, kernel) / n_ev
     check(device > 0, "the profiler saw no device time")
     return device, call
 
@@ -200,13 +236,15 @@ def check_kernels(device) -> dict:
 
     from vggp_tpu_torch.ops import cell_kuf as ck
 
-    errs = {}   # max |kernel − plain| at the main path's f32 shapes
+    errs = {}   # max |kernel − plain| at the main path's f32 shapes and precisions
+    main_shapes = ((M_AXIS, TRAIN_BATCH), (M_AXIS, FUSED_BATCH))
 
-    def compare(kernel, name, got, want, tol, tag, shape):
+    def compare(kernel, name, got, want, tol, tag, shape, record=True, precs=()):
         e = rel_err(got, want)
-        print(f"check {kernel} {name} {tag} {shape}: rel {e:.3e}")
-        check(e < tol, f"{kernel} {name} {tag} {shape} rel {e}")
-        if tag == "f32" and shape in ((M_AXIS, TRAIN_BATCH), (M_AXIS, FUSED_BATCH)):
+        label = " ".join((tag, "/".join(precs))).strip()
+        print(f"check {kernel} {name} {label} {shape}: rel {e:.3e}")
+        check(e < tol, f"{kernel} {name} {label} {shape} rel {e}")
+        if record and tag == "f32" and shape in main_shapes:
             errs[kernel] = max(errs.get(kernel, 0.0), float((got - want).abs().max()))
 
     for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
@@ -220,13 +258,42 @@ def check_kernels(device) -> dict:
                 compare("cell_kuf_with_dl", name, g, w, tol, tag, shape)
         for shape in ((M_AXIS, FUSED_BATCH), (256, 301)):
             mesh, x, v, ell, finv = kernel_inputs(*shape, dtype, device, seed=2)
-            (a, t), (a_p, t_p) = (ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell),
-                                  ck.fused_banded_whiten_kuf_plain(finv, mesh, x, v, ell))
-            compare("fused_banded_whiten_kuf", "a", a, a_p, tol, tag, shape)
-            compare("fused_banded_whiten_kuf", "t", t, t_p,
-                    TOL_F64 if tag == "f64" else TOL_F32_T, tag, shape)
+            for precs in (MAIN_PRECISIONS, ("highest", "highest")):
+                (a, t), (a_p, t_p) = (ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell, *precs),
+                                      ck.fused_banded_whiten_kuf_plain(finv, mesh, x, v, ell,
+                                                                       *precs))
+                main = precs == MAIN_PRECISIONS
+                compare("fused_banded_whiten_kuf", "a", a, a_p, tol, tag, shape, main, precs)
+                if tag == "f64" or precs[1] != "default":
+                    compare("fused_banded_whiten_kuf", "t", t, t_p,
+                            TOL_F64 if tag == "f64" else TOL_F32_T, tag, shape, main, precs)
+                else:
+                    check_fused_f32_main(finv, mesh, x, v, ell, a, t, t_p, shape)
+                    if shape in main_shapes:
+                        errs["fused_banded_whiten_kuf"] = max(
+                            errs["fused_banded_whiten_kuf"], float((t - t_p).abs().max()))
     torch.cuda.synchronize()
     return errs
+
+
+def check_fused_f32_main(finv, mesh, x, v, ell, a, t, t_tf32, shape) -> None:
+    """The float32 fused kernel at the main path's precisions against the
+    float64 plain version of the same inputs: colsum(a²) within the bench's
+    2e-4, and the one-pass TF32 ``t`` within TF32_ERR_RATIO of torch's own
+    TF32 product (``t_tf32``, the plain version at "default")."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    a64, t64 = ck.fused_banded_whiten_kuf_plain(
+        *(z.double() for z in (finv, mesh, x, v, ell)), "highest", "highest")
+    colsum = lambda z: torch.sum(z.double() ** 2, dim=0)
+    e_q = rel_err(colsum(a), colsum(a64))
+    e_t, e_torch = rel_err(t.double(), t64), rel_err(t_tf32.double(), t64)
+    print(f"check fused_banded_whiten_kuf f32 {shape} vs f64: colsum(a^2) rel {e_q:.3e}; "
+          f"t rel {e_t:.3e} (torch TF32 {e_torch:.3e}, ratio {e_t / e_torch:.3f})")
+    check(e_q < GOLD_TOL_F32, f"fused colsum(a^2) {shape} rel {e_q}")
+    check(e_t <= TF32_ERR_RATIO * e_torch, f"fused t {shape}: {e_t} vs torch TF32 {e_torch}")
 
 
 def check_goldens(device) -> None:
@@ -454,61 +521,123 @@ def check_against_cpu_f64(spec, model, post, X, y, Xs) -> None:
           f"card vs cpu f64: loss {e_loss}, mean {e_mean}, var {e_var}")
 
 
+def check_fused_against_cpu_f64(spec, model, X, y) -> None:
+    """Phase 5c: the loss at batch 16384 with gradients on, which takes the
+    fused kernel (2 launches, one per axis), on the card (f32) vs the CPU in
+    float64 (TOL_E2E_LOSS)."""
+    import torch
+
+    from vggp_tpu_torch import svgp, train
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    xb, yb = X[:FUSED_BATCH], y[:FUSED_BATCH]
+    ck.reset_launch_counts()
+    l_dev = float(svgp.loss(spec, model.params(), xb, yb).detach())
+    got = dict(ck.LAUNCHES)
+    check(got == {"cell_kuf": 0, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 2},
+          f"launches of the loss at {FUSED_BATCH} with gradients on: {got}")
+    with torch.no_grad():
+        p_cpu = train.tree_map(lambda v: v.detach().double().cpu(), model.params())
+        l_cpu = float(svgp.loss(spec, p_cpu, xb.double().cpu(), yb.double().cpu()))
+    e_loss = abs(l_dev - l_cpu) / abs(l_cpu)
+    print(f"check card f32 vs cpu f64 at batch {FUSED_BATCH} through the fused kernel: "
+          f"loss {e_loss:.3e}, launches {got}")
+    check(e_loss < TOL_E2E_LOSS, f"fused loss vs cpu f64: {e_loss}")
+
+
+def fused_bounds(m: int, n: int, precisions) -> dict:
+    """The card's least time (ms) for fused_banded_whiten_kuf at (m, n):
+    the bytes (F⁻¹'s needed band entries, mesh, x, scalars, the two outputs)
+    over HBM, and the operations: the needed band FMAs at the tensor-core
+    products each precision takes (TC_PRODUCTS, bf16 or TF32 rate), the
+    Kuf/∂Kuf generation on the CUDA cores. Beside it, the reckoning with
+    every product in fp32 FMA on the CUDA cores, as an fp32-FMA kernel would
+    do them."""
+    from vggp_tpu_torch.ops.kms import BAND_BLOCK
+
+    nb, f4 = m // BAND_BLOCK, 4
+    # the band entries the function needs: the lower triangles of the nb
+    # diagonal blocks and the nb − 1 full sub-diagonal blocks of F⁻¹
+    band = nb * BAND_BLOCK * (BAND_BLOCK + 1) // 2 + (nb - 1) * BAND_BLOCK ** 2
+    t_bytes = (band + m + 1 + n + 2 + 2 * m * n) * f4 / HBM_BYTES_PER_S * 1e3
+    tensor = sum(2 * TC_PRODUCTS[p] * band * n
+                 / (BF16_FLOPS_PER_S if TC_PRODUCTS[p] > 1 else TF32_FLOPS_PER_S)
+                 for p in precisions) * 1e3
+    t_gen = m * n * OPS_KUF_DL / FP32_FLOPS_PER_S * 1e3
+    t_fma = (2 * 2 * band * n + m * n * OPS_KUF_DL) / FP32_FLOPS_PER_S * 1e3
+    t_ops = max(tensor, t_gen)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_fp32_fma_ms": max(t_bytes, t_fma)}
+
+
 def measure_kernels(device, errs, launches) -> list:
-    """Phase 7: kernel and plain times at the main path's f32 shapes."""
+    """Phase 7: kernel and plain times at the main path's f32 shapes, and the
+    fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
+    kms.banded_whiten_apply for a at "highest" and t at "default")."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
-    from vggp_tpu_torch.ops.kms import BAND_BLOCK
+    from vggp_tpu_torch.ops import kms
 
     f4 = 4
     rows = []
     mesh, x, v, ell, _ = kernel_inputs(M_AXIS, TRAIN_BATCH, torch.float32, device, seed=3)
     m, n = M_AXIS, TRAIN_BATCH
     in_bytes = (m + 1 + n + 2) * f4
-    # (name, device kernel's name, kernel call, plain call, bytes, operations)
-    cases = [
-        ("cell_kuf", "cell_kuf_kernel", lambda: ck.cell_kuf(mesh, x, v, ell),
-         lambda: ck.cell_kuf_plain(mesh, x, v, ell),
-         in_bytes + m * n * f4, m * n * OPS_KUF),
-        ("cell_kuf_with_dl", "cell_kuf_kernel", lambda: ck.cell_kuf_with_dl(mesh, x, v, ell),
-         lambda: ck.cell_kuf_with_dl_plain(mesh, x, v, ell),
-         in_bytes + 2 * m * n * f4, m * n * OPS_KUF_DL),
-    ]
+    # (name, device kernel's name, kernel call, plain call, bound)
+    cases = []
+    for name, call, plain, out_bytes, ops in (
+            ("cell_kuf", ck.cell_kuf, ck.cell_kuf_plain, m * n * f4, m * n * OPS_KUF),
+            ("cell_kuf_with_dl", ck.cell_kuf_with_dl, ck.cell_kuf_with_dl_plain,
+             2 * m * n * f4, m * n * OPS_KUF_DL)):
+        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS_PER_S * 1e3
+        cases.append((name, "cell_kuf_kernel", lambda c=call: c(mesh, x, v, ell),
+                      lambda c=plain: c(mesh, x, v, ell),
+                      {"bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}))
     nf = FUSED_BATCH
     meshf, xf, vf, ellf, finv = kernel_inputs(M_AXIS, nf, torch.float32, device, seed=4)
-    nb = m // BAND_BLOCK
-    # the band entries the function needs: the lower triangles of the nb
-    # diagonal blocks and the nb − 1 full sub-diagonal blocks of F⁻¹
-    band_vals = nb * BAND_BLOCK * (BAND_BLOCK + 1) // 2 + (nb - 1) * BAND_BLOCK ** 2
+    q = kms.m12_geometric_ratio(1.0 / M_AXIS, ellf, 1e-6)
+
+    def unfused():
+        kuf, dkuf = ck.cell_kuf_with_dl(meshf, xf, vf, ellf)
+        return (kms.banded_whiten_apply(finv, kuf, q, MAIN_PRECISIONS[0]),
+                kms.banded_whiten_apply(finv, dkuf, q, MAIN_PRECISIONS[1]))
+
     cases.append((
-        "fused_banded_whiten_kuf", "fused_whiten_kernel",
-        lambda: ck.fused_banded_whiten_kuf(finv, meshf, xf, vf, ellf),
-        lambda: ck.fused_banded_whiten_kuf_plain(finv, meshf, xf, vf, ellf),
-        band_vals * f4 + (m + 1 + nf + 2) * f4 + 2 * m * nf * f4,
-        # one FMA (2 flops) per needed band entry, column and output (a and
-        # t), plus each Kuf/∂Kuf element once
-        2 * 2 * band_vals * nf + m * nf * OPS_KUF_DL,
+        "fused_banded_whiten_kuf", "fused_whiten_tc_kernel",
+        lambda: ck.fused_banded_whiten_kuf(finv, meshf, xf, vf, ellf, *MAIN_PRECISIONS),
+        lambda: ck.fused_banded_whiten_kuf_plain(finv, meshf, xf, vf, ellf, *MAIN_PRECISIONS),
+        fused_bounds(M_AXIS, nf, MAIN_PRECISIONS),
     ))
-    for name, dev_kernel, kern, plain, nbytes, ops in cases:
-        # in turns: plain, kernel, kernel, plain
+    for name, dev_kernel, kern, plain, bound in cases:
+        fused = name == "fused_banded_whiten_kuf"
+        # in turns: plain, kernel, (unfused, unfused,) kernel, plain
         p1, pc1 = time_ms(plain)
         k1, kc1 = time_ms(kern, kernel=dev_kernel)
+        if fused:
+            u1, _ = time_ms(unfused)
+            u2, _ = time_ms(unfused)
         k2, kc2 = time_ms(kern, kernel=dev_kernel)
         p2, pc2 = time_ms(plain)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": _REPLACES[name],
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-        })
+        row = {
+            "name": name, "route": "cuda", "source": _SOURCES[name],
+            "replaces": _REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            **bound, "library_ms": None,
+        }
+        extra = ""
+        if fused:
+            row["precisions"] = list(MAIN_PRECISIONS)
+            row["unfused_ms"] = (u1 + u2) / 2
+            extra = (f"; unfused route {u1:.5f}/{u2:.5f}; bound {row['bound_ms']:.5f} "
+                     f"(fp32-FMA reckoning {row['bound_fp32_fma_ms']:.5f})")
+        rows.append(row)
         print(f"time {name}: device ms kernel {k1:.5f}/{k2:.5f}, plain {p1:.5f}/{p2:.5f}; "
               f"call ms kernel {kc1:.5f}/{kc2:.5f}, plain {pc1:.5f}/{pc2:.5f}; "
-              f"bound {max(t_bytes, t_ops):.5f} ms")
+              f"bound {row['bound_ms']:.5f} ms" + extra)
     return rows
 
 
@@ -528,8 +657,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds():.2f} s) "
-          f"-> {_build.library_path().name}")
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds():.2f} s) -> "
+          + ", ".join(_build.library_path(src).name for src in _build.SOURCES))
 
     errs = check_kernels(device)
     check_goldens(device)
@@ -537,6 +666,7 @@ def main() -> int:
     X, y, Xs = make_data(device)
     spec, model, post, launches, timings, step, gen = drive_main_path(device, X, y, Xs)
     check_against_cpu_f64(spec, model, post, X, y, Xs)
+    check_fused_against_cpu_f64(spec, model, X, y)
     for batch in (TRAIN_BATCH, FUSED_BATCH):
         timings.update(profile_steps(step, X, y, batch, gen))
     rows = measure_kernels(device, errs, launches)

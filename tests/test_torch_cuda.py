@@ -23,11 +23,16 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precisions", [("highest", "highest"), ("highest", "default")])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("m,n", [(256, 301), (512, 1024)])
-def test_cuda_kernels_match_plain(cuda, dtype, rtol, m, n):
-    """max|Δ|/max|plain| per output: roundoff in f64; in f32 2e-5, except the
-    fused ℓ-tangent t (1e-3: summation order under cancellation)."""
+def test_cuda_kernels_match_plain(cuda, dtype, rtol, m, n, precisions):
+    """max|Δ|/max|plain| per output: roundoff in f64 (where the precision
+    strings are ignored); in f32 2e-5, except the fused ℓ-tangent t. At
+    "highest" t is held at 1e-3 (summation order under cancellation); at
+    "default" it is one TF32 product, whose error against the f64 plain
+    version may be at most 2× that of torch's own TF32 product (the plain
+    version at "default")."""
     mesh = torch.linspace(0.0, 1.0, m + 1, dtype=dtype, device=cuda)
     x = torch.linspace(-0.1, 1.1, n, dtype=dtype, device=cuda)
     v = torch.tensor(1.3, dtype=dtype, device=cuda)
@@ -37,15 +42,23 @@ def test_cuda_kernels_match_plain(cuda, dtype, rtol, m, n):
     pairs = [(ck.cell_kuf(mesh, x, v, ell), ck.cell_kuf_plain(mesh, x, v, ell), rtol)]
     pairs += [(g, w, rtol) for g, w in zip(ck.cell_kuf_with_dl(mesh, x, v, ell),
                                            ck.cell_kuf_with_dl_plain(mesh, x, v, ell))]
-    a, t = ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell)
-    a_p, t_p = ck.fused_banded_whiten_kuf_plain(finv, mesh, x, v, ell)
-    pairs += [(a, a_p, rtol), (t, t_p, rtol if dtype == torch.float64 else 1e-3)]
+    a, t = ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell, *precisions)
+    a_p, t_p = ck.fused_banded_whiten_kuf_plain(finv, mesh, x, v, ell, *precisions)
+    pairs.append((a, a_p, rtol))
+    tf32_t = dtype == torch.float32 and precisions[1] == "default"
+    if not tf32_t:
+        pairs.append((t, t_p, rtol if dtype == torch.float64 else 1e-3))
     torch.cuda.synchronize()
     assert all(ck.LAUNCHES[k] == before[k] + 1 for k in ck.LAUNCHES)
     for got, want, tol in pairs:
         assert got.shape == want.shape
         err = float((got - want).abs().max() / want.abs().max())
         assert err < tol, err
+    if tf32_t:
+        _, t64 = ck.fused_banded_whiten_kuf_plain(
+            *(z.double() for z in (finv, mesh, x, v, ell)), "highest", "highest")
+        rel = lambda z: float((z.double() - t64).abs().max() / t64.abs().max())
+        assert rel(t) <= 2.0 * rel(t_p), (rel(t), rel(t_p))
 
 
 @pytest.mark.cuda
@@ -79,7 +92,10 @@ def test_cuda_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         ck.fused_banded_whiten_kuf(torch.eye(100, device=cuda),
                                    torch.linspace(0.0, 1.0, 101, device=cuda),
-                                   x, 1.0, 0.3)             # m not a multiple of 128
+                                   x, 1.0, 0.3, "highest", "default")   # m not a multiple of 128
+    with pytest.raises(ValueError):
+        ck.fused_banded_whiten_kuf(torch.eye(128, device=cuda), mesh, x, 1.0, 0.3,
+                                   "highest", "fastest")     # unknown precision
 
 
 @pytest.mark.cuda

@@ -203,8 +203,11 @@ def test_cell_kuf_with_dl_matches_jax(case):
     np.testing.assert_allclose(N(plain_d), np.asarray(want_d), rtol=1e-12, atol=1e-14)
 
 
-def test_fused_banded_whiten_kuf_plain_matches_pallas_interpret():
-    """m = 256, n = 300, float64, rtol 1e-10 (as tests/test_pallas.py)."""
+@pytest.mark.parametrize("a_precision,t_precision",
+                         [("highest", "highest"), ("highest", "default")])
+def test_fused_banded_whiten_kuf_plain_matches_pallas_interpret(a_precision, t_precision):
+    """m = 256, n = 300, float64, rtol 1e-10 (as tests/test_pallas.py), at
+    the precisions the main path passes and at "highest" for both."""
     m, n = 256, 300
     mesh = np.linspace(0.0, 1.0, m + 1)
     x = np.random.default_rng(7).random(n) * 1.2 - 0.1
@@ -212,10 +215,125 @@ def test_fused_banded_whiten_kuf_plain_matches_pallas_interpret():
     finv = jax_kms.m12_cell_inv_chol(m, 1.0 / m, jnp.asarray(v), jnp.asarray(ell), jit)
     a_want, t_want = jax_pk.fused_banded_whiten_kuf(
         finv, jnp.asarray(mesh), jnp.asarray(x), jnp.asarray(v), jnp.asarray(ell),
-        "highest", "highest")
-    a, t = ck.fused_banded_whiten_kuf(T(finv), T(mesh), T(x), T(v), T(ell))
+        a_precision, t_precision)
+    a, t = ck.fused_banded_whiten_kuf(T(finv), T(mesh), T(x), T(v), T(ell),
+                                      a_precision, t_precision)
     np.testing.assert_allclose(N(a), np.asarray(a_want), rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(N(t), np.asarray(t_want), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("bad", ["a", "t"])
+def test_fused_banded_whiten_kuf_rejects_an_unknown_precision(bad):
+    m = 256
+    mesh, x = T(np.linspace(0.0, 1.0, m + 1)), T(np.linspace(0.0, 1.0, 64))
+    finv = kms.m12_cell_inv_chol(m, 1.0 / m, T(1.0), T(0.3), 1e-6)
+    precs = {"a": "highest", "t": "default", bad: "fastest"}
+    with pytest.raises(ValueError, match="fastest"):
+        ck.fused_banded_whiten_kuf(finv, mesh, x, T(1.0), T(0.3), precs["a"], precs["t"])
+    with pytest.raises(ValueError, match="fastest"):
+        ck.fused_banded_whiten_kuf_plain(finv, mesh, x, T(1.0), T(0.3), precs["a"], precs["t"])
+
+
+# --------------------------------------------------------------------------- #
+# CPU evidence for the float32 tensor-core kernel (csrc/fused_whiten_tc.cu)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ell", [0.27, 3.0])
+def test_finv_diagonal_blocks_are_exactly_zero_above_the_diagonal(dtype, ell):
+    """The ground for the kernel's skip of D's upper triangle: every 128-block
+    on the diagonal of the port's F⁻¹ (after the Newton–Schulz step) is
+    exactly 0 above its diagonal, at m = 512."""
+    m = 512
+    as_t = lambda v: torch.tensor(v, dtype=dtype)
+    finv = kms.m12_cell_inv_chol(m, 1.0 / m, as_t(1.3), as_t(ell), 1e-6)
+    diag, _ = kms.band_blocks(finv)
+    upper = torch.triu(torch.ones(kms.BAND_BLOCK, kms.BAND_BLOCK, dtype=torch.bool), 1)
+    assert diag.shape == (m // kms.BAND_BLOCK, kms.BAND_BLOCK, kms.BAND_BLOCK)
+    assert bool((diag[:, upper] == 0).all())
+    assert bool((diag[:, ~upper] != 0).any())
+
+
+def _tf32(x, rounding="nearest"):
+    """float32 → TF32 (10 explicit mantissa bits) by bit masking: round to
+    nearest with ties away (the kernel's +half-ulp), or truncation (what the
+    tensor core reads of an fp32 operand that was not rounded)."""
+    bits = x.contiguous().view(torch.int32)
+    if rounding == "nearest":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _bf16(x):
+    """float32 → bf16 value, round to nearest even (cvt.rn.bf16x2)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _pieces(x, count, rnd):
+    """x ≈ p0 + p1 + … with each piece rounded by ``rnd`` and each remainder
+    exact in float32."""
+    out = []
+    for _ in range(count):
+        out.append(rnd(x))
+        x = x - out[-1]
+    return out
+
+
+# the six bf16 products of the kernel's split: small ones first, big last
+_SIX = [(1, 0), (0, 1), (2, 0), (0, 2), (1, 1)]
+
+
+def _emulated_tc_product(finv, k, split):
+    """The kernel's arithmetic in plain torch: the band product of rounded
+    pieces with fp32 accumulation, the small products and the big one summed
+    apart as in the kernel. ``split``: "tf32" one TF32 product, "3xtf32" the
+    three-product TF32 split, "bf16x6" the kernel's six-product bf16 split."""
+    band = kms.banded_apply
+    if split == "tf32":
+        return band(_tf32(finv), _tf32(k))
+    if split == "3xtf32":
+        d, kk = _pieces(finv, 2, _tf32), _pieces(k, 2, _tf32)
+        pairs = _SIX[:2]
+    else:
+        d, kk = _pieces(finv, 3, _bf16), _pieces(k, 3, _bf16)
+        pairs = _SIX
+    small = sum(band(d[i], kk[j]) for i, j in pairs)
+    return band(d[0], kk[0]) + small
+
+
+@pytest.mark.parametrize("ell", [0.27, 3.0])
+def test_tensor_core_arithmetic_meets_the_precision_contract(ell):
+    """At (512, 2048), against the f64 product of the same f32 inputs
+    (max|Δ|/max): the kernel's six-product bf16 split of ``a`` (the
+    reference's 6-pass "highest") is within 2× of the plain fp32 product's
+    own error (measured 0.8–1.0×), while the 3xTF32 split misses it by more
+    than 2× (measured 3.6–5.2×: 22 of fp32's 24 bits, amplified by the
+    cancellation in F⁻¹·Kuf) although it costs the same tensor time; and
+    colsum(a²) stays within the 2e-4 that chip_smoke holds the card to. The
+    one-pass TF32 ``t`` is within 2× of a TF32 product that reads its fp32
+    inputs by truncation. These fix chip_smoke.py's tolerances."""
+    m, n = 512, 2048
+    rng = np.random.default_rng(11)
+    mesh = torch.linspace(0.0, 1.0, m + 1, dtype=torch.float64).float()
+    x = torch.as_tensor(rng.random(n) * 1.1 - 0.05, dtype=torch.float32)
+    v, l32 = torch.tensor(1.3), torch.tensor(ell)
+    finv = kms.m12_cell_inv_chol(m, 1.0 / m, v, l32, 1e-6)
+    kuf, dkuf = ck.cell_kuf_with_dl_plain(mesh, x, v, l32)
+    band = kms.banded_apply
+    err = lambda got, want: float((got.double() - want).abs().max() / want.abs().max())
+
+    a_ref = band(finv.double(), kuf.double())
+    e_fp32 = err(band(finv, kuf), a_ref)
+    a6 = _emulated_tc_product(finv, kuf, "bf16x6")
+    assert err(a6, a_ref) <= 2.0 * e_fp32
+    assert err(_emulated_tc_product(finv, kuf, "3xtf32"), a_ref) > 2.0 * e_fp32
+    colsum = lambda a: torch.sum(a.double() ** 2, dim=0)
+    assert err(colsum(a6), colsum(a_ref)) < 2e-4
+
+    t_ref = band(finv.double(), dkuf.double())
+    e_t = err(_emulated_tc_product(finv, dkuf, "tf32"), t_ref)
+    e_trunc = err(_tf32(finv, "truncate") @ _tf32(dkuf, "truncate"), t_ref)
+    assert e_t <= 2.0 * e_trunc
 
 
 def test_cell_kuf_op_gradients_match_jax():
@@ -241,7 +359,7 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
     np.testing.assert_array_equal(N(ck.cell_kuf(mesh, x, 1.0, 0.3)),
                                   N(ck.cell_kuf_plain(mesh, x, 1.0, 0.3)))
     ck.cell_kuf_with_dl(mesh, x, T(1.0), T(0.3))
-    ck.fused_banded_whiten_kuf(finv, mesh, x, T(1.0), T(0.3))
+    ck.fused_banded_whiten_kuf(finv, mesh, x, T(1.0), T(0.3), "highest", "default")
     assert ck.LAUNCHES == {k: 0 for k in ck.LAUNCHES}
 
 

@@ -18,7 +18,8 @@ import torch
 MATMUL_PRECISION: str = "high"
 
 # Precision of the whitening apply F⁻¹·Kuf: its result is consumed through
-# the cancellation k_ff − ‖a‖², so it is always full fp32.
+# the cancellation k_ff − ‖a‖², so it is fp32-accurate, never single-pass
+# TF32 (full fp32 in cuBLAS, a six-product bf16 split in the fused kernel).
 WHITEN_MATMUL_PRECISION: str = "highest"
 
 # Precision of gradient-only matmuls (tangents and cotangents that never touch

@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the Matérn-1/2 B0 cell-integral
 // cross-covariance Kuf, the hot construction of the gridded SVGP step.
 //
-// Three kernels share one __device__ copy of the tile math (tile_kuf_dkuf),
+// The kernels share one __device__ copy of the tile math (cell_tile.cuh),
 // as the JAX package shares _tile_kuf_F / _tile_kuf_dkuf between its Pallas
 // kernels:
 //
@@ -10,94 +10,28 @@
 //   cell_kuf_with_dl         replaces vggp_tpu/ops/pallas_kernels.py:134
 //                            (cell_kuf_with_dl, pallas_call at :156)
 //   fused_banded_whiten_kuf  replaces vggp_tpu/ops/pallas_kernels.py:231
-//                            (fused_banded_whiten_kuf, pallas_call at :269)
+//                            (fused_banded_whiten_kuf, pallas_call at :269);
+//                            float64 only here, the float32 kernel is the
+//                            tensor-core one in fused_whiten_tc.cu
 //
-// Each is templated on float and double. Variance and lengthscale arrive as
-// a 2-element device array (the Pallas kernels' SMEM `scal`), so a launch
-// needs no host read of a trained parameter. The ragged edges are masked in
-// the kernels: outputs are exactly (m, n). Built without --use_fast_math:
-// expf/exp and the divisions are the precise ones, because the closed forms
-// are cancellation-sensitive (vggp_tpu_torch/ops/stablemath.py).
+// Kernels 1 and 2 are templated on float and double. Variance and
+// lengthscale arrive as a 2-element device array (the Pallas kernels' SMEM
+// `scal`), so a launch needs no host read of a trained parameter. The ragged
+// edges are masked in the kernels: outputs are exactly (m, n). Built without
+// --use_fast_math: expf/exp and the divisions are the precise ones, because
+// the closed forms are cancellation-sensitive
+// (vggp_tpu_torch/ops/stablemath.py).
 //
 // Plain C interface (loaded with ctypes): every entry point launches on the
 // stream it is given and returns cudaGetLastError() as an int.
 
 #include <cuda_runtime.h>
 
+#include "cell_tile.cuh"
+
 namespace {
 
-constexpr int BB = 128;  // band block of the structured F⁻¹ (ops/kms.BAND_BLOCK)
-
-// e^x − 1 − x for |x| < 1: Horner series over 1/k!, k = 2.. (10 terms in
-// float, all 17 in double) — the coefficients of ops/stablemath._INV_FACT.
-// A constexpr function, so that in the unrolled loop every coefficient is a
-// compile-time immediate of the working type (no constant-memory loads and
-// no double-to-float conversions per element).
-__host__ __device__ constexpr double inv_fact(int k) {  // 1/(k + 2)!
-  return k == 0 ? 0.5 : k == 1 ? 1.6666666666666666e-01
-       : k == 2 ? 4.1666666666666664e-02 : k == 3 ? 8.3333333333333332e-03
-       : k == 4 ? 1.3888888888888889e-03 : k == 5 ? 1.9841269841269841e-04
-       : k == 6 ? 2.4801587301587302e-05 : k == 7 ? 2.7557319223985893e-06
-       : k == 8 ? 2.7557319223985888e-07 : k == 9 ? 2.5052108385441720e-08
-       : k == 10 ? 2.0876756987868100e-09 : k == 11 ? 1.6059043836821613e-10
-       : k == 12 ? 1.1470745597729725e-11 : k == 13 ? 7.6471637318198164e-13
-       : k == 14 ? 4.7794773323873853e-14 : k == 15 ? 2.8114572543455206e-15
-       : 1.5619206968586226e-16;
-}
-
-template <typename T> struct Terms;
-template <> struct Terms<float> { static constexpr int n = 10; };
-template <> struct Terms<double> { static constexpr int n = 17; };
-
-__device__ __forceinline__ float exp_(float v) { return expf(v); }
-__device__ __forceinline__ double exp_(double v) { return exp(v); }
-
-template <typename T>
-__device__ __forceinline__ T expm1s(T x) {
-  const bool small = fabs(x) < T(1);
-  const T xs = small ? x : T(0);
-  T acc = T(inv_fact(Terms<T>::n - 1));
-#pragma unroll
-  for (int k = Terms<T>::n - 2; k >= 0; --k) acc = acc * xs + T(inv_fact(k));
-  return small ? acc * xs * xs + xs : exp_(x) - T(1);
-}
-
-// What one cell row [a, b] contributes to every element of the row: its
-// edges, δ/ℓ and expm1(−δ/ℓ) (the only series of the tile math).
-template <typename T>
-struct Row {
-  T a, b, dd, em_dd;
-};
-
-template <typename T>
-__device__ __forceinline__ Row<T> cell_row(T a, T b, T ell) {
-  const T dd = (b - a) / ell;
-  return {a, b, dd, expm1s(-dd)};
-}
-
-// One element of (Kuf, ∂Kuf/∂ℓ) for a cell row and a point x:
-//   Kuf = σ²ℓ·F,  ∂Kuf/∂ℓ = σ²(F + G)
-// with F the 3-case closed form. Inside the cell the identity
-// expm1(−u) + expm1(−w) = expm1(−δ/ℓ) − expm1(−u)·expm1(−w) leaves two
-// plain exps per element; the series runs once per row (cell_row).
-template <typename T, bool WITH_DL>
-__device__ __forceinline__ void tile_kuf_dkuf(const Row<T>& r, T x, T var, T ell,
-                                              T* kuf, T* dkuf) {
-  const T u = fabs(x - r.a) / ell;
-  const T w = fabs(x - r.b) / ell;
-  const bool inside = (x >= r.a) && (x <= r.b);
-  const T e_u = exp_(-u);
-  const T e_w = exp_(-w);
-  const T enear = fmax(e_u, e_w);
-  const T F = inside ? -r.em_dd + (e_u - T(1)) * (e_w - T(1)) : enear * (-r.em_dd);
-  *kuf = var * ell * F;
-  if constexpr (WITH_DL) {
-    const T near = fmin(u, w);
-    const T e_dd = T(1) + r.em_dd;
-    const T G = inside ? -(e_u * u + e_w * w) : enear * (near * (-r.em_dd) - e_dd * r.dd);
-    *dkuf = var * (F + G);
-  }
-}
+using namespace vggp_tile;
 
 // ---------------------------------------------------------------------------
 // Kernels 1 and 2: cell_kuf and cell_kuf_with_dl.
@@ -150,42 +84,35 @@ int launch_cell_kuf(const T* mesh, const T* x, const T* scal, T* out, T* dl,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 3: fused_banded_whiten_kuf.
+// Kernel 3 in float64: fused_banded_whiten_kuf.
 //
 // (a, t) = (F⁻¹·Kuf, F⁻¹·∂Kuf/∂ℓ) for a block-bidiagonal F⁻¹ at BB = 128:
 // output band block i is D_i·K_i + S_i·K_{i−1}, with D_i = F⁻¹[i, i],
 // S_i = F⁻¹[i, i−1] (zero at i = 0) and K_i the Kuf rows of band i. The Kuf
 // and ∂Kuf tiles are generated on chip and never written to device memory.
 //
-// Bound on the H100: fp32 FMA on the CUDA cores. Per output column the
-// kernel does 2·(2·nb − 1)·BB² multiply-adds for a and t together against
-// 8 bytes of output, hundreds of operations per byte; `a` feeds the
-// cancellation k_ff − ‖a‖² and must be full fp32, so neither TF32 nor the
-// tensor cores may compute it. Design: one block per (band block, TN
-// columns); the 128-deep contraction walks k-chunks of KC rows. Per chunk
-// the block generates the KC×TN Kuf and ∂Kuf tiles of the current and the
-// previous band into shared memory, stages the matching (BB, KC) slices of
-// D and S, and every thread accumulates an 8-row × 4-column register tile of
-// a and of t with FMAs. Whole (128, TN) tiles would not fit: at TN = 128 four
-// fp32 Kuf tiles plus D and S are 384 KB. The chunked loop needs
-// 4·KC·TN + 2·BB·KC values: 32 KB in float (KC = 16) and in double (KC = 8).
+// This body serves the float64 checks only: it ignores the precision strings
+// and multiplies in f64 FMA on the CUDA cores. The float32 kernel of the main
+// path is fused_whiten_tc.cu. Design: one block per (band block, TN columns);
+// the 128-deep contraction walks k-chunks of KC rows. Per chunk the block
+// generates the KC×TN Kuf and ∂Kuf tiles of the current and the previous
+// band into shared memory, stages the matching (BB, KC) slices of D and S,
+// and every thread accumulates an 8-row × 4-column register tile of a and of
+// t with FMAs: 4·KC·TN + 2·BB·KC doubles, 32 KB at KC = 8.
 // ---------------------------------------------------------------------------
 
 constexpr int FW_TN = 64;       // points per block
 constexpr int FW_THREADS = 256;
 constexpr int FW_RT = 8;        // rows per thread   (16 row groups × 8 = 128)
 constexpr int FW_CT = 4;        // columns per thread (16 col lanes × 4 = 64)
-
-template <typename T> struct Chunk;
-template <> struct Chunk<float> { static constexpr int kc = 16; };
-template <> struct Chunk<double> { static constexpr int kc = 8; };
+constexpr int FW_KC = 8;        // contraction rows per chunk
 
 template <typename T>
 __global__ void __launch_bounds__(FW_THREADS)
 fused_whiten_kernel(const T* __restrict__ finv, const T* __restrict__ mesh,
                     const T* __restrict__ x, const T* __restrict__ scal,
                     T* __restrict__ a_out, T* __restrict__ t_out, int m, int n) {
-  constexpr int KC = Chunk<T>::kc;
+  constexpr int KC = FW_KC;
   __shared__ T kc_s[KC][FW_TN], dkc_s[KC][FW_TN];   // current band rows
   __shared__ T kp_s[KC][FW_TN], dkp_s[KC][FW_TN];   // previous band rows
   __shared__ T d_s[BB][KC], s_s[BB][KC];            // F⁻¹ diag / sub slices
@@ -318,13 +245,6 @@ int cell_kuf_with_dl_f64(const double* mesh, const double* x, const double* scal
                          double* out, double* dl, int m, int n, void* stream) {
   return launch_cell_kuf<double, true>(mesh, x, scal, out, dl, m, n,
                                        static_cast<cudaStream_t>(stream));
-}
-
-int fused_banded_whiten_kuf_f32(const float* finv, const float* mesh, const float* x,
-                                const float* scal, float* a, float* t, int m, int n,
-                                void* stream) {
-  return launch_fused<float>(finv, mesh, x, scal, a, t, m, n,
-                             static_cast<cudaStream_t>(stream));
 }
 
 int fused_banded_whiten_kuf_f64(const double* finv, const double* mesh, const double* x,

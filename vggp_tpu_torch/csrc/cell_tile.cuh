@@ -1,0 +1,86 @@
+// The Matérn-1/2 B0 cell-integral tile math shared by the hand-written
+// kernels (csrc/cell_kuf.cu, csrc/fused_whiten_tc.cu), as the JAX package
+// shares _tile_kuf_F / _tile_kuf_dkuf between its Pallas kernels
+// (vggp_tpu/ops/pallas_kernels.py).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace vggp_tile {
+
+constexpr int BB = 128;  // band block of the structured F⁻¹ (ops/kms.BAND_BLOCK)
+
+// e^x − 1 − x for |x| < 1: Horner series over 1/k!, k = 2.. (10 terms in
+// float, all 17 in double) — the coefficients of ops/stablemath._INV_FACT.
+// A constexpr function, so that in the unrolled loop every coefficient is a
+// compile-time immediate of the working type (no constant-memory loads and
+// no double-to-float conversions per element).
+__host__ __device__ constexpr double inv_fact(int k) {  // 1/(k + 2)!
+  return k == 0 ? 0.5 : k == 1 ? 1.6666666666666666e-01
+       : k == 2 ? 4.1666666666666664e-02 : k == 3 ? 8.3333333333333332e-03
+       : k == 4 ? 1.3888888888888889e-03 : k == 5 ? 1.9841269841269841e-04
+       : k == 6 ? 2.4801587301587302e-05 : k == 7 ? 2.7557319223985893e-06
+       : k == 8 ? 2.7557319223985888e-07 : k == 9 ? 2.5052108385441720e-08
+       : k == 10 ? 2.0876756987868100e-09 : k == 11 ? 1.6059043836821613e-10
+       : k == 12 ? 1.1470745597729725e-11 : k == 13 ? 7.6471637318198164e-13
+       : k == 14 ? 4.7794773323873853e-14 : k == 15 ? 2.8114572543455206e-15
+       : 1.5619206968586226e-16;
+}
+
+template <typename T> struct Terms;
+template <> struct Terms<float> { static constexpr int n = 10; };
+template <> struct Terms<double> { static constexpr int n = 17; };
+
+__device__ __forceinline__ float exp_(float v) { return expf(v); }
+__device__ __forceinline__ double exp_(double v) { return exp(v); }
+
+template <typename T>
+__device__ __forceinline__ T expm1s(T x) {
+  const bool small = fabs(x) < T(1);
+  const T xs = small ? x : T(0);
+  T acc = T(inv_fact(Terms<T>::n - 1));
+#pragma unroll
+  for (int k = Terms<T>::n - 2; k >= 0; --k) acc = acc * xs + T(inv_fact(k));
+  return small ? acc * xs * xs + xs : exp_(x) - T(1);
+}
+
+// What one cell row [a, b] contributes to every element of the row: its
+// edges, δ/ℓ and expm1(−δ/ℓ) (the only series of the tile math).
+template <typename T>
+struct Row {
+  T a, b, dd, em_dd;
+};
+
+template <typename T>
+__device__ __forceinline__ Row<T> cell_row(T a, T b, T ell) {
+  const T dd = (b - a) / ell;
+  return {a, b, dd, expm1s(-dd)};
+}
+
+// One element of (Kuf, ∂Kuf/∂ℓ) for a cell row and a point x:
+//   Kuf = σ²ℓ·F,  ∂Kuf/∂ℓ = σ²(F + G)
+// with F the 3-case closed form. Inside the cell the identity
+// expm1(−u) + expm1(−w) = expm1(−δ/ℓ) − expm1(−u)·expm1(−w) leaves two
+// plain exps per element; the series runs once per row (cell_row).
+// `inv_ell` = 1/ℓ multiplies instead of dividing by ℓ (within an ulp of the
+// quotient); the cell_kuf kernels divide, the fused kernel multiplies.
+template <typename T, bool WITH_DL, bool RECIP = false>
+__device__ __forceinline__ void tile_kuf_dkuf(const Row<T>& r, T x, T var, T ell,
+                                              T* kuf, T* dkuf, T inv_ell = T(0)) {
+  const T u = RECIP ? fabs(x - r.a) * inv_ell : fabs(x - r.a) / ell;
+  const T w = RECIP ? fabs(x - r.b) * inv_ell : fabs(x - r.b) / ell;
+  const bool inside = (x >= r.a) && (x <= r.b);
+  const T e_u = exp_(-u);
+  const T e_w = exp_(-w);
+  const T enear = fmax(e_u, e_w);
+  const T F = inside ? -r.em_dd + (e_u - T(1)) * (e_w - T(1)) : enear * (-r.em_dd);
+  *kuf = var * ell * F;
+  if constexpr (WITH_DL) {
+    const T near = fmin(u, w);
+    const T e_dd = T(1) + r.em_dd;
+    const T G = inside ? -(e_u * u + e_w * w) : enear * (near * (-r.em_dd) - e_dd * r.dd);
+    *dkuf = var * (F + G);
+  }
+}
+
+}  // namespace vggp_tile

@@ -190,7 +190,9 @@ class CellIntegralFeature:
         mesh = self.mesh_j(p)
         v, ell = p["variance"], p["lengthscale"]
         if bool(ratio < 0.7):
-            return ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell)
+            return ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell,
+                                              config.WHITEN_MATMUL_PRECISION,
+                                              config.GRAD_MATMUL_PRECISION)
         kuf, dkuf = ck.cell_kuf_with_dl(mesh, x, v, ell)
         with config.matmul_precision(config.WHITEN_MATMUL_PRECISION):
             a = finv @ kuf

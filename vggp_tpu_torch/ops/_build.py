@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/cell_kuf.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``. The library is
-built at first use into ``vggp_tpu_torch/_build/``, keyed by a hash of the
-source and the flags, so an edited source builds anew and an unchanged one
-is loaded from disk. Nothing here runs at import time.
+Each source in :data:`SOURCES` is compiled with ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface and loaded with ``ctypes``;
+the builds of a first use run side by side, one ``nvcc`` per source. A
+library is built into ``vggp_tpu_torch/_build/``, keyed by a hash of its
+source, the shared header and the flags, so an edited source builds anew and
+an unchanged one is loaded from disk. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,12 +18,29 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "cell_kuf.cu"
+_CSRC = _PKG / "csrc"
+HEADER = _CSRC / "cell_tile.cuh"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# source → {C entry point: argument types}; every entry point returns an int
+SOURCES = {
+    _CSRC / "cell_kuf.cu": {
+        "cell_kuf_f32": [_P] * 4 + [_I, _I, _P],
+        "cell_kuf_f64": [_P] * 4 + [_I, _I, _P],
+        "cell_kuf_with_dl_f32": [_P] * 5 + [_I, _I, _P],
+        "cell_kuf_with_dl_f64": [_P] * 5 + [_I, _I, _P],
+        "fused_banded_whiten_kuf_f64": [_P] * 6 + [_I, _I, _P],
+    },
+    _CSRC / "fused_whiten_tc.cu": {
+        "fused_banded_whiten_kuf_f32": [_P] * 6 + [_I, _I, _I, _I, _P],
+    },
+}
 
 _lib = None
 _build_seconds = None
@@ -37,52 +55,60 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"cell_kuf_{digest.hexdigest()[:16]}.so"
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + HEADER.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path) -> None:
+def _compile_all(sources) -> None:
+    """Run one nvcc per source, all at once; each library appears atomically."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    jobs = []
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)   # atomic: a reader never sees a partial library
+        for src in sources:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((src, tmp, proc))
+        for src, tmp, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+            os.replace(tmp, library_path(src))   # a reader never sees a partial library
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-
-
-def _declare(lib) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for dt in ("f32", "f64"):
-        getattr(lib, f"cell_kuf_{dt}").argtypes = [p, p, p, p, i, i, p]
-        getattr(lib, f"cell_kuf_with_dl_{dt}").argtypes = [p, p, p, p, p, i, i, p]
-        getattr(lib, f"fused_banded_whiten_kuf_{dt}").argtypes = [p, p, p, p, p, p, i, i, p]
-        for name in ("cell_kuf", "cell_kuf_with_dl", "fused_banded_whiten_kuf"):
-            getattr(lib, f"{name}_{dt}").restype = i
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
 
 
 def load():
-    """The loaded kernel library, built first if it is not on disk."""
+    """The kernels' C entry points as attributes of one namespace, each
+    library built first if it is not on disk."""
     global _lib, _build_seconds
     if _lib is None:
-        path = library_path()
         t0 = time.perf_counter()
-        if not path.exists():
-            _compile(path)
+        missing = [src for src in SOURCES if not library_path(src).exists()]
+        if missing:
+            _compile_all(missing)
         _build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
-        _declare(lib)
-        _lib = lib
+        fns = {}
+        for src, entries in SOURCES.items():
+            lib = ctypes.CDLL(str(library_path(src)))
+            for name, argtypes in entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I
+                fns[name] = fn
+        _lib = SimpleNamespace(**fns)
     return _lib
 
 
 def build_seconds():
     """Seconds the first :func:`load` of this process spent building (near 0
-    when the library was already on disk), or None before it."""
+    when the libraries were already on disk), or None before it."""
     return _build_seconds

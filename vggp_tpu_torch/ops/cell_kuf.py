@@ -1,14 +1,15 @@
 """Matérn-1/2 cell-integral Kuf kernels: CUDA wrappers and plain versions.
 
 Port of ``vggp_tpu/ops/pallas_kernels.py``. Each TPU kernel there has a
-hand-written CUDA counterpart in ``csrc/cell_kuf.cu`` and a plain PyTorch
+hand-written CUDA counterpart in ``csrc/`` and a plain PyTorch
 version here, written from the same tile math:
 
 - ``cell_kuf`` replaces ``pallas_kernels.py:84``; plain ``cell_kuf_plain``.
 - ``cell_kuf_with_dl`` replaces ``pallas_kernels.py:134``; plain
   ``cell_kuf_with_dl_plain``.
 - ``fused_banded_whiten_kuf`` replaces ``pallas_kernels.py:231``; plain
-  ``fused_banded_whiten_kuf_plain``.
+  ``fused_banded_whiten_kuf_plain``. Its float32 kernel is the tensor-core
+  one of ``csrc/fused_whiten_tc.cu``; float64 runs ``csrc/cell_kuf.cu``.
 
 A wrapper takes its plain version only for CPU tensors (the tests); for a
 CUDA tensor it launches the kernel or raises. Each launch adds one to
@@ -84,12 +85,18 @@ def cell_kuf_with_dl_plain(mesh, x, variance, lengthscale):
     return _tile_kuf_dkuf(a, b, xr, variance, lengthscale)
 
 
-def fused_banded_whiten_kuf_plain(finv, mesh, x, variance, lengthscale):
-    """(F⁻¹·Kuf, F⁻¹·∂Kuf/∂ℓ) over the block-bidiagonal band, full fp32 —
-    the plain version of :func:`fused_banded_whiten_kuf`."""
+def fused_banded_whiten_kuf_plain(finv, mesh, x, variance, lengthscale,
+                                  a_precision: str, t_precision: str):
+    """(F⁻¹·Kuf, F⁻¹·∂Kuf/∂ℓ) over the block-bidiagonal band, ``a`` at
+    ``a_precision`` and ``t`` at ``t_precision`` (JAX names, through
+    :func:`config.matmul_precision`: on the card "default" lets cuBLAS use
+    TF32; on the CPU both are full precision) — the plain version of
+    :func:`fused_banded_whiten_kuf`."""
     kuf, dkuf = cell_kuf_with_dl_plain(mesh, x, variance, lengthscale)
-    with config.matmul_precision("highest"):
-        return banded_apply(finv, kuf), banded_apply(finv, dkuf)
+    with config.matmul_precision(a_precision):
+        a = banded_apply(finv, kuf)
+    with config.matmul_precision(t_precision):
+        return a, banded_apply(finv, dkuf)
 
 
 def _cell_kuf_FG(mesh, x, lengthscale):
@@ -206,16 +213,30 @@ def cell_kuf_with_dl(mesh, x, variance, lengthscale):
     return out, dl
 
 
-def fused_banded_whiten_kuf(finv, mesh, x, variance, lengthscale):
+# JAX precision name → the float32 kernel's split flag: 1 for the
+# fp32-accurate six-product bf16 split, 0 for one TF32 product.
+_SPLIT = {"highest": 1, "high": 1, "default": 0}
+
+
+def fused_banded_whiten_kuf(finv, mesh, x, variance, lengthscale,
+                            a_precision: str, t_precision: str):
     """(a, t) = (F⁻¹·Kuf, F⁻¹·∂Kuf/∂ℓ) without materialising Kuf or ∂Kuf.
 
     ``finv`` must be block-bidiagonal at ``BAND_BLOCK`` (the caller gates on
     the geometric ratio, as for ``kms.banded_whiten_apply``) with m divisible
-    by ``BAND_BLOCK`` and at least two blocks. Both outputs are full fp32 (or
-    f64) products on the card.
+    by ``BAND_BLOCK`` and at least two blocks. ``a_precision`` and
+    ``t_precision`` are the JAX kernel's strings: in float32 on the card
+    "highest" and "high" are fp32-accurate (a six-product bf16 split on the
+    tensor cores, the reference's 6-pass "highest") and "default" is one
+    TF32 product; float64, and the plain version on the CPU, compute both at
+    full precision. Any other string raises.
     """
+    for prec in (a_precision, t_precision):
+        if prec not in _SPLIT:
+            raise ValueError(f"unknown matmul precision {prec!r}")
     if _on_cpu(finv, mesh, x):
-        return fused_banded_whiten_kuf_plain(finv, mesh, x, variance, lengthscale)
+        return fused_banded_whiten_kuf_plain(finv, mesh, x, variance, lengthscale,
+                                             a_precision, t_precision)
     sfx, m, n = _checked(mesh, x, finv)
     if finv.shape != (m, m) or m % BAND_BLOCK != 0 or m // BAND_BLOCK < 2:
         raise ValueError(f"finv must be (m, m) with m a multiple of {BAND_BLOCK} "
@@ -226,9 +247,12 @@ def fused_banded_whiten_kuf(finv, mesh, x, variance, lengthscale):
     scal = _scal(variance, lengthscale, mesh)
     a = torch.empty((m, n), dtype=mesh.dtype, device=mesh.device)
     t = torch.empty_like(a)
-    rc = getattr(lib, f"fused_banded_whiten_kuf_{sfx}")(
-        _ptr(finv), _ptr(mesh), _ptr(x), _ptr(scal), _ptr(a), _ptr(t), m, n,
-        _stream(mesh))
+    args = [_ptr(finv), _ptr(mesh), _ptr(x), _ptr(scal), _ptr(a), _ptr(t), m, n]
+    if sfx == "f32":
+        if finv.data_ptr() % 16 != 0:
+            raise ValueError("finv must be 16-byte aligned for the float32 kernel")
+        args += [_SPLIT[a_precision], _SPLIT[t_precision]]
+    rc = getattr(lib, f"fused_banded_whiten_kuf_{sfx}")(*args, _stream(mesh))
     _raise_on(rc, "fused_banded_whiten_kuf")
     LAUNCHES["fused_banded_whiten_kuf"] += 1
     return a, t
