@@ -9,7 +9,9 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``vggp_tpu_torch/csrc/``, side by side);
 3. hold each kernel against its plain PyTorch version on the card, in
    float64 and float32, at the main path's shapes and at a ragged shape (the
-   fused kernel at the main path's precisions and at "highest" for both),
+   fused kernel at the main path's precisions and at "highest" for both;
+   ``cell_kuf`` also at the serving grid's (512, 65 536), a ragged row
+   length, one cell and an x that is a view at an offset),
    and the float32 and float64 results against the cell-Kuf goldens of
    ``bench.py`` (copied here; the port imports nothing of the JAX package),
    and the float32 closed-form F⁻¹ with and without its Newton–Schulz step
@@ -25,9 +27,10 @@ Phases (each asserts; any failure exits non-zero before the result line):
 6. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
 7. time each kernel and its plain version (device time from the profiler's
-   CUDA trace, call time from CUDA events), and the fused kernel beside the
-   unfused route it replaces, and print them and the steady-state step
-   times with the card's name and power limit.
+   CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
+   serving grid's (512, 65 536) beside one warm ``posterior`` on that grid,
+   and the fused kernel beside the unfused route it replaces, and print them
+   and the steady-state step times with the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -45,6 +48,7 @@ NUM_DATA = 1_000_000
 TRAIN_BATCH = 4096
 FUSED_BATCH = 16384
 SERVE_POINTS = 4096
+SERVE_GRID = 256       # phase 7: posterior on a 256×256 prediction grid
 TRAIN_STEPS = 20       # first WARM_STEPS untimed
 FUSED_STEPS = 8
 WARM_STEPS = 3
@@ -63,12 +67,23 @@ BF16_FLOPS_PER_S = 989e12
 MAIN_PRECISIONS = ("highest", "default")
 TC_PRODUCTS = {"highest": 6, "high": 6, "default": 1}
 
-# Operations per output element of the cell tile math, counted from
-# tile_kuf_dkuf in csrc/cell_kuf.cu with each exp and each division as one
-# operation (the per-row series of cell_row is amortised over the row):
-# Kuf alone ≈ 20, Kuf and ∂Kuf/∂ℓ ≈ 30.
-OPS_KUF = 20
-OPS_KUF_DL = 30
+# The cell tile math's operations per output element: what the function
+# needs, as fp32 instructions of the CUDA cores, whose issue rate is half the
+# fp32 FLOP rate (that rate counts an FMA as two operations). A precise exp
+# or division is several instructions, not one: expf is 8 in the SASS (range
+# reduction, one MUFU.EX2, scaling), an IEEE division about 9. The function
+# needs no division per element (1/ℓ is one per launch) and one exp
+# (e^{−near}; the far exp only inside the cell, one row in m):
+#   Kuf: x − a, x − b, two products by 1/ℓ (|·| is an operand modifier),
+#        min, the exp (8), two compares, e^{−near} times the row's
+#        σ²ℓ·(−expm1(−δ/ℓ)): 16;
+#   Kuf and ∂Kuf/∂ℓ: the same with F = e^{−near}·(−expm1(−δ/ℓ)) and σ²ℓ·F
+#        (17), and G = e^{−near}·(near·(−expm1(−δ/ℓ)) − e^{−δ/ℓ}·δ/ℓ) (3),
+#        F + G and σ²·: 22.
+# The per-row series of cell_row is amortised over the row.
+OPS_KUF = 16
+OPS_KUF_DL = 22
+FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
 
 # float64 cell-Kuf goldens of bench.py:69-84 (128 cells on [0, 1],
 # σ² = 1.3, ℓ = 0.27, points linspace(0.013, 0.987, 256)).
@@ -120,6 +135,12 @@ _REPLACES = {
     "cell_kuf": "vggp_tpu/ops/pallas_kernels.py:84",
     "cell_kuf_with_dl": "vggp_tpu/ops/pallas_kernels.py:134",
     "fused_banded_whiten_kuf": "vggp_tpu/ops/pallas_kernels.py:231",
+}
+# the device kernel each wrapper launches (torch.profiler names contain it)
+_DEVICE_KERNELS = {
+    "cell_kuf": "cell_kuf_primal_kernel",
+    "cell_kuf_with_dl": "cell_kuf_with_dl_kernel",
+    "fused_banded_whiten_kuf": "fused_whiten_tc_kernel",
 }
 _SOURCES = {
     "cell_kuf": "vggp_tpu_torch/csrc/cell_kuf.cu",
@@ -256,6 +277,16 @@ def check_kernels(device) -> dict:
             for name, g, w in zip(("Kuf", "dKuf"), ck.cell_kuf_with_dl(mesh, x, v, ell),
                                   ck.cell_kuf_with_dl_plain(mesh, x, v, ell)):
                 compare("cell_kuf_with_dl", name, g, w, tol, tag, shape)
+        # cell_kuf alone: the serving grid's shape, a ragged row length
+        # (n % 4 = 3), one cell, and x as a view at a 4-byte offset
+        for shape, offset in (((M_AXIS, SERVE_GRID ** 2), 0), ((37, 1023), 0), ((1, 5), 0),
+                              ((64, 1001), 1)):
+            mesh, x, v, ell, _ = kernel_inputs(shape[0], shape[1] + offset, dtype, device,
+                                               seed=6)
+            x = x[offset:]
+            compare("cell_kuf", "Kuf", ck.cell_kuf(mesh, x, v, ell),
+                    ck.cell_kuf_plain(mesh, x, v, ell), tol, tag,
+                    shape + (("x at +1",) if offset else ()))
         for shape in ((M_AXIS, FUSED_BATCH), (256, 301)):
             mesh, x, v, ell, finv = kernel_inputs(*shape, dtype, device, seed=2)
             for precs in (MAIN_PRECISIONS, ("highest", "highest")):
@@ -563,40 +594,86 @@ def fused_bounds(m: int, n: int, precisions) -> dict:
     tensor = sum(2 * TC_PRODUCTS[p] * band * n
                  / (BF16_FLOPS_PER_S if TC_PRODUCTS[p] > 1 else TF32_FLOPS_PER_S)
                  for p in precisions) * 1e3
-    t_gen = m * n * OPS_KUF_DL / FP32_FLOPS_PER_S * 1e3
-    t_fma = (2 * 2 * band * n + m * n * OPS_KUF_DL) / FP32_FLOPS_PER_S * 1e3
+    t_gen = m * n * OPS_KUF_DL / FP32_INSTR_PER_S * 1e3
+    t_fma = 2 * 2 * band * n / FP32_FLOPS_PER_S * 1e3 + t_gen
     t_ops = max(tensor, t_gen)
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_fp32_fma_ms": max(t_bytes, t_fma)}
 
 
-def measure_kernels(device, errs, launches) -> list:
+def kuf_bounds(m: int, n: int, with_dl: bool) -> dict:
+    """The card's least time (ms) for cell_kuf (or cell_kuf_with_dl) at
+    (m, n) in float32: the bytes (mesh, x, scalars, the outputs) over HBM, or
+    the needed instructions (OPS_KUF, OPS_KUF_DL) over the fp32 issue rate,
+    whichever is larger."""
+    f4, outs = 4, 2 if with_dl else 1
+    t_bytes = ((m + 1 + n + 2) + outs * m * n) * f4 / HBM_BYTES_PER_S * 1e3
+    t_ops = m * n * (OPS_KUF_DL if with_dl else OPS_KUF) / FP32_INSTR_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_serving_grid(device, model) -> dict:
+    """Phase 7b: cell_kuf at the serving grid's (512, 65 536) in f32, kernel
+    in turns with its plain version, and one warm ``posterior`` on the
+    256×256 grid (host clock around a call that ends in synchronize), so
+    the kernel's time and the serving time stand side by side."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    n = SERVE_GRID ** 2
+    mesh, x, v, ell, _ = kernel_inputs(M_AXIS, n, torch.float32, device, seed=7)
+    kern = lambda: ck.cell_kuf(mesh, x, v, ell)
+    plain = lambda: ck.cell_kuf_plain(mesh, x, v, ell)
+    p1, _ = time_ms(plain, iters=10)
+    k1, _ = time_ms(kern, iters=20, kernel=_DEVICE_KERNELS["cell_kuf"])
+    k2, _ = time_ms(kern, iters=20, kernel=_DEVICE_KERNELS["cell_kuf"])
+    p2, _ = time_ms(plain, iters=10)
+    out = {"shape": [M_AXIS, n], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           **kuf_bounds(M_AXIS, n, False)}
+    print(f"time cell_kuf at ({M_AXIS}, {n}): device ms kernel {k1:.5f}/{k2:.5f}, "
+          f"plain {p1:.5f}/{p2:.5f}; bound {out['bound_ms']:.5f} ms ({out['bound_by']})")
+
+    g = (torch.arange(SERVE_GRID, dtype=torch.float32, device=device) + 0.5) / SERVE_GRID
+    grid = torch.cartesian_prod(g, g)
+    with torch.no_grad():
+        model.posterior(grid)   # warm
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = model.posterior(grid)
+        torch.cuda.synchronize()
+    out["posterior_ms"] = (time.perf_counter() - t0) * 1e3
+    got = dict(ck.LAUNCHES)
+    check(got["cell_kuf"] == 2, f"launches of the posterior on the grid: {got}")
+    check(post.mean.shape == (n,) and bool(torch.isfinite(post.mean).all()
+                                           and (post.var > 0).all()),
+          "posterior on the grid: shape, finite mean, positive variance")
+    print(f"serve a {SERVE_GRID}x{SERVE_GRID} grid ({n} points): warm posterior "
+          f"{out['posterior_ms']:.3f} ms, launches {got}")
+    return out
+
+
+def measure_kernels(device, errs, launches, serving_grid) -> list:
     """Phase 7: kernel and plain times at the main path's f32 shapes, and the
     fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
-    kms.banded_whiten_apply for a at "highest" and t at "default")."""
+    kms.banded_whiten_apply for a at "highest" and t at "default");
+    ``serving_grid`` (phase 7b) goes into cell_kuf's row."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
     from vggp_tpu_torch.ops import kms
 
-    f4 = 4
     rows = []
     mesh, x, v, ell, _ = kernel_inputs(M_AXIS, TRAIN_BATCH, torch.float32, device, seed=3)
-    m, n = M_AXIS, TRAIN_BATCH
-    in_bytes = (m + 1 + n + 2) * f4
-    # (name, device kernel's name, kernel call, plain call, bound)
-    cases = []
-    for name, call, plain, out_bytes, ops in (
-            ("cell_kuf", ck.cell_kuf, ck.cell_kuf_plain, m * n * f4, m * n * OPS_KUF),
-            ("cell_kuf_with_dl", ck.cell_kuf_with_dl, ck.cell_kuf_with_dl_plain,
-             2 * m * n * f4, m * n * OPS_KUF_DL)):
-        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS_PER_S * 1e3
-        cases.append((name, "cell_kuf_kernel", lambda c=call: c(mesh, x, v, ell),
-                      lambda c=plain: c(mesh, x, v, ell),
-                      {"bound_ms": max(t_bytes, t_ops),
-                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}))
+    # (name, kernel call, plain call, bound)
+    cases = [(name, lambda c=call: c(mesh, x, v, ell), lambda c=plain: c(mesh, x, v, ell),
+              kuf_bounds(M_AXIS, TRAIN_BATCH, name == "cell_kuf_with_dl"))
+             for name, call, plain in (
+                 ("cell_kuf", ck.cell_kuf, ck.cell_kuf_plain),
+                 ("cell_kuf_with_dl", ck.cell_kuf_with_dl, ck.cell_kuf_with_dl_plain))]
     nf = FUSED_BATCH
     meshf, xf, vf, ellf, finv = kernel_inputs(M_AXIS, nf, torch.float32, device, seed=4)
     q = kms.m12_geometric_ratio(1.0 / M_AXIS, ellf, 1e-6)
@@ -607,12 +684,13 @@ def measure_kernels(device, errs, launches) -> list:
                 kms.banded_whiten_apply(finv, dkuf, q, MAIN_PRECISIONS[1]))
 
     cases.append((
-        "fused_banded_whiten_kuf", "fused_whiten_tc_kernel",
+        "fused_banded_whiten_kuf",
         lambda: ck.fused_banded_whiten_kuf(finv, meshf, xf, vf, ellf, *MAIN_PRECISIONS),
         lambda: ck.fused_banded_whiten_kuf_plain(finv, meshf, xf, vf, ellf, *MAIN_PRECISIONS),
         fused_bounds(M_AXIS, nf, MAIN_PRECISIONS),
     ))
-    for name, dev_kernel, kern, plain, bound in cases:
+    for name, kern, plain, bound in cases:
+        dev_kernel = _DEVICE_KERNELS[name]
         fused = name == "fused_banded_whiten_kuf"
         # in turns: plain, kernel, (unfused, unfused,) kernel, plain
         p1, pc1 = time_ms(plain)
@@ -629,6 +707,8 @@ def measure_kernels(device, errs, launches) -> list:
             **bound, "library_ms": None,
         }
         extra = ""
+        if name == "cell_kuf":
+            row["at_serving_grid"] = serving_grid
         if fused:
             row["precisions"] = list(MAIN_PRECISIONS)
             row["unfused_ms"] = (u1 + u2) / 2
@@ -669,7 +749,9 @@ def main() -> int:
     check_fused_against_cpu_f64(spec, model, X, y)
     for batch in (TRAIN_BATCH, FUSED_BATCH):
         timings.update(profile_steps(step, X, y, batch, gen))
-    rows = measure_kernels(device, errs, launches)
+    serving_grid = time_serving_grid(device, model)
+    timings["posterior_ms_grid65536"] = serving_grid["posterior_ms"]
+    rows = measure_kernels(device, errs, launches, serving_grid)
     timings["card"] = card
     print(json.dumps({"steps": timings}))
     print(json.dumps({"kernels": rows, "card": card}))

@@ -81,6 +81,62 @@ def test_cuda_small_shapes_launch_the_kernels(cuda, m, n):
         assert float((got - want).abs().max() / want.abs().max()) < 1e-12
 
 
+def _at_offset(t):
+    """t's values in a contiguous view one element into a larger buffer: a
+    4-byte (f32) or 8-byte (f64) offset, so not 16-byte aligned."""
+    big = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    big[1:] = t
+    return big[1:]
+
+
+_EDGES = torch.linspace(0.0, 1.0, 17, dtype=torch.float64)
+_MESH = torch.linspace(0.0, 1.0, 65, dtype=torch.float64)
+
+
+def _points(n):
+    return torch.linspace(-0.1, 1.1, n, dtype=torch.float64)
+
+
+_LAYOUTS = {
+    # (mesh, x): ragged rows (n % 4 = 1, 2, 3), fewer points than one warp's
+    # 16-byte chunk, one cell, x at an offset, points on every edge and far
+    # outside (f32 exp underflows to 0 there)
+    "n%4=1": (_MESH, _points(1025)),
+    "n%4=2": (_MESH, _points(1026)),
+    "n%4=3": (_MESH, _points(1027)),
+    "n<chunk": (torch.linspace(0.0, 1.0, 6, dtype=torch.float64), _points(100)),
+    "m=1": (torch.tensor([0.25, 0.5], dtype=torch.float64), _points(4096)),
+    "x_offset": (_MESH, _points(1024)),
+    "edges": (_EDGES, torch.cat([_EDGES, (_EDGES[:-1] + _EDGES[1:]) / 2,
+                                 torch.tensor([-60.0, 1.5, 80.0], dtype=torch.float64)])),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("case", sorted(_LAYOUTS))
+def test_cuda_cell_kuf_layouts_match_plain(cuda, dtype, rtol, case):
+    """cell_kuf against its plain version where the kernel leaves its
+    16-byte path (ragged rows, x at an offset) or its grid is tiny:
+    max|Δ|/max|plain| at 1e-12 (f64) and 2e-5 (f32), one launch each."""
+    mesh, x = (z.to(dtype=dtype, device=cuda) for z in _LAYOUTS[case])
+    if case == "x_offset":
+        x = _at_offset(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    v = torch.tensor(1.3, dtype=dtype, device=cuda)
+    ell = torch.tensor(0.27, dtype=dtype, device=cuda)
+    before = ck.LAUNCHES["cell_kuf"]
+    got = ck.cell_kuf(mesh, x, v, ell)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cell_kuf"] == before + 1
+    want = ck.cell_kuf_plain(mesh, x, v, ell)
+    assert got.shape == want.shape == (mesh.numel() - 1, x.numel())
+    assert float((got - want).abs().max() / want.abs().max()) < rtol
+    if case == "edges" and dtype == torch.float32:
+        far = x.abs() > 40
+        assert bool((got[:, far] == 0).all()) and bool((want[:, far] == 0).all())
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_check_their_inputs(cuda):
     mesh = torch.linspace(0.0, 1.0, 129, device=cuda)

@@ -188,6 +188,67 @@ def test_cell_kuf_plain_matches_pallas_interpret(case):
         rtol=1e-12, atol=1e-14)
 
 
+def _kernel_form_kuf(mesh, x, variance, lengthscale):
+    """The cell_kuf kernel's arithmetic (``kuf_points`` in
+    ``csrc/cell_tile.cuh``) in torch, in its order: 1/ℓ once; u and w as
+    products by it; e^{−near} = exp(−min(u, w)) for every element; outside
+    the cell Kuf = e^{−near}·σ²ℓ·(−expm1(−δ/ℓ)), the coefficient once per
+    row; inside σ²ℓ·(−expm1(−δ/ℓ) + (e^{−near} − 1)(e^{−far} − 1)), with the
+    far exp taken there only."""
+    a, b, xr = mesh[:-1, None], mesh[1:, None], x.reshape(1, -1)
+    var_ell = variance * lengthscale
+    inv_ell = 1.0 / lengthscale
+    em_dd = stablemath.expm1s(-(b - a) / lengthscale)
+    u = torch.abs(xr - a) * inv_ell
+    w = torch.abs(xr - b) * inv_ell
+    enear = torch.exp(-torch.minimum(u, w))
+    kuf = enear * (var_ell * (-em_dd))
+    inside = (xr >= a) & (xr <= b)
+    efar = torch.exp(-torch.maximum(u[inside], w[inside]))
+    kuf[inside] = var_ell * (-em_dd.expand_as(kuf)[inside]
+                             + (enear[inside] - 1.0) * (efar - 1.0))
+    return kuf
+
+
+_EDGE_MESH = np.linspace(0.0, 1.0, 17)
+_KERNEL_FORM_CASES = {
+    **_KUF_CASES,
+    # every edge (both mesh ends included) and every cell's midpoint
+    "edges": (_EDGE_MESH, np.concatenate([_EDGE_MESH, (_EDGE_MESH[:-1] + _EDGE_MESH[1:]) / 2]),
+              1.3, 0.27),
+    # points so far outside that float32's exp underflows to 0 (u > 100)
+    "far": (_EDGE_MESH, np.array([-60.0, -30.0, -0.3, 0.4, 1.7, 45.0, 80.0]), 1.3, 0.27),
+    "ell_small": (np.linspace(0.0, 1.0, 65),
+                  np.random.default_rng(9).random(53) * 1.1 - 0.05, 0.8, 0.003),
+    "ell_large": (np.linspace(0.0, 1.0, 65),
+                  np.random.default_rng(10).random(53) * 1.1 - 0.05, 0.8, 4.0),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", sorted(_KERNEL_FORM_CASES))
+def test_cell_kuf_kernel_form_matches_pallas_interpret(case, dtype):
+    """The CUDA cell_kuf kernel's one-exp form against the TPU kernel
+    (interpret mode) and the plain version, which take two exps per element
+    and divide by ℓ: float64 at rtol 1e-12, float32 at 2e-5 of max|Kuf|
+    (chip_smoke's bounds), and float32 exact zeros where exp underflows."""
+    mesh, x, v, ell = (np.asarray(z, dtype=dtype) for z in _KERNEL_FORM_CASES[case])
+    tt = lambda z: torch.as_tensor(z)
+    got = N(_kernel_form_kuf(tt(mesh), tt(x), tt(v), tt(ell)))
+    pallas = np.asarray(jax_pk.cell_kuf(jnp.asarray(mesh), jnp.asarray(x), jnp.asarray(v),
+                                        jnp.asarray(ell)))
+    plain = N(ck.cell_kuf_plain(tt(mesh), tt(x), tt(v), tt(ell)))
+    assert got.dtype == pallas.dtype == plain.dtype == dtype
+    for want in (pallas, plain):
+        if dtype == np.float64:
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+        else:
+            assert np.abs(got - want).max() / np.abs(want).max() < 2e-5
+    if case == "far" and dtype == np.float32:
+        far = np.abs(x) > 40
+        assert (got[:, far] == 0).all() and (plain[:, far] == 0).all()
+
+
 @pytest.mark.parametrize("case", sorted(_KUF_CASES))
 def test_cell_kuf_with_dl_matches_jax(case):
     """Off the TPU the JAX function evaluates ``_cell_kuf_FG``; the port's

@@ -25,6 +25,8 @@
 // Plain C interface (loaded with ctypes): every entry point launches on the
 // stream it is given and returns cudaGetLastError() as an int.
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #include "cell_tile.cuh"
@@ -34,27 +36,189 @@ namespace {
 using namespace vggp_tile;
 
 // ---------------------------------------------------------------------------
-// Kernels 1 and 2: cell_kuf and cell_kuf_with_dl.
+// Kernel 1: cell_kuf, Kuf alone (the serving path's kernel).
 //
-// Bound on the H100: the output writes. Each element costs two exps and
-// about 20 (Kuf) or 30 (Kuf and ∂Kuf) operations against 4 (or 8) bytes
-// written in float — below the card's ~20 operations per byte, so the kernel
-// is bound by writing m·n (or 2·m·n) values. Design: each thread takes one
-// cell row and KUF_COLS points of it, so the row's series (cell_row) runs
-// once per KUF_COLS elements; the 32 threads of a warp take 32 neighbouring
-// points, so every store is one coalesced 128-byte line (float). The inputs
-// (m + 1 edges, n points, 2 scalars) are tiny and stay in L1/L2.
+// Bound on the H100: the output writes, m·n values once, which the card can
+// take at 3.35 TB/s only if the instructions per element stay below about 40
+// (its ~33e12 lane-instructions a second over ~0.84e12 floats a second). A
+// precise expf is 8 instructions in the SASS and an IEEE division about 9, so
+// the element's work is kept to one exp and no division (kuf_points in
+// cell_tile.cuh): 1/ℓ is one division per thread, the far exp runs only
+// inside the cell, the row's δ/ℓ and series (cell_row) only when a warp
+// enters a new row.
+//
+// Design: one wave of blocks (at most what the card holds at once, occupancy
+// × SMs) over a list of m·⌈n / CHUNK⌉ chunks in row-major order; a
+// chunk is CHUNK = 32·VN consecutive points of one cell row, VN = 16 bytes of
+// points (4 floats, 2 doubles) per lane. Each warp walks its own contiguous
+// run of chunks (the runs differ by at most one chunk), so a run crosses
+// few row ends and the per-warp set-up is paid once. With VEC each lane
+// loads its VN points and stores its VN values as one 16-byte access, the
+// warp on 512 contiguous bytes; the wrapper's launch takes VEC when x and
+// out are 16-byte aligned and n % VN = 0 (every row start aligned), and the
+// scalar instance otherwise (ragged n, x a view at an offset). The stores
+// are plain (not evict-first): the banded apply reads Kuf right after, and
+// at the main path's (512, 4096) it stays in L2.
+// ---------------------------------------------------------------------------
+
+constexpr int KUF_THREADS = 256;
+constexpr int KUF_WARPS = KUF_THREADS / 32;
+constexpr int KUF_MIN_CHUNKS = 4;   // per warp, where the shape allows (see the launch)
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using V = float4; static constexpr int n = 4; };
+template <> struct Vec16<double> { using V = double2; static constexpr int n = 2; };
+
+// The VN points of a lane at column j (clamped into the row: the values of a
+// lane past n are computed and not stored).
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_points(const T* __restrict__ x, int j, int n,
+                                            T (&xv)[Vec16<T>::n]) {
+  using V = typename Vec16<T>::V;
+  constexpr int VN = Vec16<T>::n;
+  if constexpr (VEC) {
+    const V v = *reinterpret_cast<const V*>(x + min(j, n - VN));
+    if constexpr (VN == 4) { xv[0] = v.x; xv[1] = v.y; xv[2] = v.z; xv[3] = v.w; }
+    else { xv[0] = v.x; xv[1] = v.y; }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VN; ++k) xv[k] = x[min(j + k, n - 1)];
+  }
+}
+
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_points(T* __restrict__ row_out, int j, int n,
+                                             const T (&f)[Vec16<T>::n]) {
+  using V = typename Vec16<T>::V;
+  constexpr int VN = Vec16<T>::n;
+  if constexpr (VEC) {
+    if (j < n) {
+      if constexpr (VN == 4) *reinterpret_cast<V*>(row_out + j) = V{f[0], f[1], f[2], f[3]};
+      else *reinterpret_cast<V*>(row_out + j) = V{f[0], f[1]};
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VN; ++k)
+      if (j + k < n) row_out[j + k] = f[k];
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(KUF_THREADS)
+cell_kuf_primal_kernel(const T* __restrict__ mesh, const T* __restrict__ x,
+                       const T* __restrict__ scal, T* __restrict__ out, int n, int per_row,
+                       int per_warp, int extra) {
+  constexpr int VN = Vec16<T>::n;
+  constexpr int CHUNK = 32 * VN;
+  // warp w takes per_warp chunks, one more if w < extra, from
+  // c = w·per_warp + min(w, extra) on
+  const int warp = blockIdx.x * KUF_WARPS + threadIdx.x / 32;
+  int left = per_warp + (warp < extra ? 1 : 0);
+  if (left == 0) return;
+  const int c = warp * per_warp + min(warp, extra);
+  const int lane = threadIdx.x % 32;
+  int i = c / per_row;
+  int j = (c - i * per_row) * CHUNK + lane * VN;
+
+  // the first chunk's points are loaded alongside the scalars and the row's
+  // edges, and every later chunk's during the math of the one before it
+  T xv[VN];
+  load_points<T, VEC>(x, j, n, xv);
+  const T ell = scal[1];
+  const T var_ell = scal[0] * ell;
+  const T inv_ell = T(1) / ell;
+  Row<T> row = cell_row(mesh[i], mesh[i + 1], ell);
+  T out_coef = var_ell * (-row.em_dd);
+  for (;;) {
+    int jn = j + CHUNK;
+    const bool next_row = jn - lane * VN >= n;
+    if (next_row) jn = lane * VN;
+    T xn[VN], f[VN];
+    load_points<T, VEC>(x, jn, n, xn);
+    kuf_points(row, xv, inv_ell, var_ell, out_coef, f);
+    store_points<T, VEC>(out + static_cast<size_t>(i) * n, j, n, f);
+    if (--left == 0) break;
+    j = jn;
+#pragma unroll
+    for (int k = 0; k < VN; ++k) xv[k] = xn[k];
+    if (next_row) {   // the run enters the next row
+      ++i;
+      row = cell_row(mesh[i], mesh[i + 1], ell);
+      out_coef = var_ell * (-row.em_dd);
+    }
+  }
+}
+
+template <typename T, bool VEC>
+int launch_cell_kuf_primal(const T* mesh, const T* x, const T* scal, T* out, int m, int n,
+                           cudaStream_t stream) {
+  // the SMs and the blocks of this instance one SM holds, by device
+  static int sms[64], per_sm_max[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (per_sm_max[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm_max[dev], cell_kuf_primal_kernel<T, VEC>, KUF_THREADS, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  constexpr int CHUNK = 32 * Vec16<T>::n;
+  const long long per_row = (n + CHUNK - 1) / CHUNK;
+  const long long chunks = per_row * m;
+  if (chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // Blocks per SM: as many as fit, but no more than leave each warp about
+  // KUF_MIN_CHUNKS chunks, so that a small shape does not pay the per-warp
+  // set-up (1/ℓ, the row's series, the run's start) for one or two chunks;
+  // the same count on every SM keeps their shares even.
+  const long long per_sm_need =
+      (chunks + static_cast<long long>(sms[dev]) * KUF_WARPS * KUF_MIN_CHUNKS - 1) /
+      (static_cast<long long>(sms[dev]) * KUF_WARPS * KUF_MIN_CHUNKS);
+  const long long per_sm = per_sm_need < per_sm_max[dev] ? per_sm_need : per_sm_max[dev];
+  const long long need = (chunks + KUF_WARPS - 1) / KUF_WARPS;
+  const int grid = static_cast<int>(need < sms[dev] * per_sm ? need : sms[dev] * per_sm);
+  const int warps = grid * KUF_WARPS;
+  cell_kuf_primal_kernel<T, VEC><<<grid, KUF_THREADS, 0, stream>>>(
+      mesh, x, scal, out, n, static_cast<int>(per_row), static_cast<int>(chunks / warps),
+      static_cast<int>(chunks % warps));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_cell_kuf(const T* mesh, const T* x, const T* scal, T* out, int m, int n,
+                    cudaStream_t stream) {
+  constexpr int VN = Vec16<T>::n;
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 && n % VN == 0;
+  return vec ? launch_cell_kuf_primal<T, true>(mesh, x, scal, out, m, n, stream)
+             : launch_cell_kuf_primal<T, false>(mesh, x, scal, out, m, n, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: cell_kuf_with_dl, (Kuf, ∂Kuf/∂ℓ) in one pass (training below the
+// fused kernel's batch).
+//
+// Bound on the H100: the output writes, 2·m·n values; with two divisions
+// and two exps per element its instruction issue is of the same order
+// (left as it was, PERF.md §6). Design: each thread
+// takes one cell row and KUF_COLS points of it, so the row's series
+// (cell_row) runs once per KUF_COLS elements; the 32 threads of a warp take
+// 32 neighbouring points, so every store is one coalesced 128-byte line
+// (float). The inputs (m + 1 edges, n points, 2 scalars) are tiny and stay
+// in L1/L2.
 // ---------------------------------------------------------------------------
 
 constexpr int KUF_TX = 32;     // points per warp (one store line)
 constexpr int KUF_TY = 8;      // cell rows per block
 constexpr int KUF_COLS = 4;    // points per thread, KUF_TX apart
 
-template <typename T, bool WITH_DL>
+template <typename T>
 __global__ void __launch_bounds__(KUF_TX * KUF_TY)
-cell_kuf_kernel(const T* __restrict__ mesh, const T* __restrict__ x,
-                const T* __restrict__ scal, T* __restrict__ out,
-                T* __restrict__ dl, int m, int n) {
+cell_kuf_with_dl_kernel(const T* __restrict__ mesh, const T* __restrict__ x,
+                        const T* __restrict__ scal, T* __restrict__ out,
+                        T* __restrict__ dl, int m, int n) {
   const int i = blockIdx.y * KUF_TY + threadIdx.y;
   if (i >= m) return;
   const T var = scal[0];
@@ -67,19 +231,19 @@ cell_kuf_kernel(const T* __restrict__ mesh, const T* __restrict__ x,
     const int j = j0 + c * KUF_TX;
     if (j < n) {
       T kuf, dkuf;
-      tile_kuf_dkuf<T, WITH_DL>(row, x[j], var, ell, &kuf, &dkuf);
+      tile_kuf_dkuf<T, true>(row, x[j], var, ell, &kuf, &dkuf);
       out[base + j] = kuf;
-      if constexpr (WITH_DL) dl[base + j] = dkuf;
+      dl[base + j] = dkuf;
     }
   }
 }
 
-template <typename T, bool WITH_DL>
-int launch_cell_kuf(const T* mesh, const T* x, const T* scal, T* out, T* dl,
-                    int m, int n, cudaStream_t stream) {
+template <typename T>
+int launch_cell_kuf_with_dl(const T* mesh, const T* x, const T* scal, T* out, T* dl,
+                            int m, int n, cudaStream_t stream) {
   dim3 block(KUF_TX, KUF_TY);
   dim3 grid((n + KUF_TX * KUF_COLS - 1) / (KUF_TX * KUF_COLS), (m + KUF_TY - 1) / KUF_TY);
-  cell_kuf_kernel<T, WITH_DL><<<grid, block, 0, stream>>>(mesh, x, scal, out, dl, m, n);
+  cell_kuf_with_dl_kernel<T><<<grid, block, 0, stream>>>(mesh, x, scal, out, dl, m, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -225,26 +389,24 @@ extern "C" {
 
 int cell_kuf_f32(const float* mesh, const float* x, const float* scal, float* out,
                  int m, int n, void* stream) {
-  return launch_cell_kuf<float, false>(mesh, x, scal, out, nullptr, m, n,
-                                       static_cast<cudaStream_t>(stream));
+  return launch_cell_kuf<float>(mesh, x, scal, out, m, n, static_cast<cudaStream_t>(stream));
 }
 
 int cell_kuf_f64(const double* mesh, const double* x, const double* scal, double* out,
                  int m, int n, void* stream) {
-  return launch_cell_kuf<double, false>(mesh, x, scal, out, nullptr, m, n,
-                                        static_cast<cudaStream_t>(stream));
+  return launch_cell_kuf<double>(mesh, x, scal, out, m, n, static_cast<cudaStream_t>(stream));
 }
 
 int cell_kuf_with_dl_f32(const float* mesh, const float* x, const float* scal,
                          float* out, float* dl, int m, int n, void* stream) {
-  return launch_cell_kuf<float, true>(mesh, x, scal, out, dl, m, n,
-                                      static_cast<cudaStream_t>(stream));
+  return launch_cell_kuf_with_dl<float>(mesh, x, scal, out, dl, m, n,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 int cell_kuf_with_dl_f64(const double* mesh, const double* x, const double* scal,
                          double* out, double* dl, int m, int n, void* stream) {
-  return launch_cell_kuf<double, true>(mesh, x, scal, out, dl, m, n,
-                                       static_cast<cudaStream_t>(stream));
+  return launch_cell_kuf_with_dl<double>(mesh, x, scal, out, dl, m, n,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 int fused_banded_whiten_kuf_f64(const double* finv, const double* mesh, const double* x,

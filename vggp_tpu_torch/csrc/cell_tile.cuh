@@ -63,7 +63,7 @@ __device__ __forceinline__ Row<T> cell_row(T a, T b, T ell) {
 // expm1(−u) + expm1(−w) = expm1(−δ/ℓ) − expm1(−u)·expm1(−w) leaves two
 // plain exps per element; the series runs once per row (cell_row).
 // `inv_ell` = 1/ℓ multiplies instead of dividing by ℓ (within an ulp of the
-// quotient); the cell_kuf kernels divide, the fused kernel multiplies.
+// quotient); the cell_kuf_with_dl kernel divides, the fused kernel multiplies.
 template <typename T, bool WITH_DL, bool RECIP = false>
 __device__ __forceinline__ void tile_kuf_dkuf(const Row<T>& r, T x, T var, T ell,
                                               T* kuf, T* dkuf, T inv_ell = T(0)) {
@@ -80,6 +80,43 @@ __device__ __forceinline__ void tile_kuf_dkuf(const Row<T>& r, T x, T var, T ell
     const T e_dd = T(1) + r.em_dd;
     const T G = inside ? -(e_u * u + e_w * w) : enear * (near * (-r.em_dd) - e_dd * r.dd);
     *dkuf = var * (F + G);
+  }
+}
+
+// Kuf = σ²ℓ·F at K points of one cell row, for the cell_kuf kernel: the
+// closed form of tile_kuf_dkuf with one exp where one suffices. Outside the
+// cell (all but one cell row of a point) F = e^{−near}·(−expm1(−δ/ℓ)) with
+// e^{−near} = exp(−min(u, w)), as pallas_kernels._cell_kuf_FG writes it, so
+// Kuf = e^{−near}·`out_coef`, out_coef = σ²ℓ·(−expm1(−δ/ℓ)) once per row.
+// Inside, the product identity needs the far exp too:
+// F = −expm1(−δ/ℓ) + (e^{−near} − 1)(e^{−far} − 1), the same product as
+// (e_u − 1)(e_w − 1). That part runs under one branch for the K points,
+// which a warp takes only where one of its points lies in the row's cell.
+// u and w multiply by inv_ell = 1/ℓ (within an ulp of the quotient): no
+// division.
+template <typename T, int K>
+__device__ __forceinline__ void kuf_points(const Row<T>& r, const T (&x)[K], T inv_ell,
+                                           T var_ell, T out_coef, T (&kuf)[K]) {
+  T u[K], w[K], enear[K];
+  bool in[K];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    u[k] = fabs(x[k] - r.a) * inv_ell;
+    w[k] = fabs(x[k] - r.b) * inv_ell;
+    enear[k] = exp_(-fmin(u[k], w[k]));
+    kuf[k] = enear[k] * out_coef;
+    in[k] = (x[k] >= r.a) && (x[k] <= r.b);
+    any |= in[k];
+  }
+  if (__builtin_expect(any, 0)) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (in[k]) {
+        const T efar = exp_(-fmax(u[k], w[k]));
+        kuf[k] = var_ell * (-r.em_dd + (enear[k] - T(1)) * (efar - T(1)));
+      }
+    }
   }
 }
 
