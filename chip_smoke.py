@@ -10,7 +10,8 @@ Phases (each asserts; any failure exits non-zero before the result line):
 3. hold each kernel against its plain PyTorch version on the card, in
    float64 and float32, at the main path's shapes and at a ragged shape (the
    fused kernel at the main path's precisions and at "highest" for both;
-   ``cell_kuf`` also at the serving grid's (512, 65 536), a ragged row
+   ``cell_kuf`` also at the serving grid's (512, 65 536), at the face
+   difference's (512, 513) with every point on a cell edge, a ragged row
    length, one cell and an x that is a view at an offset),
    and the float32 and float64 results against the cell-Kuf goldens of
    ``bench.py`` (copied here; the port imports nothing of the JAX package),
@@ -24,13 +25,26 @@ Phases (each asserts; any failure exits non-zero before the result line):
    through ``cell_kuf``, and hold the trained model's loss and posterior on
    the card (float32) against the same functions on the CPU in float64,
    the loss also at batch 16384 with gradients on, through the fused kernel;
-6. profile three steps at each batch (device busy share, the ops with the
+6. the serving heads of the trained model under ``torch.no_grad()``: the warm
+   ``precompute`` state, ``posterior_from_state`` beside the cold
+   ``posterior`` (under no_grad the warm head on a fresh state) at the 4096
+   points and on the 256×256 grid, ``q_v`` and
+   ``q_dv`` (axis 0) cold and warm on the model's 512×512 cells,
+   ``posterior(full_cov=True)`` at 256 points, and the heads whose output is
+   dense by nature at a size that fits: ``q_u`` of a 64×64-cell model with
+   parameters from a seed, ``p_v_u`` and ``q_v``/``q_dv`` with
+   ``full_cov=True`` on a 32×32 grid. Each head's ``cell_kuf`` launches are
+   counted exactly, and its result on the card (float32) is held against the
+   same head on the CPU in float64;
+7. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
-7. time each kernel and its plain version (device time from the profiler's
+8. time each kernel and its plain version (device time from the profiler's
    CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
-   serving grid's (512, 65 536) beside one warm ``posterior`` on that grid,
-   and the fused kernel beside the unfused route it replaces, and print them
-   and the steady-state step times with the card's name and power limit.
+   serving grid's (512, 65 536) beside one warm cold ``posterior`` and one
+   ``posterior_from_state`` on that grid and at the face difference's
+   (512, 513), and the fused kernel beside the unfused route it replaces,
+   and print them and the steady-state step and serving times with the
+   card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -48,7 +62,10 @@ NUM_DATA = 1_000_000
 TRAIN_BATCH = 4096
 FUSED_BATCH = 16384
 SERVE_POINTS = 4096
-SERVE_GRID = 256       # phase 7: posterior on a 256×256 prediction grid
+SERVE_GRID = 256       # posterior on a 256×256 prediction grid (phases 6 and 8b)
+FULL_COV_POINTS = 256  # phase 6: posterior(full_cov=True), a (262 144, 256) Khatri–Rao block
+Q_U_CELLS = 64         # phase 6: q_u's (m, m) covariance on a 64×64-cell model (4096²)
+DENSE_GRID = 32        # phase 6: p_v_u, q_v and q_dv with full_cov on a 32×32 grid (1024²)
 TRAIN_STEPS = 20       # first WARM_STEPS untimed
 FUSED_STEPS = 8
 WARM_STEPS = 3
@@ -130,6 +147,19 @@ TOL_FINV = 5e-6
 # 5e-3. The posterior marginals carry no such scale: 1e-3.
 TOL_E2E_LOSS = 5e-3
 TOL_E2E_POST = 1e-3
+
+# The serving heads on the card (float32) vs the same head on the CPU in
+# float64, max|Δ|/max|ref| over the mean and the variance (or covariance): at
+# most the larger of TOL_E2E_POST and CPU_ERR_RATIO times the error of the
+# same head in float32 on the CPU. Served under no_grad, every head whitens
+# through a dense float32 Cholesky of Kuu, whose condition number at
+# ℓ/δ ≈ 500 is held near the 1e6 of its jitter floor, so its float32 error
+# is set by the factorization, on any device. Measured on an H100, card/CPU:
+# 0.65–1.31 for the grid heads, 2.0–2.4 for the posteriors (whose bound is
+# TOL_E2E_POST); with every product in TF32 (tools/torch_heads_control.py)
+# 2.9–3.4 for q_v, p_v_u and q_v full_cov, which this ratio catches, and
+# 0.9–1.7 for q_dv, which no ratio above the float32 one can.
+CPU_ERR_RATIO = 2.0
 
 _REPLACES = {
     "cell_kuf": "vggp_tpu/ops/pallas_kernels.py:84",
@@ -258,7 +288,7 @@ def check_kernels(device) -> dict:
     from vggp_tpu_torch.ops import cell_kuf as ck
 
     errs = {}   # max |kernel − plain| at the main path's f32 shapes and precisions
-    main_shapes = ((M_AXIS, TRAIN_BATCH), (M_AXIS, FUSED_BATCH))
+    main_shapes = ((M_AXIS, TRAIN_BATCH), (M_AXIS, FUSED_BATCH), (M_AXIS, M_AXIS + 1))
 
     def compare(kernel, name, got, want, tol, tag, shape, record=True, precs=()):
         e = rel_err(got, want)
@@ -287,6 +317,10 @@ def check_kernels(device) -> dict:
             compare("cell_kuf", "Kuf", ck.cell_kuf(mesh, x, v, ell),
                     ck.cell_kuf_plain(mesh, x, v, ell), tol, tag,
                     shape + (("x at +1",) if offset else ()))
+        # q_dv's face difference: every point on a cell edge, n % 4 = 1
+        mesh, _, v, ell, _ = kernel_inputs(M_AXIS, 1, dtype, device, seed=8)
+        compare("cell_kuf", "Kuf at the edges", ck.cell_kuf(mesh, mesh, v, ell),
+                ck.cell_kuf_plain(mesh, mesh, v, ell), tol, tag, (M_AXIS, M_AXIS + 1))
         for shape in ((M_AXIS, FUSED_BATCH), (256, 301)):
             mesh, x, v, ell, finv = kernel_inputs(*shape, dtype, device, seed=2)
             for precs in (MAIN_PRECISIONS, ("highest", "highest")):
@@ -502,11 +536,207 @@ def drive_main_path(device, X, y, Xs):
     return spec, model, post, launches, timings, step, gen
 
 
+def serving_grid_points(device):
+    """The cell centres of the SERVE_GRID × SERVE_GRID prediction grid."""
+    import torch
+
+    g = (torch.arange(SERVE_GRID, dtype=torch.float32, device=device) + 0.5) / SERVE_GRID
+    return torch.cartesian_prod(g, g)
+
+
+def q_u_model(device):
+    """Phase 6's Q_U_CELLS × Q_U_CELLS-cell model, its parameters from a
+    numpy seed (q_u's output is an (m, m) covariance: 4096², 67 MB)."""
+    import numpy as np
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, svgp
+
+    m = Q_U_CELLS
+    spec = SVGPSpec(kinds=("matern12", "matern12"),
+                    features=tuple(CellIntegralFeature.from_lims(m, 0.0, 1.0) for _ in range(2)),
+                    num_data=NUM_DATA, variational="kron")
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    q = {"mu": t(0.3 * rng.standard_normal((m, m)))}
+    for i in (1, 2):
+        q[f"raw_L{i}"] = svgp.raw_from_chol(t(np.eye(m) + 0.05 * np.tril(rng.standard_normal((m, m)), -1)))
+    axes = ({"variance": t(1.1), "lengthscale": t(0.15)},
+            {"variance": t(0.9), "lengthscale": t(0.25)})
+    return spec, {"axes": axes, "noise": t(0.01), "q": q}
+
+
+def head_table(device, spec, Xs):
+    """Phase 6's heads: (name, model, expected cell_kuf launches, output
+    length, fn(spec, params, state, cast)). ``cast`` moves a tensor to the
+    parameters' device and dtype; ``state`` is their ``precompute`` state.
+    The 32×32 grid lies over [0.5, 1.5]²: a quarter of it inside the model's
+    cells, where v is nearly a function of u and p(v | u)'s variance falls
+    below float32 resolution, the rest outside them."""
+    from vggp_tpu_torch import CellIntegralFeature, svgp
+
+    own, n_cells = spec.features, spec.num_inducing
+    grid_pts = serving_grid_points(device)
+    dense_grid = tuple(CellIntegralFeature.from_lims(DENSE_GRID, 0.5, 1.5) for _ in range(2))
+    xs_full = Xs[:FULL_COV_POINTS]
+    n_dense = DENSE_GRID ** 2
+    return [
+        (f"posterior_from_state {Xs.shape[0]}", "main", 2, Xs.shape[0],
+         lambda s, p, st, c: svgp.posterior_from_state(s, p, st, c(Xs))),
+        (f"posterior {Xs.shape[0]}", "main", 2, Xs.shape[0],
+         lambda s, p, st, c: svgp.posterior(s, p, c(Xs))),
+        (f"posterior_from_state {SERVE_GRID}x{SERVE_GRID}", "main", 2, grid_pts.shape[0],
+         lambda s, p, st, c: svgp.posterior_from_state(s, p, st, c(grid_pts))),
+        (f"posterior {SERVE_GRID}x{SERVE_GRID}", "main", 2, grid_pts.shape[0],
+         lambda s, p, st, c: svgp.posterior(s, p, c(grid_pts))),
+        ("q_v own cells", "main", 0, n_cells, lambda s, p, st, c: svgp.q_v(s, p, own)),
+        ("q_v_from_state own cells", "main", 0, n_cells,
+         lambda s, p, st, c: svgp.q_v_from_state(s, p, st, own)),
+        ("q_dv axis 0 own cells", "main", 1, n_cells, lambda s, p, st, c: svgp.q_dv(s, p, own, 0)),
+        ("q_dv_from_state axis 0 own cells", "main", 1, n_cells,
+         lambda s, p, st, c: svgp.q_dv_from_state(s, p, st, own, 0)),
+        (f"posterior full_cov {FULL_COV_POINTS}", "main", 2, FULL_COV_POINTS,
+         lambda s, p, st, c: svgp.posterior(s, p, c(xs_full), full_cov=True)),
+        (f"q_u {Q_U_CELLS}x{Q_U_CELLS}-cell model", "q_u", 0, Q_U_CELLS ** 2,
+         lambda s, p, st, c: svgp.q_u(s, p)),
+        (f"p_v_u {DENSE_GRID}x{DENSE_GRID}", "main", 0, n_dense,
+         lambda s, p, st, c: svgp.p_v_u(s, p, dense_grid)),
+        (f"q_v full_cov {DENSE_GRID}x{DENSE_GRID}", "main", 0, n_dense,
+         lambda s, p, st, c: svgp.q_v(s, p, dense_grid, full_cov=True)),
+        (f"q_dv full_cov axis 0 {DENSE_GRID}x{DENSE_GRID}", "main", 1, n_dense,
+         lambda s, p, st, c: svgp.q_dv(s, p, dense_grid, 0, full_cov=True)),
+    ]
+
+
+def gauss_err(got, want) -> float:
+    """max|Δ|/max|ref| of the mean and of the variance or covariance, the
+    larger, both sides taken to float64 on the CPU."""
+    cov = want.cov is not None
+    pairs = ((got.mean, want.mean), (got.cov, want.cov) if cov else (got.var, want.var))
+    return max(rel_err(g.double().cpu(), w.double().cpu()) for g, w in pairs)
+
+
+def heads_tol(cpu_f32_err: float) -> float:
+    """A serving head's bound on the card's float32 error: the larger of
+    TOL_E2E_POST and CPU_ERR_RATIO × the same head's float32 error on the CPU."""
+    return max(TOL_E2E_POST, CPU_ERR_RATIO * cpu_f32_err)
+
+
+def head_contexts(device, spec, model):
+    """(specs, ctx) of phase 6: the trained model and the q_u model by name,
+    and for each with "card" (float32 on the card), "f64" and "f32" (on the
+    CPU) its parameters, their ``precompute`` state and a cast of inputs to
+    them."""
+    import torch
+
+    from vggp_tpu_torch import svgp, train
+
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        p_dev = train.tree_map(lambda v: v.detach(), model.params())
+    spec_u, p_u = q_u_model(device)
+    specs = {"main": spec, "q_u": spec_u}
+    ctx = {}   # (model, "card" | "f64" | "f32") → (params, state, cast)
+    for which, p in (("main", p_dev), ("q_u", p_u)):
+        for tag, dev, dt in (("card", device, torch.float32), ("f64", cpu, torch.float64),
+                             ("f32", cpu, torch.float32)):
+            pp = train.tree_map(lambda v, dev=dev, dt=dt: v.to(device=dev, dtype=dt), p)
+            with torch.no_grad():
+                st = svgp.precompute(specs[which], pp)
+            ctx[which, tag] = (pp, st, lambda t, dev=dev, dt=dt: t.to(device=dev, dtype=dt))
+    return specs, ctx
+
+
+def serve_heads(device, spec, model, Xs):
+    """Phase 6: the serving heads of the trained model under no_grad.
+
+    Each head: its cell_kuf launches counted exactly (reset before, read
+    after), shapes, finite means and variances, and positive variances (for
+    a dense covariance: everywhere its float64 value exceeds the head's
+    error bound, and nowhere below −bound), and the result against the same
+    head on the CPU in float64, within :func:`heads_tol` of the CPU's own
+    float32 error. Returns (launches, the (512, 513) launches, timings, the
+    warm state)."""
+    import torch
+
+    from vggp_tpu_torch import svgp
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    specs, ctx = head_contexts(device, spec, model)
+    chols, Ls = ctx["main", "card"][1]
+    check(all(bool(torch.isfinite(c.F).all()) for c in chols)
+          and all(bool(torch.isfinite(L).all()) for L in Ls),
+          "the warm state's float32 Kuu factors on the card are not finite")
+
+    launches = {k: 0 for k in ck.LAUNCHES}
+    edge_launches = 0
+    for name, which, n_launch, n, fn in head_table(device, spec, Xs):
+        run = lambda tag: fn(specs[which], *ctx[which, tag])
+        ck.reset_launch_counts()
+        with torch.no_grad():
+            g = run("card")
+        torch.cuda.synchronize()
+        got = dict(ck.LAUNCHES)
+        check(got == {"cell_kuf": n_launch, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0},
+              f"{name}: launches {got}, expected {n_launch} of cell_kuf")
+        launches = {k: launches[k] + got[k] for k in got}
+        if name.startswith("q_dv") and "own cells" in name:
+            edge_launches += got["cell_kuf"]
+        with torch.no_grad():
+            ref, f32 = run("f64"), run("f32")
+        dense = ref.cov is not None
+        check(g.mean.shape == (n,) and (g.cov.shape == (n, n) if dense else g.var.shape == (n,)),
+              f"{name}: shapes {tuple(g.mean.shape)}, "
+              f"{tuple((g.cov if dense else g.var).shape)}")
+        v, ref_v = g.variance(), ref.variance()
+        check(bool(torch.isfinite(g.mean).all() and torch.isfinite(g.cov if dense else v).all()),
+              f"{name}: not finite")
+        e, e32 = gauss_err(g, ref), gauss_err(f32, ref)
+        tol = heads_tol(e32)
+        bound = tol * float((ref.cov if dense else ref_v).abs().max())
+        v = v.double().cpu()
+        resolved = ref_v > bound if dense else torch.ones_like(ref_v, dtype=torch.bool)
+        print(f"check head {name}: launches {got['cell_kuf']}, card f32 vs cpu f64 {e:.3e}, "
+              f"cpu f32 {e32:.3e} (ratio {e / e32:.2f}), tol {tol:.3e}; var range "
+              f"[{float(v.min()):.4g}, {float(v.max()):.4g}]"
+              + (f", {int(resolved.sum())} of {n} resolved" if dense else ""))
+        check(e <= tol, f"{name}: card f32 vs cpu f64 {e} > {tol} (cpu f32 {e32})")
+        check(bool((v[resolved] > 0).all()) and float(v.min()) > -bound,
+              f"{name}: variance not positive")
+
+    # times: one call each after a warm one (host clock, ends in synchronize)
+    timings = {}
+    p, st, _ = ctx["main", "card"]
+    own = spec.features
+    for key, fn in (("precompute_ms", lambda: svgp.precompute(spec, p)),
+                    ("q_v_ms_own_cells", lambda: svgp.q_v(spec, p, own)),
+                    ("q_v_from_state_ms_own_cells", lambda: svgp.q_v_from_state(spec, p, st, own)),
+                    ("q_dv_ms_own_cells", lambda: svgp.q_dv(spec, p, own, 0)),
+                    ("q_dv_from_state_ms_own_cells",
+                     lambda: svgp.q_dv_from_state(spec, p, st, own, 0))):
+        timings[key] = host_ms(fn)
+    print("serve heads: " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+    return launches, edge_launches, timings, st
+
+
+def host_ms(fn) -> float:
+    """Host ms of one warm call of ``fn`` under no_grad, ending in synchronize."""
+    import torch
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 PROFILE_STEPS = 3
 
 
 def profile_steps(step, X, y, batch, gen) -> dict:
-    """Phase 6: where a training step's time goes. Three steps under
+    """Phase 7: where a training step's time goes. Three steps under
     torch.profiler: the device's busy share of the window (kernel time over
     wall time) and the ops with the most host and device time."""
     import torch
@@ -614,53 +844,71 @@ def kuf_bounds(m: int, n: int, with_dl: bool) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_serving_grid(device, model) -> dict:
-    """Phase 7b: cell_kuf at the serving grid's (512, 65 536) in f32, kernel
-    in turns with its plain version, and one warm ``posterior`` on the
-    256×256 grid (host clock around a call that ends in synchronize), so
-    the kernel's time and the serving time stand side by side."""
+def time_kuf_shape(device, m, n, x_is_mesh=False) -> dict:
+    """cell_kuf at (m, n) in f32, kernel in turns with its plain version:
+    device ms from the profiler's trace, and the bound. ``x_is_mesh``: the
+    points are the cell edges themselves (n = m + 1), as in q_dv's face
+    difference."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
 
-    n = SERVE_GRID ** 2
-    mesh, x, v, ell, _ = kernel_inputs(M_AXIS, n, torch.float32, device, seed=7)
+    mesh, x, v, ell, _ = kernel_inputs(m, n, torch.float32, device, seed=7)
+    if x_is_mesh:
+        x = mesh.clone()
     kern = lambda: ck.cell_kuf(mesh, x, v, ell)
     plain = lambda: ck.cell_kuf_plain(mesh, x, v, ell)
     p1, _ = time_ms(plain, iters=10)
     k1, _ = time_ms(kern, iters=20, kernel=_DEVICE_KERNELS["cell_kuf"])
     k2, _ = time_ms(kern, iters=20, kernel=_DEVICE_KERNELS["cell_kuf"])
     p2, _ = time_ms(plain, iters=10)
-    out = {"shape": [M_AXIS, n], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-           **kuf_bounds(M_AXIS, n, False)}
-    print(f"time cell_kuf at ({M_AXIS}, {n}): device ms kernel {k1:.5f}/{k2:.5f}, "
-          f"plain {p1:.5f}/{p2:.5f}; bound {out['bound_ms']:.5f} ms ({out['bound_by']})")
-
-    g = (torch.arange(SERVE_GRID, dtype=torch.float32, device=device) + 0.5) / SERVE_GRID
-    grid = torch.cartesian_prod(g, g)
-    with torch.no_grad():
-        model.posterior(grid)   # warm
-        ck.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        post = model.posterior(grid)
-        torch.cuda.synchronize()
-    out["posterior_ms"] = (time.perf_counter() - t0) * 1e3
-    got = dict(ck.LAUNCHES)
-    check(got["cell_kuf"] == 2, f"launches of the posterior on the grid: {got}")
-    check(post.mean.shape == (n,) and bool(torch.isfinite(post.mean).all()
-                                           and (post.var > 0).all()),
-          "posterior on the grid: shape, finite mean, positive variance")
-    print(f"serve a {SERVE_GRID}x{SERVE_GRID} grid ({n} points): warm posterior "
-          f"{out['posterior_ms']:.3f} ms, launches {got}")
+    out = {"shape": [m, n], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           **kuf_bounds(m, n, False)}
+    print(f"time cell_kuf at ({m}, {n}){' x = mesh' if x_is_mesh else ''}: device ms kernel "
+          f"{k1:.5f}/{k2:.5f}, plain {p1:.5f}/{p2:.5f}; bound {out['bound_ms']:.5f} ms "
+          f"({out['bound_by']})")
     return out
 
 
-def measure_kernels(device, errs, launches, serving_grid) -> list:
-    """Phase 7: kernel and plain times at the main path's f32 shapes, and the
+def time_serving_grid(device, spec, model, state) -> dict:
+    """Phase 8b: cell_kuf at the serving grid's (512, 65 536), and the cold
+    ``posterior`` (``precompute`` and the warm head) and the warm
+    ``posterior_from_state`` on the 256×256 grid in turns (cold, warm, warm,
+    cold; one call each after a warm one, host clock around a call that ends
+    in synchronize), so the kernel's time and the serving times stand side
+    by side. Each call launches cell_kuf twice."""
+    import torch
+
+    from vggp_tpu_torch import svgp
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    n = SERVE_GRID ** 2
+    out = time_kuf_shape(device, M_AXIS, n)
+    grid = serving_grid_points(device)
+    with torch.no_grad():
+        p = model.params()
+    heads = {"posterior": lambda: svgp.posterior(spec, p, grid),
+             "posterior_from_state": lambda: svgp.posterior_from_state(spec, p, state, grid)}
+    times = {k: [] for k in heads}
+    for name in ("posterior", "posterior_from_state", "posterior_from_state", "posterior"):
+        ck.reset_launch_counts()
+        times[name].append(host_ms(heads[name]))
+        got = dict(ck.LAUNCHES)
+        check(got["cell_kuf"] == 4, f"launches of two {name} calls on the grid: {got}")
+    out["posterior_ms"] = sum(times["posterior"]) / 2
+    out["posterior_from_state_ms"] = sum(times["posterior_from_state"]) / 2
+    print(f"serve a {SERVE_GRID}x{SERVE_GRID} grid ({n} points): cold posterior "
+          + "/".join(f"{t:.3f}" for t in times["posterior"]) + " ms, warm posterior_from_state "
+          + "/".join(f"{t:.3f}" for t in times["posterior_from_state"]) + " ms")
+    return out
+
+
+def measure_kernels(device, errs, launches, serving_grid, face_edges) -> list:
+    """Phase 8: kernel and plain times at the main path's f32 shapes, and the
     fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
     kms.banded_whiten_apply for a at "highest" and t at "default");
-    ``serving_grid`` (phase 7b) goes into cell_kuf's row."""
+    ``serving_grid`` (phase 8b) and ``face_edges`` (phase 8c) go into
+    cell_kuf's row."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
@@ -709,6 +957,7 @@ def measure_kernels(device, errs, launches, serving_grid) -> list:
         extra = ""
         if name == "cell_kuf":
             row["at_serving_grid"] = serving_grid
+            row["at_face_edges"] = face_edges
         if fused:
             row["precisions"] = list(MAIN_PRECISIONS)
             row["unfused_ms"] = (u1 + u2) / 2
@@ -747,11 +996,17 @@ def main() -> int:
     spec, model, post, launches, timings, step, gen = drive_main_path(device, X, y, Xs)
     check_against_cpu_f64(spec, model, post, X, y, Xs)
     check_fused_against_cpu_f64(spec, model, X, y)
+    got, edge_launches, serve_times, state = serve_heads(device, spec, model, Xs)
+    launches = {k: launches[k] + got[k] for k in got}
+    timings.update(serve_times)
     for batch in (TRAIN_BATCH, FUSED_BATCH):
         timings.update(profile_steps(step, X, y, batch, gen))
-    serving_grid = time_serving_grid(device, model)
+    serving_grid = time_serving_grid(device, spec, model, state)
     timings["posterior_ms_grid65536"] = serving_grid["posterior_ms"]
-    rows = measure_kernels(device, errs, launches, serving_grid)
+    timings["posterior_from_state_ms_grid65536"] = serving_grid["posterior_from_state_ms"]
+    face_edges = {**time_kuf_shape(device, M_AXIS, M_AXIS + 1, x_is_mesh=True),
+                  "launches": edge_launches}
+    rows = measure_kernels(device, errs, launches, serving_grid, face_edges)
     timings["card"] = card
     print(json.dumps({"steps": timings}))
     print(json.dumps({"kernels": rows, "card": card}))

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, convert, svgp
+from chip_smoke import gauss_err, heads_tol
+from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, convert, svgp, train
 from vggp_tpu_torch.ops import cell_kuf as ck
 from vggp_tpu_torch.ops import kms
 
@@ -135,6 +136,69 @@ def test_cuda_cell_kuf_layouts_match_plain(cuda, dtype, rtol, case):
     if case == "edges" and dtype == torch.float32:
         far = x.abs() > 40
         assert bool((got[:, far] == 0).all()) and bool((want[:, far] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
+def test_cuda_cell_kuf_at_face_edges_matches_plain(cuda, dtype, rtol):
+    """q_dv's face difference on the model's own cells: cell_kuf at
+    (512, 513) with x the mesh itself, every point on a cell edge (inside
+    both adjacent cells) and n % 4 = 1 (the scalar instance); one launch."""
+    mesh = torch.linspace(0.0, 1.0, 513, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    v = torch.tensor(1.3, dtype=dtype, device=cuda)
+    ell = torch.tensor(0.9, dtype=dtype, device=cuda)
+    before = ck.LAUNCHES["cell_kuf"]
+    got = ck.cell_kuf(mesh, mesh, v, ell)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cell_kuf"] == before + 1
+    want = ck.cell_kuf_plain(mesh, mesh, v, ell)
+    assert got.shape == want.shape == (512, 513)
+    assert float((got - want).abs().max() / want.abs().max()) < rtol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["posterior", "q_v"])
+def test_cuda_warm_heads_match_cold(cuda, head):
+    """posterior_from_state and q_v_from_state on the card (float32) against
+    their cold heads on the card, within chip_smoke.py's serving-heads bound
+    (``heads_tol``) of the same gap in float32 on the CPU. The warm
+    posterior whitens through dense Cholesky factors and launches cell_kuf
+    once per axis; the cold one is taken with gradients on, so it whitens
+    through the closed-form F⁻¹ and launches cell_kuf_with_dl instead."""
+    rng = np.random.default_rng(3)
+    m = 128
+    spec = SVGPSpec(kinds=("matern12",) * 2,
+                    features=tuple(CellIntegralFeature.from_lims(m, 0.0, 1.0) for _ in range(2)),
+                    num_data=100_000, variational="kron")
+    p_np = {"axes": ({"variance": np.asarray(1.3), "lengthscale": np.asarray(0.2)},
+                     {"variance": np.asarray(0.8), "lengthscale": np.asarray(0.3)}),
+            "noise": np.asarray(0.05),
+            "q": {"mu": 0.3 * rng.standard_normal((m, m)),
+                  "raw_L1": np.eye(m) * 0.5413 + 0.01 * np.tril(rng.standard_normal((m, m))),
+                  "raw_L2": np.eye(m) * 0.5413 + 0.01 * np.tril(rng.standard_normal((m, m)))}}
+    x = rng.random((1000, 2))
+    gaps = {}
+    for dev in (cuda, "cpu"):
+        p = convert.params_from_jax(p_np, dev, torch.float32)
+        xs = torch.tensor(x, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            state = svgp.precompute(spec, p)
+            ck.reset_launch_counts()
+            if head == "posterior":
+                warm = svgp.posterior_from_state(spec, p, state, xs)
+                with torch.enable_grad():
+                    cold = svgp.posterior(
+                        spec, train.tree_map(lambda v: v.clone().requires_grad_(), p), xs)
+            else:
+                warm, cold = (svgp.q_v_from_state(spec, p, state, spec.features),
+                              svgp.q_v(spec, p, spec.features))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            n = 2 if head == "posterior" else 0
+            assert (ck.LAUNCHES["cell_kuf"], ck.LAUNCHES["cell_kuf_with_dl"]) == (n, n)
+            assert bool(torch.isfinite(warm.mean).all() and (warm.var > 0).all())
+        gaps[str(dev)] = gauss_err(warm, cold)
+    assert gaps["cuda"] <= heads_tol(gaps["cpu"]), gaps
 
 
 @pytest.mark.cuda

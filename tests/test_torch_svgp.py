@@ -390,10 +390,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert tspec.init_params(device="cpu")["noise"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("what", ["full_family", "likelihood", "kind", "full_cov"])
+@pytest.mark.parametrize("what", ["full_family", "likelihood", "kind", "learned_mean",
+                                  "posterior_grad", "coregion_gram", "eigh_factor"])
 def test_unported_options_raise(what):
     feats = tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         if what == "full_family":
             svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10)
         elif what == "likelihood":
@@ -402,8 +403,16 @@ def test_unported_options_raise(what):
         elif what == "kind":
             p = {"variance": torch.tensor(1.0), "lengthscale": torch.tensor(0.3)}
             feats[0].Kuf("matern32", p, torch.linspace(0, 1, 5))
+        elif what == "coregion_gram":
+            vggp_tpu_torch.kernels.axis_gram("coregion", {}, torch.zeros(3), torch.zeros(3))
+        elif what == "eigh_factor":
+            svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
+                          variational="kron", factor_method="eigh")
         else:
             spec = svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
                                  variational="kron")
-            svgp.posterior(spec, spec.init_params(device="cpu"), torch.rand(4, 2),
-                           full_cov=True)
+            params = spec.init_params(device="cpu")
+            if what == "learned_mean":
+                svgp.q_v(spec, {**params, "mean": torch.tensor(0.5)}, feats)
+            else:
+                svgp.posterior_grad(spec, params, torch.rand(4, 2), axis=0)

@@ -8,4 +8,5 @@ caller passes another device, and raise when no card is present.
 from vggp_tpu_torch import config, convert, features, kernels, train  # noqa: F401
 from vggp_tpu_torch.features import CellIntegralFeature  # noqa: F401
 from vggp_tpu_torch.models import common, svgp  # noqa: F401
+from vggp_tpu_torch.models.common import Gaussian  # noqa: F401
 from vggp_tpu_torch.models.svgp import SVGP, SVGPSpec  # noqa: F401

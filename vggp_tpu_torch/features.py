@@ -1,6 +1,7 @@
 """Inducing features of the port: the B0 cell-integral feature
-(``vggp_tpu/features.py:1128-1349``) for the Matérn-1/2 kernel on a uniform
-mesh — the main path's feature.
+(``vggp_tpu/features.py:1128-1352``) for the Matérn-1/2 kernel on a uniform
+mesh — the main path's feature — with its cell/point (Kuf), cell/cell (Kuu,
+and Kvu against the cells of a serving grid) covariances.
 
 Other kernel kinds and non-uniform meshes raise ``NotImplementedError``
 (ROADMAP queue 1, item 10).
@@ -14,7 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from vggp_tpu_torch import config
+from vggp_tpu_torch import config, kernels
 from vggp_tpu_torch.ops import cell_kuf as ck
 from vggp_tpu_torch.ops import toeplitz
 from vggp_tpu_torch.ops.stablemath import expm1mx, expm1s
@@ -42,6 +43,45 @@ def _m12_cell_point_cov(mesh, x, variance, lengthscale):
     outside_val = torch.exp(-near) * (-expm1s(-dd))
     inside_val = -(expm1s(-u) + expm1s(-w))
     return variance * lengthscale * torch.where(inside, inside_val, outside_val)
+
+
+# The cell/cell columns of ``_CELL_COEFFS`` (``vggp_tpu/features.py:72-76``)
+# for the one ported kind; the other Matérn orders come with their features
+# (ROADMAP queue 1, item 10), and the cell/point columns g0–g2 have no caller.
+#                 c_lin   c0    c1     c2
+_CELL_COEFFS = {
+    "matern12": (1.0,    1.0,  0.0,   0.0),
+}
+
+
+def _cell_cell_cov(kind: str, mesh_a, mesh_b, variance, lengthscale):
+    """Cov[∫_{A_i} f, ∫_{B_j} f] for a Matérn order, compensated. (ga, gb).
+
+    ``∬ k = Σ± P(|u|)`` over the four corner differences, with P the
+    poly-exponential antiderivative; its linear part telescopes exactly to
+    ``(c_lin/λ)·2·overlap`` and the decaying part is grouped into two
+    compensated nearby-exponential differences (``features.py:178-207``).
+    """
+    c_lin, c0, c1, c2 = _CELL_COEFFS[kind]
+    lam = kernels.lam(kind, lengthscale)
+    a1, b1 = mesh_a[:-1, None], mesh_a[1:, None]
+    a2, b2 = mesh_b[None, :-1], mesh_b[None, 1:]
+
+    def fdiff(u_pos, u_neg):
+        """f(|u_pos|) − f(|u_neg|) for P's decaying part f, compensated."""
+        ap, an = torch.abs(u_pos), torch.abs(u_neg)
+        mx, mn = torch.maximum(ap, an), torch.minimum(ap, an)
+        s = torch.where(ap >= an, 1.0, -1.0)
+        d = mx - mn
+        zd = lam * d
+        val = torch.exp(-lam * mn) * (
+            (c0 / (lam * lam) + c1 * mn / lam + c2 * mn * mn) * expm1s(-zd)
+            + torch.exp(-zd) * d * (c1 / lam + c2 * (mx + mn)))
+        return s * val
+
+    epart = fdiff(b1 - a2, a1 - a2) + fdiff(a1 - b2, b1 - b2)
+    overlap = torch.clamp(torch.minimum(b1, b2) - torch.maximum(a1, a2), min=0.0)
+    return variance * (epart + (c_lin / lam) * 2.0 * overlap)
 
 
 def _m12_toeplitz_first_row(m: int, delta, variance, lengthscale, dtype):
@@ -163,6 +203,14 @@ class CellIntegralFeature:
         self._require_m12_uniform(kind)
         return ck.cell_kuf_op(self.mesh_j(p), x.reshape(-1).contiguous(),
                               p["variance"], p["lengthscale"])
+
+    def Kvu(self, kind: str, p: Params, grid: "CellIntegralFeature") -> torch.Tensor:
+        """(g, m) Cov[v, u] between the cells of ``grid`` and these features:
+        the generic compensated cell/cell form, as the JAX ``Kvu`` takes."""
+        self._require_m12_uniform(kind)
+        grid._require_m12_uniform(kind)
+        return _cell_cell_cov(kind, grid.mesh_j(p), self.mesh_j(p), p["variance"],
+                              p["lengthscale"])
 
     def Kuf_with_dl(self, kind: str, p: Params, x: torch.Tensor):
         """(Kuf, ∂Kuf/∂ℓ) as values, in one ``cell_kuf_with_dl`` pass."""

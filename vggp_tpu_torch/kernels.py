@@ -1,21 +1,90 @@
 """Kernel primitives of the port (the part of ``vggp_tpu/kernels.py`` the
-main path reads)."""
+ported heads read): k(r), the Matérn decay rate, dense 1-D Grams, the
+per-axis Gram dispatch and the stable k(0) − k(r)."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
 
+from vggp_tpu_torch.ops.stablemath import expm1mx, expm1s
+
 STATIONARY_KINDS = ("matern12", "matern32", "matern52", "rbf")
+
+SQRT3 = math.sqrt(3.0)
+SQRT5 = math.sqrt(5.0)
+
+_NOT_PORTED = "(ROADMAP queue 1, item 10: the other features and model families)"
+
+
+def k_r(kind: str, r: torch.Tensor, variance, lengthscale) -> torch.Tensor:
+    """k(r) for nonnegative distances ``r``."""
+    if kind == "matern12":
+        return variance * torch.exp(-r / lengthscale)
+    if kind == "matern32":
+        z = SQRT3 * r / lengthscale
+        return variance * (1.0 + z) * torch.exp(-z)
+    if kind == "matern52":
+        z = SQRT5 * r / lengthscale
+        return variance * (1.0 + z + z * z / 3.0) * torch.exp(-z)
+    if kind == "rbf":
+        z = r / lengthscale
+        return variance * torch.exp(-0.5 * z * z)
+    raise ValueError(kind)
+
+
+def lam(kind: str, lengthscale):
+    """Matérn decay rate λ."""
+    if kind == "matern12":
+        return 1.0 / lengthscale
+    if kind == "matern32":
+        return SQRT3 / lengthscale
+    if kind == "matern52":
+        return SQRT5 / lengthscale
+    raise ValueError(f"lambda undefined for {kind}")
+
+
+def kdiff0(kind: str, r: torch.Tensor, variance, lengthscale) -> torch.Tensor:
+    """k(0) − k(r), cancellation-free for r ≪ ℓ (every term O(r²) or
+    smaller, where the naive difference loses (ℓ/r)² relative digits in
+    float32)."""
+    z = torch.abs(r) / lengthscale
+    if kind == "matern12":
+        return -variance * expm1s(-z)
+    if kind == "matern32":
+        z = SQRT3 * z
+        return -variance * (expm1mx(-z) + z * expm1s(-z))
+    if kind == "matern52":
+        z = SQRT5 * z
+        return -variance * (expm1mx(-z) + z * expm1s(-z) + (z * z / 3.0) * torch.exp(-z))
+    if kind == "rbf":
+        return -variance * expm1s(-0.5 * z * z)
+    raise ValueError(kind)
+
+
+def gram_1d(kind: str, x1: torch.Tensor, x2: torch.Tensor, variance,
+            lengthscale) -> torch.Tensor:
+    """Dense Gram K[i, j] = k(|x1_i − x2_j|) for 1-D inputs."""
+    r = torch.abs(x1.reshape(-1)[:, None] - x2.reshape(-1)[None, :])
+    return k_r(kind, r, variance, lengthscale)
+
+
+def _require_stationary(kind: str, what: str) -> None:
+    if kind not in STATIONARY_KINDS:
+        raise NotImplementedError(f"{what} for kind {kind!r} is not ported yet {_NOT_PORTED}")
+
+
+def axis_gram(kind: str, p: Dict, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Per-axis dense Gram. The coregion axis raises (not ported)."""
+    _require_stationary(kind, "axis_gram")
+    return gram_1d(kind, x1, x2, p["variance"], p["lengthscale"])
 
 
 def axis_kdiag(kind: str, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """Per-axis diag K(x, x): the stationary variance (length-n vector)."""
-    if kind not in STATIONARY_KINDS:
-        raise NotImplementedError(
-            f"axis_kdiag for kind {kind!r} is not ported yet "
-            "(ROADMAP queue 1, item 10: the other features and model families)")
+    _require_stationary(kind, "axis_kdiag")
     n = x.reshape(-1).shape[0]
     v = p["variance"]
     return torch.ones((n,), dtype=v.dtype, device=v.device) * v

@@ -1,32 +1,58 @@
-"""Shared model plumbing of the port (the main-path part of
+"""Shared model plumbing of the port (the Kronecker-SVGP part of
 ``vggp_tpu/models/common.py``): axis parameters, jitter policy, the
-scalar-tangent whitened Kuf, and the Gaussian result."""
+scalar-tangent and dense-factor whitened Kuf, Khatri–Rao assembly, the grid
+and gridded-gradient blocks of the serving heads, and the Gaussian result."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from vggp_tpu_torch import config, kernels
 from vggp_tpu_torch.config import matmul_precision
 from vggp_tpu_torch.ops import toeplitz
-from vggp_tpu_torch.ops.chol import F32_MIN_JITTER
+from vggp_tpu_torch.ops.chol import F32_MIN_JITTER, PSDFactor, psd_factor
+from vggp_tpu_torch.ops.kron import khatri_rao_rows, kron_dense
 
 Params = Dict
 
 
+_NOT_PORTED = "(ROADMAP queue 1, item 10: the other features and model families)"
+
+
 @dataclass
 class Gaussian:
-    """Posterior marginals: mean and variance, each (n,)."""
+    """A multivariate normal result: mean, and either the (n, n) covariance
+    or its (n,) diagonal."""
 
     mean: torch.Tensor
-    var: torch.Tensor
+    cov: torch.Tensor = None  # (n, n) when materialized
+    var: torch.Tensor = None  # (n,) diagonal when cov is not materialized
+
+    def variance(self) -> torch.Tensor:
+        return self.var if self.var is not None else torch.diagonal(self.cov)
+
+    def stddev(self) -> torch.Tensor:
+        return torch.sqrt(self.variance())
 
 
 def axis_params(params: Params, i: int) -> Params:
     return params["axes"][i]
+
+
+def shift_mean(g: Gaussian, delta) -> Gaussian:
+    """Gaussian with ``delta`` added to the mean (0.0 → unchanged)."""
+    if isinstance(delta, float) and delta == 0.0:
+        return g
+    return Gaussian(mean=g.mean + delta, cov=g.cov, var=g.var)
+
+
+def floor_var(var: torch.Tensor, ref_diag: torch.Tensor) -> torch.Tensor:
+    """Floor variances at 1e-6 of the prior diagonal: the subtracted forms
+    k_diag − Σa² + Σt² can dip below zero in float32 by roundoff."""
+    return torch.maximum(var, 1e-6 * ref_diag)
 
 
 # float32 Kuu jitter floors by kernel smoothness (measured in the JAX package).
@@ -42,6 +68,16 @@ def axis_rel_jitter(spec, kind: str, dtype) -> float:
     if dtype != torch.float64:
         jitter = max(jitter, KIND_JITTER_F32.get(kind, 1e-4), F32_MIN_JITTER)
     return jitter
+
+
+def axis_chol_kuu(spec, params: Params) -> Tuple[PSDFactor, ...]:
+    """Per-axis jittered-Cholesky factors of Kuu, with the f32 jitter floors
+    of :func:`axis_rel_jitter` (``common.py:101-119``)."""
+    out = []
+    for i, (kind, feat) in enumerate(zip(spec.kinds, spec.features)):
+        kuu = feat.Kuu(kind, axis_params(params, i))
+        out.append(psd_factor(kuu, jitter=axis_rel_jitter(spec, kind, kuu.dtype)))
+    return tuple(out)
 
 
 def scalar_whiten_eligible(spec, params: Params) -> bool:
@@ -179,6 +215,22 @@ def axis_whitened_kuf_scalar(spec, params: Params, X: torch.Tensor) -> Tuple[tor
     return tuple(out)
 
 
+def axis_whitened_kuf(spec, params: Params, chols, X: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Per-axis A_i = F_i⁻¹ Kuf_i(x_i), (m_i, n) each, through dense factors."""
+    if X.dim() == 1:
+        X = X[:, None]
+    return tuple(chols[i].whiten(feat.Kuf(kind, axis_params(params, i), X[:, i]))
+                 for i, (kind, feat) in enumerate(zip(spec.kinds, spec.features)))
+
+
+def khatri_rao_all(blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+    """(Π m_i, n) column-wise Kronecker of the per-axis (m_i, n) blocks."""
+    out = blocks[0]
+    for b in blocks[1:]:
+        out = khatri_rao_rows(out, b)
+    return out
+
+
 def kdiag(spec, params: Params, X: torch.Tensor) -> torch.Tensor:
     """diag K_ff — product of per-axis stationary variances."""
     if X.dim() == 1:
@@ -189,12 +241,100 @@ def kdiag(spec, params: Params, X: torch.Tensor) -> torch.Tensor:
     return v
 
 
+def gram_full(spec, params: Params, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Dense K(x1, x2): the product over axes of the 1-D Grams."""
+    if x1.dim() == 1:
+        x1 = x1[:, None]
+    if x2.dim() == 1:
+        x2 = x2[:, None]
+    out = None
+    for i, kind in enumerate(spec.kinds):
+        g = kernels.axis_gram(kind, axis_params(params, i), x1[:, i], x2[:, i])
+        out = g if out is None else out * g
+    return out
+
+
+def grid_kvu(spec, params: Params, grid_axes) -> Tuple[torch.Tensor, ...]:
+    """Per-axis (g_i, m_i) Kvu blocks between grid cells and the features."""
+    return tuple(feat.Kvu(kind, axis_params(params, i), grid_axes[i])
+                 for i, (kind, feat) in enumerate(zip(spec.kinds, spec.features)))
+
+
+def grid_kvv(spec, params: Params, grid_axes, dense: bool = True):
+    """Per-axis grid-cell prior covariances (the grid feature's Kuu); their
+    Kronecker product when ``dense``."""
+    blocks = tuple(grid_axes[i].Kuu(kind, axis_params(params, i))
+                   for i, kind in enumerate(spec.kinds))
+    return kron_dense(blocks) if dense else blocks
+
+
+# Gridded gradients: v'_c = ∫_cell ∂f/∂x_axis collapses on that axis, by the
+# fundamental theorem of calculus, to a face difference of point evaluations
+# tensored with the other axes' cell integrals (``common.py:349-365``).
+
+
+def canonical_axis(spec, axis: int) -> int:
+    """Normalize a (possibly negative) axis index; raises when out of range."""
+    nd = len(spec.kinds)
+    if not -nd <= axis < nd:
+        raise ValueError(f"axis {axis} out of range for a {nd}-axis model")
+    return axis % nd
+
+
+def grad_grid_kvu(spec, params: Params, grid_axes, axis: int) -> Tuple[torch.Tensor, ...]:
+    """Per-axis Kv'u blocks of the gridded-gradient product along ``axis``:
+    face differences of Kuf at that axis's cell edges, plain Kvu elsewhere."""
+    axis = canonical_axis(spec, axis)
+    out = []
+    for i, (kind, feat) in enumerate(zip(spec.kinds, spec.features)):
+        p = axis_params(params, i)
+        if i == axis:
+            kue = feat.Kuf(kind, p, grid_axes[i].mesh_j(p))   # (m, g + 1)
+            out.append((kue[:, 1:] - kue[:, :-1]).T)          # (g, m)
+        else:
+            out.append(feat.Kvu(kind, p, grid_axes[i]))
+    return tuple(out)
+
+
+def _face_diff_gram(kind: str, p: Params, grid) -> torch.Tensor:
+    """(g, g) Cov of the face differences f(β_c) − f(α_c) on the grid's mesh,
+    as −2·kdiff0 double differences so the dominant k(0) never enters:
+    Cov(Δ_i, Δ_j) = [D(β_i−α_j) + D(α_i−β_j)] − [D(β_i−β_j) + D(α_i−α_j)]
+    with D(r) = k(0) − k(r)."""
+    mesh = grid.mesh_j(p)
+    a, b = mesh[:-1], mesh[1:]
+    var, ell = p["variance"], p["lengthscale"]
+
+    def D(u, w):
+        return kernels.kdiff0(kind, u[:, None] - w[None, :], var, ell)
+
+    return (D(b, a) + D(a, b)) - (D(b, b) + D(a, a))
+
+
+def grad_grid_kvv(spec, params: Params, grid_axes, axis: int, dense: bool = True):
+    """Per-axis prior covariance blocks of the gridded-gradient product."""
+    axis = canonical_axis(spec, axis)
+    blocks = tuple(_face_diff_gram(kind, axis_params(params, i), grid_axes[i]) if i == axis
+                   else grid_axes[i].Kuu(kind, axis_params(params, i))
+                   for i, kind in enumerate(spec.kinds))
+    return kron_dense(blocks) if dense else blocks
+
+
+def _require_no_learned_mean(params: Params) -> None:
+    if params.get("mean") is not None:
+        raise NotImplementedError(f"a learned mean is not ported yet {_NOT_PORTED}")
+
+
 def mean_fn(spec, params: Params, X: torch.Tensor):
     """Prior mean m(x): 0.0 (no learned mean) on the ported path."""
-    if params.get("mean") is not None:
-        raise NotImplementedError(
-            "a learned mean is not ported yet "
-            "(ROADMAP queue 1, item 10: the other features and model families)")
+    _require_no_learned_mean(params)
+    return 0.0
+
+
+def grid_mean(spec, params: Params, grid_axes):
+    """Cell integrals of the prior mean over a product grid: 0.0 on the
+    ported path (no learned mean)."""
+    _require_no_learned_mean(params)
     return 0.0
 
 
@@ -202,7 +342,5 @@ def obs_noise(spec, params: Params, X: torch.Tensor):
     """Observation noise variance: the scalar (homoscedastic) case."""
     noise = params["noise"]
     if noise.dim() != 0:
-        raise NotImplementedError(
-            "per-output noise is not ported yet "
-            "(ROADMAP queue 1, item 10: the other features and model families)")
+        raise NotImplementedError(f"per-output noise is not ported yet {_NOT_PORTED}")
     return noise

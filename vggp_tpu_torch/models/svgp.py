@@ -1,11 +1,15 @@
 """Whitened, minibatchable SVGP with the Kronecker variational family —
-port of the main-path part of ``vggp_tpu/models/svgp.py``.
+port of the Kronecker branch of ``vggp_tpu/models/svgp.py``: training, and
+the serving heads (posteriors with full covariance, q(u), p(v | u), the
+gridded product q(v), its gradient field q(∂v) and the warm
+``precompute`` state).
 
 With per-axis whitened features a_i = F_i⁻¹ Kuf_i (m_i, n) and
 S = S₁ ⊗ S₂, every ELBO term is computed from per-axis (m_i, m_i) and
 (m_i, n) matrices: the m = m₁·m₂ inducing grid is never materialized.
 ``mu`` has shape (m₁, m₂); flattening follows the ``numpy.kron`` row-major
-order, as in the JAX package.
+order, as in the JAX package. Only the heads whose output is dense by nature
+(``full_cov=True``, ``q_u``, ``p_v_u``) build m- or grid-sized matrices.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from vggp_tpu_torch import config
 from vggp_tpu_torch.config import highest_precision, matmul_precision
 from vggp_tpu_torch.models import common
 from vggp_tpu_torch.models.common import Gaussian
+from vggp_tpu_torch.ops.kron import kron_dense, kron_diag
 
 Params = Dict
 
@@ -44,11 +49,18 @@ class SVGPSpec:
     num_data: int                     # n_total, for minibatch scaling
     variational: str = "full"         # "full" | "kron"; only "kron" is ported
     jitter: float = 1e-6
+    factor_method: str = "chol"       # Kuu factorization; only "chol" is ported
     likelihood: str = "gaussian"
 
     def __post_init__(self):
         if self.variational not in ("full", "kron"):
             raise ValueError(self.variational)
+        if self.factor_method not in ("chol", "eigh"):
+            raise ValueError(f"unknown factor method {self.factor_method!r}")
+        if self.factor_method != "chol":
+            raise NotImplementedError(
+                "the clamped-eigh Kuu factor is not ported yet "
+                "(ROADMAP queue 1, item 10: the other features and model families)")
         if self.variational != "kron":
             raise NotImplementedError(
                 "the full variational family is not ported yet "
@@ -89,12 +101,13 @@ class SVGPSpec:
 
 
 def _whitened_blocks(spec: SVGPSpec, params: Params, x: torch.Tensor):
-    if not common.scalar_whiten_eligible(spec, params):
-        raise NotImplementedError(
-            "whitening through dense Kuu factors (config.SCALAR_WHITEN_VJP off "
-            "or learnable inducing locations) is not ported yet "
-            "(ROADMAP queue 1, item 8: the SVGP serving heads and factor ops)")
-    return None, common.axis_whitened_kuf_scalar(spec, params, x)
+    """(per-axis Kuu factors or None, per-axis whitened blocks). Fixed bases
+    take the scalar-tangent whitening (closed-form F⁻¹); otherwise the dense
+    factors of :func:`common.axis_chol_kuu`, differentiated by autograd."""
+    if common.scalar_whiten_eligible(spec, params):
+        return None, common.axis_whitened_kuf_scalar(spec, params, x)
+    chols = common.axis_chol_kuu(spec, params)
+    return chols, common.axis_whitened_kuf(spec, params, chols, x)
 
 
 _AXIS_LETTERS = "abcdefgh"
@@ -104,12 +117,21 @@ def _kron_chols(spec: SVGPSpec, q: Params) -> Tuple[torch.Tensor, ...]:
     return tuple(chol_from_raw(q[f"raw_L{i + 1}"]) for i in range(spec.ndim))
 
 
-def _kron_contract(mu: torch.Tensor, mats: Sequence[torch.Tensor]) -> torch.Tensor:
-    """einsum of μ (m₁…m_d) against one (m_i, n) matrix per axis, columns
-    aligned: the q(f) means (the 'n' form of the JAX ``_kron_contract``)."""
-    L = _AXIS_LETTERS[:len(mats)]
-    sub = ",".join(f"{L[i]}n" for i in range(len(mats)))
-    return torch.einsum(f"{L},{sub}->n", mu, *mats)
+def _kron_contract(mu: torch.Tensor, mats: Sequence[torch.Tensor], out: str = "n") -> torch.Tensor:
+    """einsum of μ (m₁…m_d) against one matrix per axis.
+
+    ``out="n"``: mats are (m_i, n) with columns aligned (q(f) means).
+    ``out="grid"``: mats are (g_i, m_i), an outer grid (q(v) means),
+    flattened row-major in the ``numpy.kron`` order.
+    """
+    d = len(mats)
+    L = _AXIS_LETTERS[:d]
+    if out == "n":
+        sub = ",".join(f"{L[i]}n" for i in range(d))
+        return torch.einsum(f"{L},{sub}->n", mu, *mats)
+    G = _AXIS_LETTERS[d:2 * d].upper()
+    sub = ",".join(f"{G[i]}{L[i]}" for i in range(d))
+    return torch.einsum(f"{L},{sub}->{G}", mu, *mats).reshape(-1)
 
 
 def _mean_cotangent_einsums(d: int):
@@ -225,26 +247,191 @@ def loss(spec: SVGPSpec, params: Params, xb: torch.Tensor, yb: torch.Tensor) -> 
     return -elbo(spec, params, xb, yb)
 
 
+def _posterior_from_blocks(spec: SVGPSpec, params: Params, blocks, Ls, xstar,
+                          full_cov: bool, predictive: bool) -> Gaussian:
+    """q(f*) from the whitened blocks at ``xstar`` and the variational
+    factors ``Ls``: marginals, or for ``full_cov`` the dense (n*, n*)
+    covariance through the (m, n*) Khatri–Rao block (small n* only)."""
+    mean, var_red, var_add = _qf_mean_var(spec, params, blocks, Ls=Ls)
+    mean = mean + common.mean_fn(spec, params, xstar)
+    noise = common.obs_noise(spec, params, xstar) if predictive else 0.0
+    if not full_cov:
+        kss = common.kdiag(spec, params, xstar)
+        var = torch.clamp(kss - var_red, min=0.0) + var_add + noise
+        return Gaussian(mean=mean, var=var)
+    a = common.khatri_rao_all(blocks)
+    sa = common.khatri_rao_all(tuple(Ls[i].T @ blocks[i] for i in range(spec.ndim)))
+    cov = common.gram_full(spec, params, xstar, xstar) - a.T @ a + sa.T @ sa
+    if predictive:
+        cov = cov + noise * torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+    return Gaussian(mean=mean, cov=cov)
+
+
+def _wants_grad(params: Params) -> bool:
+    leaves = [*(v for ax in params["axes"] for v in ax.values()), params["noise"],
+              *params["q"].values()]
+    return torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
+
+
 @highest_precision
 def posterior(spec: SVGPSpec, params: Params, xstar: torch.Tensor,
               full_cov: bool = False, predictive: bool = False) -> Gaussian:
-    """q(f*) marginals at ``xstar`` (n*, d): mean and variance.
+    """q(f*) at ``xstar`` (n*, d): marginals (mean, var), or mean and the
+    dense covariance for ``full_cov``; ``predictive`` adds the noise.
 
-    Under ``torch.no_grad()`` (or with parameters that need no gradient) the
-    whitened blocks are built by the primal path alone: the ``cell_kuf``
-    kernel and the banded apply.
+    Serving (``torch.no_grad()``, or parameters that need no gradient) is
+    the warm head on a fresh state, ``posterior_from_state(precompute(…))``:
+    two (m_i, m_i) Cholesky factors and a few dense products cost less than
+    the scalar chain of the closed-form F⁻¹. Under differentiation the
+    blocks take the scalar-tangent whitening of training.
     """
-    if full_cov:
-        raise NotImplementedError(
-            "posterior(full_cov=True) is not ported yet "
-            "(ROADMAP queue 1, item 8: the SVGP serving heads)")
+    if not _wants_grad(params):
+        return posterior_from_state(spec, params, precompute(spec, params), xstar,
+                                    full_cov=full_cov, predictive=predictive)
     _, blocks = _whitened_blocks(spec, params, xstar)
-    mean, var_red, var_add = _qf_mean_var(spec, params, blocks)
-    mean = mean + common.mean_fn(spec, params, xstar)
-    noise = common.obs_noise(spec, params, xstar) if predictive else 0.0
-    kss = common.kdiag(spec, params, xstar)
-    var = torch.clamp(kss - var_red, min=0.0) + var_add + noise
-    return Gaussian(mean=mean, var=var)
+    return _posterior_from_blocks(spec, params, blocks, _kron_chols(spec, params["q"]), xstar,
+                                  full_cov, predictive)
+
+
+def posterior_predictive(spec: SVGPSpec, params: Params, xstar: torch.Tensor,
+                         full_cov: bool = False) -> Gaussian:
+    return posterior(spec, params, xstar, full_cov=full_cov, predictive=True)
+
+
+def predict_y(spec: SVGPSpec, params: Params, xstar: torch.Tensor) -> Gaussian:
+    """Observable-space prediction: the Gaussian likelihood's predictive
+    marginals (other likelihoods raise at :class:`SVGPSpec`, item 9)."""
+    return posterior_predictive(spec, params, xstar)
+
+
+def prior(spec: SVGPSpec, params: Params, xstar: torch.Tensor) -> Gaussian:
+    """Prior N(m, K**) at ``xstar``."""
+    cov = common.gram_full(spec, params, xstar, xstar)
+    mean = torch.zeros(cov.shape[0], dtype=cov.dtype, device=cov.device)
+    return Gaussian(mean=mean + common.mean_fn(spec, params, xstar), cov=cov)
+
+
+@highest_precision
+def q_u(spec: SVGPSpec, params: Params) -> Gaussian:
+    """q(u) = N(F μ, F S Fᵀ): the variational distribution unwhitened, with a
+    dense (m, m) covariance (small m only)."""
+    Fs = [c.F for c in common.axis_chol_kuu(spec, params)]
+    Lk = _kron_chols(spec, params["q"])
+    halves = [Fs[i] @ Lk[i] for i in range(spec.ndim)]
+    return Gaussian(mean=_kron_contract(params["q"]["mu"], Fs, out="grid"),
+                    cov=kron_dense([h @ h.T for h in halves]))
+
+
+def _grid_r_blocks(chols, kvu_blocks) -> Tuple[torch.Tensor, ...]:
+    """R_i = Kvu_i F_i⁻ᵀ (g_i, m_i), one whitening solve per axis."""
+    return tuple(c.whiten(k.T).T for c, k in zip(chols, kvu_blocks))
+
+
+@highest_precision
+def p_v_u(spec: SVGPSpec, params: Params, grid_axes: Sequence) -> Gaussian:
+    """p(v | u = E_q[u]): the cell integrals conditioned on the mean
+    inducing state, with a dense (g, g) covariance (small grids only)."""
+    chols = common.axis_chol_kuu(spec, params)
+    r_blocks = _grid_r_blocks(chols, common.grid_kvu(spec, params, grid_axes))
+    mean = _kron_contract(params["q"]["mu"], r_blocks, out="grid")
+    cov = (common.grid_kvv(spec, params, grid_axes, dense=True)
+           - kron_dense([R @ R.T for R in r_blocks]))
+    return common.shift_mean(Gaussian(mean=mean, cov=cov),
+                             common.grid_mean(spec, params, grid_axes))
+
+
+def _grid_gaussian(spec: SVGPSpec, params: Params, r_blocks, kvv_blocks, Ls,
+                   full_cov: bool) -> Gaussian:
+    """A grid-product posterior from the whitened cross blocks R_i (g_i, m_i),
+    the prior blocks Kvv_i and the variational factors ``Ls``:
+    mean = (⊗R_i) μ and cov = Kvv − R Rᵀ + (R L_S)(R L_S)ᵀ; for
+    ``full_cov=False`` only the per-cell variances, as Kronecker diagonals
+    (O(g) memory)."""
+    mean = _kron_contract(params["q"]["mu"], r_blocks, out="grid")
+    rs_blocks = [r_blocks[i] @ Ls[i] for i in range(spec.ndim)]
+    if full_cov:
+        cov = (kron_dense(kvv_blocks) - kron_dense([R @ R.T for R in r_blocks])
+               + kron_dense([RS @ RS.T for RS in rs_blocks]))
+        return Gaussian(mean=mean, cov=cov)
+    kvv_diag = kron_diag([torch.diagonal(b) for b in kvv_blocks])
+    var = (kvv_diag
+           - kron_diag([torch.sum(R * R, dim=1) for R in r_blocks])
+           + kron_diag([torch.sum(RS * RS, dim=1) for RS in rs_blocks]))
+    return Gaussian(mean=mean, var=common.floor_var(var, kvv_diag))
+
+
+def q_v(spec: SVGPSpec, params: Params, grid_axes: Sequence,
+        full_cov: bool = False) -> Gaussian:
+    """The gridded product q(v) over the cells of ``grid_axes`` (one cell
+    feature per axis), with its per-cell uncertainty:
+    R_i = Kvu_i F_i⁻ᵀ per axis, assembled by :func:`_grid_gaussian`."""
+    return q_v_from_state(spec, params, precompute(spec, params), grid_axes, full_cov)
+
+
+def q_dv(spec: SVGPSpec, params: Params, grid_axes: Sequence, axis: int,
+         full_cov: bool = False) -> Gaussian:
+    """The gridded-gradient product q(v'), v'_c = ∫_cell ∂f/∂x_axis: on
+    ``axis`` a face difference of Kuf at the cell edges (the ``cell_kuf``
+    kernel at (m, g + 1)), cell integrals elsewhere. Divide by the cell
+    measure for the mean-gradient field."""
+    return q_dv_from_state(spec, params, precompute(spec, params), grid_axes, axis, full_cov)
+
+
+# The warm serving path: the per-axis Kuu factors and the variational
+# Cholesky factors once, then every head is query-size work only. Rebuild
+# the state after any parameter update: it is a pure function of ``params``.
+
+
+def precompute(spec: SVGPSpec, params: Params):
+    """(per-axis Kuu factors, per-axis variational Cholesky factors)."""
+    return common.axis_chol_kuu(spec, params), _kron_chols(spec, params["q"])
+
+
+@highest_precision
+def posterior_from_state(spec: SVGPSpec, params: Params, state, xstar: torch.Tensor,
+                         full_cov: bool = False, predictive: bool = False) -> Gaussian:
+    """q(f*) from a :func:`precompute` state: no Kuu factorization, the
+    whitening through the state's dense factors."""
+    chols, Ls = state
+    blocks = common.axis_whitened_kuf(spec, params, chols, xstar)
+    return _posterior_from_blocks(spec, params, blocks, Ls, xstar, full_cov, predictive)
+
+
+@highest_precision
+def q_v_from_state(spec: SVGPSpec, params: Params, state, grid_axes: Sequence,
+                   full_cov: bool = False) -> Gaussian:
+    """q(v) from a :func:`precompute` state (the warm gridded-product head)."""
+    chols, Ls = state
+    r_blocks = _grid_r_blocks(chols, common.grid_kvu(spec, params, grid_axes))
+    kvv_blocks = common.grid_kvv(spec, params, grid_axes, dense=False)
+    g = _grid_gaussian(spec, params, r_blocks, kvv_blocks, Ls, full_cov)
+    return common.shift_mean(g, common.grid_mean(spec, params, grid_axes))
+
+
+@highest_precision
+def q_dv_from_state(spec: SVGPSpec, params: Params, state, grid_axes: Sequence,
+                    axis: int, full_cov: bool = False) -> Gaussian:
+    """q(∫_cell ∂f/∂x_axis) from a :func:`precompute` state."""
+    chols, Ls = state
+    r_blocks = _grid_r_blocks(chols, common.grad_grid_kvu(spec, params, grid_axes, axis))
+    kvv_blocks = common.grad_grid_kvv(spec, params, grid_axes, axis, dense=False)
+    return _grid_gaussian(spec, params, r_blocks, kvv_blocks, Ls, full_cov)
+
+
+_GRAD_NOT_PORTED = ("is not ported yet (ROADMAP queue 1, item 10: it needs a "
+                    "once-differentiable kernel, and only the Matérn-1/2 cell feature is ported)")
+
+
+def posterior_grad(spec: SVGPSpec, params: Params, xstar: torch.Tensor, axis: int,
+                   full_cov: bool = False) -> Gaussian:
+    """The pointwise-gradient posterior ∂f/∂x_axis: not ported (item 10)."""
+    raise NotImplementedError(f"posterior_grad {_GRAD_NOT_PORTED}")
+
+
+def posterior_grad_from_state(spec: SVGPSpec, params: Params, state, xstar: torch.Tensor,
+                              axis: int, full_cov: bool = False) -> Gaussian:
+    """The warm pointwise-gradient posterior: not ported (item 10)."""
+    raise NotImplementedError(f"posterior_grad_from_state {_GRAD_NOT_PORTED}")
 
 
 class SVGP(nn.Module):
@@ -283,5 +470,20 @@ class SVGP(nn.Module):
         """The minibatch loss (negative ELBO)."""
         return loss(self.spec, self.params(), xb, yb)
 
-    def posterior(self, xstar: torch.Tensor, predictive: bool = False) -> Gaussian:
-        return posterior(self.spec, self.params(), xstar, predictive=predictive)
+    def posterior(self, xstar: torch.Tensor, full_cov: bool = False,
+                  predictive: bool = False) -> Gaussian:
+        return posterior(self.spec, self.params(), xstar, full_cov=full_cov,
+                         predictive=predictive)
+
+    def q_v(self, grid_axes=None, full_cov: bool = False) -> Gaussian:
+        """The gridded product; ``grid_axes`` defaults to the model's own cells."""
+        return q_v(self.spec, self.params(), grid_axes or self.spec.features, full_cov)
+
+    def q_dv(self, grid_axes=None, axis: int = 0, full_cov: bool = False) -> Gaussian:
+        """The gridded-gradient product along ``axis``; ``grid_axes`` defaults
+        to the model's own cells."""
+        return q_dv(self.spec, self.params(), grid_axes or self.spec.features, axis, full_cov)
+
+    def precompute(self):
+        """The warm serving state of the current parameters (:func:`precompute`)."""
+        return precompute(self.spec, self.params())
