@@ -9,10 +9,14 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``vggp_tpu_torch/csrc/``, side by side);
 3. hold each kernel against its plain PyTorch version on the card, in
    float64 and float32, at the main path's shapes and at a ragged shape (the
-   fused kernel at the main path's precisions and at "highest" for both;
+   fused kernel at the main path's precisions ("highest", "high") and with
+   a one-pass TF32 ``t`` ("highest", "default");
    ``cell_kuf`` also at the serving grid's (512, 65 536), at the face
    difference's (512, 513) with every point on a cell edge, a ragged row
-   length, one cell and an x that is a view at an offset),
+   length, one cell and an x that is a view at an offset; both cell kernels
+   at the collapsed and exact models' 64-cell shapes (64, 65 536),
+   (64, 4096) and a ragged (64, 65 531), and ``cell_kuf`` at (64, 65) on the
+   mesh),
    and the float32 and float64 results against the cell-Kuf goldens of
    ``bench.py`` (copied here; the port imports nothing of the JAX package),
    and the float32 closed-form F⁻¹ with and without its Newton–Schulz step
@@ -36,15 +40,34 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``full_cov=True`` on a 32×32 grid. Each head's ``cell_kuf`` launches are
    counted exactly, and its result on the card (float32) is held against the
    same head on the CPU in float64;
-7. profile three steps at each batch (device busy share, the ops with the
+7. the collapsed GriddedGP (``sgpr``, 64×64 cells, m = 4096) on the first
+   65 536 points: ``non_informative_init``, 10 full-batch Adam steps of
+   ``train.fit`` (``cell_kuf_with_dl`` twice a step, ``fused_banded_whiten_kuf``
+   never: 64-cell axes fail its gate), the steady-state step, and every head
+   cold on the trained model with its ``cell_kuf`` launches counted exactly
+   and its host time; the ELBO, every gradient leaf and every head on the
+   card in float32 against the card in float64 at the full n, and against
+   the CPU in float64 at a cut n (8192), each within the larger of a stated
+   floor and CPU_ERR_RATIO times the CPU's own float32 error; the heads
+   compared at the full n are the timed cold calls' own outputs;
+8. the exact GP at n = 4096: 10 ``train.fit`` steps, then ``mll`` and its
+   gradients, ``posterior`` at the 4096 points and ``q_v``/``q_dv`` on a
+   64×64 grid (``cell_kuf`` at (64, 4096), counted), against the CPU in
+   float64 by the same rule;
+9. the 512×512 Kronecker SVGP under the bernoulli, poisson and Student-t
+   likelihoods: 5 steps each at batch 4096 (``cell_kuf_with_dl`` twice a
+   step), the loss and every gradient leaf and ``predict_y`` at the 4096
+   points against the CPU in float64 by the same rule;
+10. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
-8. time each kernel and its plain version (device time from the profiler's
+11. time each kernel and its plain version (device time from the profiler's
    CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
    serving grid's (512, 65 536) beside one warm cold ``posterior`` and one
    ``posterior_from_state`` on that grid and at the face difference's
-   (512, 513), and the fused kernel beside the unfused route it replaces,
-   and print them and the steady-state step and serving times with the
-   card's name and power limit.
+   (512, 513), both cell kernels at the collapsed model's (64, 65 536), and
+   the fused kernel beside the unfused route it replaces, and print them and
+   the steady-state step and serving times with the card's name and power
+   limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -70,6 +93,22 @@ TRAIN_STEPS = 20       # first WARM_STEPS untimed
 FUSED_STEPS = 8
 WARM_STEPS = 3
 
+# phase 7: the collapsed GriddedGP, 64×64 cells (m = 4096, the JAX package's
+# dense-feasible oracle size, tools/cg_scale_study.py) on the first SGPR_N
+# points; the CPU float64 reference at SGPR_CUT_N points
+SGPR_CELLS = 64
+SGPR_N = 65_536
+SGPR_CUT_N = 8192
+SGPR_STEPS = 10
+FIT_LR = 0.05
+EXACT_N = 4096         # phase 8 (vggp_tpu/experiments/gulfstream.py runs up to 5000)
+EXACT_STEPS = 10
+LIK_STEPS = 5          # phase 9, per likelihood
+# at 1e-2 the poisson loss rose from 2e6 to 1e15 in 5 steps, on an H100 and
+# on the CPU in float32 alike (where no product is TF32)
+LIK_LR = 3e-3
+LIKELIHOODS = (("bernoulli", ()), ("poisson", ()), ("student_t", (("df", 4.0),)))
+
 # H100 SXM published peaks (dense, no sparsity) at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -77,11 +116,11 @@ TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 
 # The precisions the main path gives the fused kernel
-# (config.WHITEN_MATMUL_PRECISION, config.GRAD_MATMUL_PRECISION), and the
-# tensor-core products per needed FMA the float32 kernel issues for each
-# string: six bf16 ones for the fp32-accurate split, one TF32 one for
-# "default" (csrc/fused_whiten_tc.cu).
-MAIN_PRECISIONS = ("highest", "default")
+# (config.WHITEN_MATMUL_PRECISION for a, config.MATMUL_PRECISION for the
+# ℓ-tangent's t), and the tensor-core products per needed FMA the float32
+# kernel issues for each string: six bf16 ones for the fp32-accurate split,
+# one TF32 one for "default" (csrc/fused_whiten_tc.cu).
+MAIN_PRECISIONS = ("highest", "high")
 TC_PRODUCTS = {"highest": 6, "high": 6, "default": 1}
 
 # The cell tile math's operations per output element: what the function
@@ -124,7 +163,9 @@ GOLD_TOL_F64 = 1e-9
 #       at "highest" sums terms of both signs whose cancellation leaves the
 #       result far smaller than its terms, so the float32 summation order
 #       moves it more: 1e-3 (t is gradient-only signal).
-#  t at "default" is one TF32 product (about 1e-2 to 4e-2 from f64 under
+#  t at "default" (off the main path since its ℓ-tangent went to fp32; the
+#       kernel keeps the JAX kernel's contract) is one TF32 product (about
+#       1e-2 to 4e-2 from f64 under
 #       that cancellation, by the CPU emulation in tests/test_torch_ops.py):
 #       its error against the f64 plain version may be at most
 #       TF32_ERR_RATIO times that of torch's own TF32 product (the plain
@@ -161,6 +202,19 @@ TOL_E2E_POST = 1e-3
 # 0.9–1.7 for q_dv, which no ratio above the float32 one can.
 CPU_ERR_RATIO = 2.0
 
+# Phases 7–9 hold the card's float32 against a float64 reference by the same
+# rule, with these floors: losses TOL_E2E_LOSS and heads TOL_E2E_POST as
+# above; gradient leaves TOL_GRAD of their comparison, about 5× the largest
+# leaf error of a sound run on an H100 (6.2e-4, 2.9e-5, 4.7e-6 and 4.3e-4).
+# tools/torch_grad_control.py shows what each catches (PERF.md §6): a TF32
+# ℓ-tangent fails every collapsed and likelihood comparison (dℓ 3.5e-3 to
+# 0.44), every model product in TF32 the collapsed σ² leaves and the
+# poisson SVGP's dμ (2.7e-3); no control moves the exact GP's leaves. At the
+# full n of the collapsed GP the CPU takes no float32 gradient (three
+# (4096, 65 536) products), so there the floor alone holds the leaves.
+TOL_GRAD = {"collapsed full n": 3e-3, "collapsed cut n": 1.5e-4, "exact": 2.5e-5,
+            "likelihood": 2e-3}
+
 _REPLACES = {
     "cell_kuf": "vggp_tpu/ops/pallas_kernels.py:84",
     "cell_kuf_with_dl": "vggp_tpu/ops/pallas_kernels.py:134",
@@ -185,7 +239,9 @@ def check(ok: bool, what: str) -> None:
 
 
 def rel_err(got, want) -> float:
-    return float((got - want).abs().max() / want.abs().max())
+    """max|got − want| / max|want|; the absolute error where want is all zero."""
+    den = want.abs().max()
+    return float((got - want).abs().max() / (den if den > 0 else 1.0))
 
 
 def _profiled(fn, iters: int):
@@ -288,7 +344,8 @@ def check_kernels(device) -> dict:
     from vggp_tpu_torch.ops import cell_kuf as ck
 
     errs = {}   # max |kernel − plain| at the main path's f32 shapes and precisions
-    main_shapes = ((M_AXIS, TRAIN_BATCH), (M_AXIS, FUSED_BATCH), (M_AXIS, M_AXIS + 1))
+    main_shapes = ((M_AXIS, TRAIN_BATCH), (M_AXIS, FUSED_BATCH), (M_AXIS, M_AXIS + 1),
+                   (SGPR_CELLS, SGPR_N), (SGPR_CELLS, EXACT_N), (SGPR_CELLS, SGPR_CELLS + 1))
 
     def compare(kernel, name, got, want, tol, tag, shape, record=True, precs=()):
         e = rel_err(got, want)
@@ -300,7 +357,11 @@ def check_kernels(device) -> dict:
 
     for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
         tag = "f64" if dtype == torch.float64 else "f32"
-        for shape in ((M_AXIS, TRAIN_BATCH), (200, 301)):
+        # the SVGP's training shape, a ragged one, and the 64-cell axes of the
+        # collapsed step (n = 65 536), the exact GP's q_v (n = 4096) and a
+        # ragged row length (n % 4 = 3)
+        for shape in ((M_AXIS, TRAIN_BATCH), (200, 301), (SGPR_CELLS, SGPR_N),
+                      (SGPR_CELLS, EXACT_N), (SGPR_CELLS, SGPR_N - 5)):
             mesh, x, v, ell, _ = kernel_inputs(*shape, dtype, device, seed=1)
             compare("cell_kuf", "Kuf", ck.cell_kuf(mesh, x, v, ell),
                     ck.cell_kuf_plain(mesh, x, v, ell), tol, tag, shape)
@@ -318,12 +379,13 @@ def check_kernels(device) -> dict:
                     ck.cell_kuf_plain(mesh, x, v, ell), tol, tag,
                     shape + (("x at +1",) if offset else ()))
         # q_dv's face difference: every point on a cell edge, n % 4 = 1
-        mesh, _, v, ell, _ = kernel_inputs(M_AXIS, 1, dtype, device, seed=8)
-        compare("cell_kuf", "Kuf at the edges", ck.cell_kuf(mesh, mesh, v, ell),
-                ck.cell_kuf_plain(mesh, mesh, v, ell), tol, tag, (M_AXIS, M_AXIS + 1))
+        for m in (M_AXIS, SGPR_CELLS):
+            mesh, _, v, ell, _ = kernel_inputs(m, 1, dtype, device, seed=8)
+            compare("cell_kuf", "Kuf at the edges", ck.cell_kuf(mesh, mesh, v, ell),
+                    ck.cell_kuf_plain(mesh, mesh, v, ell), tol, tag, (m, m + 1))
         for shape in ((M_AXIS, FUSED_BATCH), (256, 301)):
             mesh, x, v, ell, finv = kernel_inputs(*shape, dtype, device, seed=2)
-            for precs in (MAIN_PRECISIONS, ("highest", "highest")):
+            for precs in (MAIN_PRECISIONS, ("highest", "default")):
                 (a, t), (a_p, t_p) = (ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell, *precs),
                                       ck.fused_banded_whiten_kuf_plain(finv, mesh, x, v, ell,
                                                                        *precs))
@@ -333,19 +395,16 @@ def check_kernels(device) -> dict:
                     compare("fused_banded_whiten_kuf", "t", t, t_p,
                             TOL_F64 if tag == "f64" else TOL_F32_T, tag, shape, main, precs)
                 else:
-                    check_fused_f32_main(finv, mesh, x, v, ell, a, t, t_p, shape)
-                    if shape in main_shapes:
-                        errs["fused_banded_whiten_kuf"] = max(
-                            errs["fused_banded_whiten_kuf"], float((t - t_p).abs().max()))
+                    check_fused_tf32_t(finv, mesh, x, v, ell, a, t, t_p, shape)
     torch.cuda.synchronize()
     return errs
 
 
-def check_fused_f32_main(finv, mesh, x, v, ell, a, t, t_tf32, shape) -> None:
-    """The float32 fused kernel at the main path's precisions against the
-    float64 plain version of the same inputs: colsum(a²) within the bench's
-    2e-4, and the one-pass TF32 ``t`` within TF32_ERR_RATIO of torch's own
-    TF32 product (``t_tf32``, the plain version at "default")."""
+def check_fused_tf32_t(finv, mesh, x, v, ell, a, t, t_tf32, shape) -> None:
+    """The float32 fused kernel at ("highest", "default") against the float64
+    plain version of the same inputs: colsum(a²) within the bench's 2e-4,
+    and the one-pass TF32 ``t`` within TF32_ERR_RATIO of torch's own TF32
+    product (``t_tf32``, the plain version at "default")."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
@@ -732,11 +791,488 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+# --------------------------------------------------------------------------- #
+# phases 7–9: the collapsed GriddedGP, the exact GP, the likelihoods
+# --------------------------------------------------------------------------- #
+
+def value_and_grads(loss_fn, params):
+    """(loss, {name: gradient}) at constrained ``params``: ``d<key>_<axis>``
+    for the axes, ``dnoise``, ``d<key>`` for the variational leaves; a leaf
+    the loss does not reach has none."""
+    from vggp_tpu_torch import train
+
+    pg = train.tree_map(lambda v: v.detach().clone().requires_grad_(), params)
+    val = loss_fn(pg)
+    val.backward()
+    grads = {f"d{k}_{i}": v.grad for i, ax in enumerate(pg["axes"]) for k, v in ax.items()}
+    grads["dnoise"] = pg["noise"].grad
+    grads.update({f"d{k}": v.grad for k, v in pg.get("q", {}).items()})
+    return val.detach(), {k: g for k, g in grads.items() if g is not None}
+
+
+def quantity_err(got, want) -> float:
+    """max|Δ|/max|ref| of a tensor, a Gaussian (:func:`gauss_err`) or a
+    tuple of tensors (the larger), both sides in float64 on the CPU."""
+    from vggp_tpu_torch.models.common import Gaussian
+
+    if isinstance(want, Gaussian):
+        return gauss_err(got, want)
+    if isinstance(want, tuple):
+        return max(quantity_err(g, w) for g, w in zip(got, want, strict=True))
+    return rel_err(got.double().cpu(), want.double().cpu())
+
+
+def finite(g) -> bool:
+    import torch
+
+    from vggp_tpu_torch.models.common import Gaussian
+
+    if isinstance(g, Gaussian):
+        return all(finite(t) for t in (g.mean, g.cov, g.var) if t is not None)
+    if isinstance(g, tuple):
+        return all(finite(t) for t in g)
+    if hasattr(g, "F"):                         # a PSD factor of the state
+        return finite(g.F)
+    return bool(torch.isfinite(g).all())
+
+
+def check_quantities(what: str, got: dict, ref: dict, f32: dict, grad_floor: float) -> None:
+    """Every quantity on the card (``got``, float32) against ``ref``: finite,
+    and within the larger of its floor (``grad_floor`` for a gradient leaf,
+    TOL_E2E_LOSS for a loss, TOL_E2E_POST for a head) and CPU_ERR_RATIO ×
+    the CPU's own float32 error (``f32``; a quantity it lacks is held at
+    its floor alone)."""
+    check(sorted(got) == sorted(ref) and set(f32) <= set(ref),
+          f"{what}: quantities {sorted(got)} vs {sorted(ref)} vs {sorted(f32)}")
+    worst = (0.0, "")
+    for name in ref:
+        check(finite(got[name]), f"{what} {name}: not finite")
+        floor = (grad_floor if name.startswith("d") else
+                 TOL_E2E_LOSS if name in ("elbo", "loss", "mll") else TOL_E2E_POST)
+        e = quantity_err(got[name], ref[name])
+        e32 = quantity_err(f32[name], ref[name]) if name in f32 else 0.0
+        tol = max(floor, CPU_ERR_RATIO * e32)
+        worst = max(worst, (e / tol, name))
+        print(f"check {what} {name}: card f32 {e:.3e}, "
+              f"cpu f32 {f'{e32:.3e}' if name in f32 else 'not taken'}, tol {tol:.3e}")
+        check(e <= tol, f"{what} {name}: card f32 {e} > {tol} (cpu f32 {e32})")
+    print(f"check {what}: {len(ref)} quantities pass; the closest to its bound, "
+          f"{worst[1]}, at {worst[0]:.3f} of it")
+
+
+def run_counted(name, fn, n_cell_kuf):
+    """A warm call and a timed call of ``fn`` under no_grad (host clock
+    around the second, which ends in synchronize), with the launches of
+    both counted: ``n_cell_kuf`` of ``cell_kuf`` a call and none of the
+    other kernels. Returns (the output, ms, launches)."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = dict(ck.LAUNCHES)
+    want = {"cell_kuf": 2 * n_cell_kuf, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+    check(got == want, f"{name}: launches of two calls {got}, expected {want}")
+    check(finite(out), f"{name}: not finite")
+    return out, ms, got
+
+
+def add_launches(total: dict, got: dict) -> dict:
+    return {k: total[k] + got[k] for k in total}
+
+
+def fit_counted(what, loss_fn, params, n_steps):
+    """``train.fit`` for ``n_steps`` at FIT_LR, its launches counted (reset
+    just before, read just after); returns (params, ms per step over the
+    fit, launches). The loss must be finite and fall."""
+    import torch
+
+    from vggp_tpu_torch import train
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, hist = train.fit(loss_fn, params, n_steps, FIT_LR)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    got = dict(ck.LAUNCHES)
+    losses = hist["loss"].double().cpu()
+    print(f"{what}: fit {n_steps} steps, {ms:.3f} ms a step, loss {float(losses[0]):.6g} -> "
+          f"{float(losses[-1]):.6g}, launches {got}")
+    check(bool(torch.isfinite(losses).all()), f"{what}: loss not finite: {losses}")
+    check(float(losses[-1]) < float(losses[0]), f"{what}: the loss did not fall: {losses}")
+    return params, ms, got
+
+
+def cast_to(device, dtype):
+    """A cast of a tensor or a parameter tree to ``device`` and ``dtype``."""
+    from vggp_tpu_torch import train
+
+    return lambda t: train.tree_map(lambda v: v.detach().to(device=device, dtype=dtype), t)
+
+
+# phase 7's heads and their cell_kuf launches a call, cold: (at (64, 65 536),
+# elsewhere). The factored state takes one per axis at (64, n); so does the
+# 256×256 grid's query block (posterior_from_state runs on the state of the
+# precompute before it); the 4096 points' block one per axis at (64, 4096);
+# q_dv's face difference one at (64, 65)
+SGPR_HEADS = (("elbo", 2, 0), ("posterior", 2, 2), ("precompute", 2, 0),
+              ("posterior_from_state grid", 2, 0), ("q_v", 2, 0), ("q_v full_cov", 2, 0),
+              ("q_dv axis 0", 2, 1), ("q_dv axis 1", 2, 1), ("q_dv full_cov axis 0", 2, 1),
+              ("q_dv full_cov axis 1", 2, 1), ("q_u", 2, 0), ("p_v_u", 2, 0), ("prior", 0, 0))
+
+
+def sgpr_head(spec, name, p, X, y, pts, state=None):
+    """One of phase 7's heads, cold, or with ``state`` from it (the
+    ``*_from_state`` head; q_u, p_v_u and prior take none). ``pts``: the
+    query points "xs" (4096), "grid" and "prior", and "shifted", the cells
+    of p_v_u: on the model's own cells v is a function of u and p(v | u)
+    has no variance to speak of, so its grid is theirs shifted by half a
+    cell on each axis, each of its cells straddling two of theirs."""
+    from vggp_tpu_torch import sgpr
+
+    own, full = spec.features, "full_cov" in name
+    if name == "elbo":
+        return sgpr.elbo(spec, p, X, y)
+    if name == "precompute":
+        return sgpr.precompute(spec, p, X, y)
+    if name == "posterior":
+        if state is None:
+            return sgpr.posterior(spec, p, X, y, pts["xs"], full_cov=False)
+        return sgpr.posterior_from_state(spec, p, state, pts["xs"])
+    if name == "posterior_from_state grid":
+        return sgpr.posterior_from_state(spec, p, state, pts["grid"])
+    if name == "prior":
+        return sgpr.prior(spec, p, pts["prior"])
+    if name == "q_u":
+        return sgpr.q_u(spec, p, X, y)
+    if name == "p_v_u":
+        return sgpr.p_v_u(spec, p, X, y, pts["shifted"])
+    if name.startswith("q_v"):
+        if state is None:
+            return sgpr.q_v(spec, p, X, y, own, full_cov=full)
+        return sgpr.q_v_from_state(spec, p, state, own, full_cov=full)
+    axis = int(name[-1])
+    if state is None:
+        return sgpr.q_dv(spec, p, X, y, own, axis, full_cov=full)
+    return sgpr.q_dv_from_state(spec, p, state, own, axis, full_cov=full)
+
+
+def sgpr_quantities(spec, params, X, y, pts, cast, grads=True, heads=True) -> dict:
+    """Phase 7's compared quantities in one context (``cast`` to its device
+    and dtype): the ELBO, its gradient leaves (with ``grads``), and (with
+    ``heads``) every head but ``precompute`` from one ``precompute`` state,
+    q_u and p_v_u too (each takes the state that ``sgpr.precompute``
+    returns: a cold head is that state and the same formulas, and one state
+    spares the CPU an O(n·m²) pass a head)."""
+    from unittest import mock
+
+    import torch
+
+    from vggp_tpu_torch import sgpr
+
+    p, X, y = cast(params), cast(X), cast(y)
+    pts = {k: (cast(v) if isinstance(v, torch.Tensor) else v) for k, v in pts.items()}
+    if grads:
+        val, leaves = value_and_grads(lambda q: sgpr.loss(spec, q, X, y), p)
+        out = {"elbo": -val, **leaves}
+    with torch.no_grad():
+        if not grads:
+            out = {"elbo": sgpr.elbo(spec, p, X, y)}
+        if not heads:
+            return out
+        state = sgpr.precompute(spec, p, X, y)
+        with mock.patch.object(sgpr, "precompute", lambda *args: state):
+            for name, *_ in SGPR_HEADS:
+                if name not in ("elbo", "precompute"):
+                    out[name] = sgpr_head(spec, name, p, X, y, pts, state)
+    return out
+
+
+def fit_collapsed(X, y) -> tuple:
+    """The collapsed GriddedGP (64×64 cells, m = 4096) fitted on the first
+    SGPR_N points: ``non_informative_init``, then SGPR_STEPS of
+    :func:`fit_counted`. Returns (spec, params, ms per step, launches)."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SGPRSpec, sgpr, train
+
+    spec = SGPRSpec(kinds=("matern12", "matern12"),
+                    features=tuple(CellIntegralFeature.from_lims(SGPR_CELLS, 0.0, 1.0)
+                                   for _ in range(2)))
+    Xn, yn = X[:SGPR_N], y[:SGPR_N]
+    params0 = train.non_informative_init(spec.init_params(torch.float32), Xn, yn)
+    return (spec, *fit_counted("collapsed m=4096", lambda p: sgpr.loss(spec, p, Xn, yn),
+                               params0, SGPR_STEPS))
+
+
+def collapsed_phase(device, X, y, Xs) -> tuple:
+    """Phase 7: the collapsed GriddedGP (m = 4096) on SGPR_N points, trained
+    and served on the card and held against float64. Returns (launches,
+    timings, the launches at (64, 65 536) by kernel)."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, sgpr, train
+    from vggp_tpu_torch.models.common import Gaussian
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    spec, params, fit_ms, launches = fit_collapsed(X, y)
+    Xn, yn = X[:SGPR_N], y[:SGPR_N]
+    check(launches == {"cell_kuf": 0, "cell_kuf_with_dl": 2 * SGPR_STEPS,
+                       "fused_banded_whiten_kuf": 0}, f"collapsed fit launches {launches}")
+    timings = {"sgpr_fit_ms_per_step": fit_ms}
+
+    # the steady state: WARM_STEPS steps, then WARM_STEPS timed ones
+    raw = train.raw_leaves_from(params)
+    step = train.make_step_fn(lambda p: sgpr.loss(spec, p, Xn, yn), raw,
+                              torch.optim.Adam(train.tree_leaves(raw), lr=FIT_LR))
+    ck.reset_launch_counts()
+    for k in range(2 * WARM_STEPS):
+        if k == WARM_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        step()
+    torch.cuda.synchronize()
+    timings["sgpr_step_ms"] = (time.perf_counter() - t0) * 1e3 / WARM_STEPS
+    got = dict(ck.LAUNCHES)
+    print(f"collapsed m=4096 n={SGPR_N}: steady-state step {timings['sgpr_step_ms']:.3f} ms, "
+          f"launches {got}")
+    check(got == {"cell_kuf": 0, "cell_kuf_with_dl": 4 * WARM_STEPS,
+                  "fused_banded_whiten_kuf": 0}, f"collapsed steps' launches {got}")
+    launches = add_launches(launches, got)
+    at_n = {"cell_kuf": 0, "cell_kuf_with_dl": launches["cell_kuf_with_dl"]}
+
+    half = 0.5 / SGPR_CELLS
+    pts = {"xs": Xs, "grid": serving_grid_points(device), "prior": Xs[:FULL_COV_POINTS],
+           "shifted": tuple(CellIntegralFeature.from_lims(SGPR_CELLS, half, 1.0 + half)
+                            for _ in range(2))}
+    outputs = {}
+    for name, n_at_n, n_other in SGPR_HEADS:
+        n_launch = n_at_n + n_other
+        state = outputs["precompute"] if name == "posterior_from_state grid" else None
+        out, ms, got = run_counted(name, lambda: sgpr_head(spec, name, params, Xn, yn, pts, state),
+                                   n_launch)
+        launches = add_launches(launches, got)
+        at_n["cell_kuf"] += 2 * n_at_n
+        timings[f"sgpr_{name.replace(' ', '_')}_ms"] = ms
+        outputs[name] = out
+        print(f"collapsed head {name}: {ms:.3f} ms, cell_kuf {n_launch} a call")
+    _, A, LB, _ = outputs["precompute"]
+    check(A.shape == (spec.num_inducing, SGPR_N) and LB.shape == (spec.num_inducing,) * 2,
+          f"collapsed state shapes: A {tuple(A.shape)}, L_B {tuple(LB.shape)}")
+
+    # the card's float32 against the card's float64 at the full n (the
+    # kernels' float64 instances), and against the CPU's float64 at a cut n;
+    # the grid posterior on its first SERVE_POINTS points (the CPU's float32
+    # of all 65 536 would take a (4096, 65 536) triangular solve). At the
+    # full n the card's heads are the timed cold calls' outputs above, and
+    # the CPU's float32 takes no gradient (three (4096, 65 536) products).
+    pts["grid"] = pts["grid"][:SERVE_POINTS]
+    grid = outputs["posterior_from_state grid"]
+    cold = {**outputs, "posterior_from_state grid": Gaussian(mean=grid.mean[:SERVE_POINTS],
+                                                             var=grid.var[:SERVE_POINTS])}
+    del cold["precompute"]
+    cpu = torch.device("cpu")
+    for what, n, floor, refs in (
+            (f"collapsed n={SGPR_N} vs card f64", SGPR_N, TOL_GRAD["collapsed full n"],
+             ((device, torch.float64, True), (cpu, torch.float32, False))),
+            (f"collapsed n={SGPR_CUT_N} vs cpu f64", SGPR_CUT_N, TOL_GRAD["collapsed cut n"],
+             ((cpu, torch.float64, True), (cpu, torch.float32, True)))):
+        t0 = time.perf_counter()
+        ref, f32 = (sgpr_quantities(spec, params, X[:n], y[:n], pts, cast_to(dev, dt), grads)
+                    for dev, dt, grads in refs)
+        full = n == SGPR_N
+        got = sgpr_quantities(spec, params, X[:n], y[:n], pts,
+                              cast_to(device, torch.float32), heads=not full)
+        if full:
+            got.update(cold)
+        check_quantities(what, got, ref, f32, floor)
+        timings[f"check {what} s"] = time.perf_counter() - t0
+    return launches, timings, at_n
+
+
+# phase 8's heads and their cell_kuf launches a call: q_v's cell/point
+# covariance on each axis at (64, 4096); q_dv's on the axis it does not
+# differentiate
+EXACT_HEADS = (("mll", 0), ("posterior", 0), ("q_v", 2), ("q_v full_cov", 2),
+               ("q_dv axis 0", 1), ("q_dv axis 1", 1))
+
+
+def exact_head(spec, name, p, X, y, xs, grid):
+    from vggp_tpu_torch import exact
+
+    full = "full_cov" in name
+    if name == "mll":
+        return exact.mll(spec, p, X, y)
+    if name == "posterior":
+        return exact.posterior(spec, p, X, y, xs, full_cov=False)
+    if name.startswith("q_v"):
+        return exact.q_v(spec, p, X, y, grid, full_cov=full)
+    return exact.q_dv(spec, p, X, y, grid, int(name[-1]), full_cov=full)
+
+
+def fit_exact(X, y) -> tuple:
+    """The exact GP fitted on the first EXACT_N points:
+    ``non_informative_init``, then EXACT_STEPS of :func:`fit_counted`.
+    Returns (spec, params, ms per step, launches)."""
+    import torch
+
+    from vggp_tpu_torch import ExactGPSpec, exact, train
+
+    spec = ExactGPSpec(("matern12", "matern12"))
+    Xn, yn = X[:EXACT_N], y[:EXACT_N]
+    params0 = train.non_informative_init(spec.init_params(torch.float32), Xn, yn)
+    return (spec, *fit_counted(f"exact n={EXACT_N}", lambda p: exact.loss(spec, p, Xn, yn),
+                               params0, EXACT_STEPS))
+
+
+def exact_phase(device, X, y, Xs) -> tuple:
+    """Phase 8: the exact GP on EXACT_N points, trained and served on the
+    card and held against the CPU's float64 at the same size. Returns
+    (launches, timings)."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, exact
+
+    spec, params, fit_ms, launches = fit_exact(X, y)
+    Xn, yn = X[:EXACT_N], y[:EXACT_N]
+    check(sum(launches.values()) == 0, f"exact fit launches {launches}")
+    timings = {"exact_fit_ms_per_step": fit_ms}
+    grid = tuple(CellIntegralFeature.from_lims(SGPR_CELLS, 0.0, 1.0) for _ in range(2))
+    for name, n_launch in EXACT_HEADS:
+        _, ms, got = run_counted(name, lambda: exact_head(spec, name, params, Xn, yn, Xs, grid),
+                                 n_launch)
+        launches = add_launches(launches, got)
+        timings[f"exact_{name.replace(' ', '_')}_ms"] = ms
+        print(f"exact head {name}: {ms:.3f} ms, cell_kuf {n_launch} a call")
+
+    def quantities(cast):
+        p, Xc, yc, xs = cast(params), cast(Xn), cast(yn), cast(Xs)
+        val, grads = value_and_grads(lambda q: exact.loss(spec, q, Xc, yc), p)
+        with torch.no_grad():
+            return {"mll": -val, **grads,
+                    **{name: exact_head(spec, name, p, Xc, yc, xs, grid)
+                       for name, _ in EXACT_HEADS if name != "mll"}}
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    check_quantities(f"exact n={EXACT_N} vs cpu f64",
+                     *(quantities(cast_to(dev, dt)) for dev, dt in (
+                         (device, torch.float32), (cpu, torch.float64), (cpu, torch.float32))),
+                     TOL_GRAD["exact"])
+    timings["check exact s"] = time.perf_counter() - t0
+    return launches, timings
+
+
+def likelihood_targets(name, X, y, seed):
+    """Phase 9's targets from the seeded X: bernoulli, the sign of the test
+    function; poisson, counts drawn at rate exp(f); student_t, the Gaussian
+    target plus 0.1·t₄ noise."""
+    import numpy as np
+    import torch
+
+    x = X.double().cpu().numpy()
+    f = np.sin(6 * x[:, 0]) * np.cos(5 * x[:, 1])
+    rng = np.random.default_rng(seed)
+    if name == "bernoulli":
+        t = (f > 0).astype(float)
+    elif name == "poisson":
+        t = rng.poisson(np.exp(f)).astype(float)
+    else:
+        t = y.double().cpu().numpy() + 0.1 * rng.standard_t(4.0, size=f.shape)
+    return torch.as_tensor(t, dtype=X.dtype, device=X.device)
+
+
+def train_likelihood(device, X, y, i) -> tuple:
+    """The 512×512 Kronecker SVGP under the i-th of LIKELIHOODS, LIK_STEPS
+    Adam steps at batch TRAIN_BATCH on its targets, the launches counted
+    (reset just before, read just after). Returns (spec, model, targets,
+    losses, ms per step, launches)."""
+    import torch
+
+    from vggp_tpu_torch import SVGP, CellIntegralFeature, SVGPSpec, svgp, train
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    name, opts = LIKELIHOODS[i]
+    spec = SVGPSpec(kinds=("matern12", "matern12"),
+                    features=tuple(CellIntegralFeature.from_lims(M_AXIS, 0.0, 1.0)
+                                   for _ in range(2)),
+                    num_data=NUM_DATA, variational="kron", likelihood=name,
+                    likelihood_opts=opts)
+    t = likelihood_targets(name, X, y, seed=20 + i)
+    model = SVGP(spec)
+    step = train.make_step_fn(lambda p, xb, yb: svgp.loss(spec, p, xb, yb), model.raw_params(),
+                              torch.optim.Adam(model.parameters(), lr=LIK_LR))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(i)
+    ck.reset_launch_counts()
+    losses, ms = run_steps(step, X, t, TRAIN_BATCH, LIK_STEPS, gen)
+    got = dict(ck.LAUNCHES)
+    print(f"{name}: {LIK_STEPS} steps at batch {TRAIN_BATCH}, loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g}, {ms:.3f} ms a step, launches {got}")
+    check(all(v == v and abs(v) != float("inf") for v in losses), f"{name}: loss not finite")
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall: {losses}")
+    return spec, model, t, losses, ms, got
+
+
+def likelihood_phase(device, X, y, Xs) -> tuple:
+    """Phase 9: the 512×512 Kronecker SVGP under each non-Gaussian
+    likelihood, LIK_STEPS Adam steps at batch TRAIN_BATCH, then the loss,
+    its gradient leaves and ``predict_y`` on the card against the CPU's
+    float64. Returns (launches, timings)."""
+    import torch
+
+    from vggp_tpu_torch import svgp, train
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    launches = {k: 0 for k in ck.LAUNCHES}
+    timings = {}
+    cpu = torch.device("cpu")
+    for i, (name, _) in enumerate(LIKELIHOODS):
+        spec, model, t, _, timings[f"{name}_step_ms"], got = train_likelihood(device, X, y, i)
+        check(got == {"cell_kuf": 0, "cell_kuf_with_dl": 2 * LIK_STEPS,
+                      "fused_banded_whiten_kuf": 0}, f"{name}: launches {got}")
+        launches = add_launches(launches, got)
+        pred, ms, got = run_counted(f"{name} predict_y", lambda: svgp.predict_y(
+            spec, model.params(), Xs), 2)
+        launches = add_launches(launches, got)
+        timings[f"{name}_predict_y_ms"] = ms
+        with torch.no_grad():
+            params = train.tree_map(lambda v: v.detach(), model.params())
+        xb, yb = X[:TRAIN_BATCH], t[:TRAIN_BATCH]
+
+        def quantities(cast):
+            p, xc, yc, xs = cast(params), cast(xb), cast(yb), cast(Xs)
+            val, grads = value_and_grads(lambda q: svgp.loss(spec, q, xc, yc), p)
+            with torch.no_grad():
+                return {"loss": val, **grads, "predict_y": svgp.predict_y(spec, p, xs)}
+
+        check_quantities(f"{name} vs cpu f64", *(quantities(cast_to(dev, dt)) for dev, dt in (
+            (device, torch.float32), (cpu, torch.float64), (cpu, torch.float32))),
+            TOL_GRAD["likelihood"])
+        if name == "bernoulli":
+            check(bool(((pred >= 0) & (pred <= 1)).all()), "bernoulli predict_y outside [0, 1]")
+        elif name == "poisson":
+            check(bool((pred[0] > 0).all() and (pred[1] >= pred[0]).all()),
+                  "poisson predict_y: E[λ] not positive or Var[y] < E[λ]")
+        else:
+            check(bool((pred.var > 0).all()), "student_t predict_y: variance not positive")
+    return launches, timings
+
+
 PROFILE_STEPS = 3
 
 
 def profile_steps(step, X, y, batch, gen) -> dict:
-    """Phase 7: where a training step's time goes. Three steps under
+    """Phase 10: where a training step's time goes. Three steps under
     torch.profiler: the device's busy share of the window (kernel time over
     wall time) and the ops with the most host and device time."""
     import torch
@@ -844,11 +1380,11 @@ def kuf_bounds(m: int, n: int, with_dl: bool) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_kuf_shape(device, m, n, x_is_mesh=False) -> dict:
-    """cell_kuf at (m, n) in f32, kernel in turns with its plain version:
-    device ms from the profiler's trace, and the bound. ``x_is_mesh``: the
-    points are the cell edges themselves (n = m + 1), as in q_dv's face
-    difference."""
+def time_kuf_shape(device, m, n, x_is_mesh=False, name="cell_kuf") -> dict:
+    """``name`` (cell_kuf or cell_kuf_with_dl) at (m, n) in f32, kernel in
+    turns with its plain version: device ms from the profiler's trace, and
+    the bound. ``x_is_mesh``: the points are the cell edges themselves
+    (n = m + 1), as in q_dv's face difference."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
@@ -856,22 +1392,22 @@ def time_kuf_shape(device, m, n, x_is_mesh=False) -> dict:
     mesh, x, v, ell, _ = kernel_inputs(m, n, torch.float32, device, seed=7)
     if x_is_mesh:
         x = mesh.clone()
-    kern = lambda: ck.cell_kuf(mesh, x, v, ell)
-    plain = lambda: ck.cell_kuf_plain(mesh, x, v, ell)
+    kern = lambda: getattr(ck, name)(mesh, x, v, ell)
+    plain = lambda: getattr(ck, f"{name}_plain")(mesh, x, v, ell)
     p1, _ = time_ms(plain, iters=10)
-    k1, _ = time_ms(kern, iters=20, kernel=_DEVICE_KERNELS["cell_kuf"])
-    k2, _ = time_ms(kern, iters=20, kernel=_DEVICE_KERNELS["cell_kuf"])
+    k1, _ = time_ms(kern, iters=20, kernel=_DEVICE_KERNELS[name])
+    k2, _ = time_ms(kern, iters=20, kernel=_DEVICE_KERNELS[name])
     p2, _ = time_ms(plain, iters=10)
     out = {"shape": [m, n], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-           **kuf_bounds(m, n, False)}
-    print(f"time cell_kuf at ({m}, {n}){' x = mesh' if x_is_mesh else ''}: device ms kernel "
+           **kuf_bounds(m, n, name == "cell_kuf_with_dl")}
+    print(f"time {name} at ({m}, {n}){' x = mesh' if x_is_mesh else ''}: device ms kernel "
           f"{k1:.5f}/{k2:.5f}, plain {p1:.5f}/{p2:.5f}; bound {out['bound_ms']:.5f} ms "
           f"({out['bound_by']})")
     return out
 
 
 def time_serving_grid(device, spec, model, state) -> dict:
-    """Phase 8b: cell_kuf at the serving grid's (512, 65 536), and the cold
+    """Phase 11b: cell_kuf at the serving grid's (512, 65 536), and the cold
     ``posterior`` (``precompute`` and the warm head) and the warm
     ``posterior_from_state`` on the 256×256 grid in turns (cold, warm, warm,
     cold; one call each after a warm one, host clock around a call that ends
@@ -903,12 +1439,13 @@ def time_serving_grid(device, spec, model, state) -> dict:
     return out
 
 
-def measure_kernels(device, errs, launches, serving_grid, face_edges) -> list:
-    """Phase 8: kernel and plain times at the main path's f32 shapes, and the
+def measure_kernels(device, errs, launches, serving_grid, face_edges, at_64_cells) -> list:
+    """Phase 11: kernel and plain times at the main path's f32 shapes, and the
     fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
-    kms.banded_whiten_apply for a at "highest" and t at "default");
-    ``serving_grid`` (phase 8b) and ``face_edges`` (phase 8c) go into
-    cell_kuf's row."""
+    kms.banded_whiten_apply for a and t at MAIN_PRECISIONS);
+    ``serving_grid`` (phase 11b) and ``face_edges`` (phase 11c) go into
+    cell_kuf's row, ``at_64_cells`` (by kernel, phase 11d) into both cell
+    kernels' rows."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
@@ -958,6 +1495,8 @@ def measure_kernels(device, errs, launches, serving_grid, face_edges) -> list:
         if name == "cell_kuf":
             row["at_serving_grid"] = serving_grid
             row["at_face_edges"] = face_edges
+        if name in at_64_cells:
+            row["at_64_cells"] = at_64_cells[name]
         if fused:
             row["precisions"] = list(MAIN_PRECISIONS)
             row["unfused_ms"] = (u1 + u2) / 2
@@ -997,8 +1536,17 @@ def main() -> int:
     check_against_cpu_f64(spec, model, post, X, y, Xs)
     check_fused_against_cpu_f64(spec, model, X, y)
     got, edge_launches, serve_times, state = serve_heads(device, spec, model, Xs)
-    launches = {k: launches[k] + got[k] for k in got}
+    launches = add_launches(launches, got)
     timings.update(serve_times)
+    for phase in (collapsed_phase, exact_phase, likelihood_phase):
+        t0 = time.perf_counter()
+        got, phase_times, *more = phase(device, X, y, Xs)
+        timings[f"{phase.__name__}_s"] = time.perf_counter() - t0
+        print(f"{phase.__name__}: {timings[f'{phase.__name__}_s']:.1f} s")
+        launches = add_launches(launches, got)
+        timings.update(phase_times)
+        if phase is collapsed_phase:
+            at_n = more[0]   # the launches at (64, 65 536) by kernel
     for batch in (TRAIN_BATCH, FUSED_BATCH):
         timings.update(profile_steps(step, X, y, batch, gen))
     serving_grid = time_serving_grid(device, spec, model, state)
@@ -1006,7 +1554,10 @@ def main() -> int:
     timings["posterior_from_state_ms_grid65536"] = serving_grid["posterior_from_state_ms"]
     face_edges = {**time_kuf_shape(device, M_AXIS, M_AXIS + 1, x_is_mesh=True),
                   "launches": edge_launches}
-    rows = measure_kernels(device, errs, launches, serving_grid, face_edges)
+    at_64_cells = {name: {**time_kuf_shape(device, SGPR_CELLS, SGPR_N, name=name),
+                          "launches": at_n[name]}
+                   for name in ("cell_kuf", "cell_kuf_with_dl")}
+    rows = measure_kernels(device, errs, launches, serving_grid, face_edges, at_64_cells)
     timings["card"] = card
     print(json.dumps({"steps": timings}))
     print(json.dumps({"kernels": rows, "card": card}))

@@ -245,3 +245,78 @@ def test_cuda_slice_matches_cpu_f64(cuda):
                                torch.tensor(y, dtype=torch.float32, device=cuda)))
     assert ck.LAUNCHES["cell_kuf"] == 2
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("n", [65536, 4096, 65531])
+def test_cuda_cell_kernels_on_64_cell_axes_match_plain(cuda, dtype, rtol, n):
+    """Both cell kernels at the collapsed and exact models' 64-cell axes (a
+    row tile below the 128 rows of the SVGP's shapes; n % 4 = 3 takes the
+    scalar instance): max|Δ|/max|plain| at 1e-12 (f64) and 2e-5 (f32), one
+    launch each."""
+    mesh = torch.linspace(0.0, 1.0, 65, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    x = torch.linspace(-0.05, 1.05, n, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    v = torch.tensor(1.3, dtype=dtype, device=cuda)
+    ell = torch.tensor(0.27, dtype=dtype, device=cuda)
+    ck.reset_launch_counts()
+    pairs = [(ck.cell_kuf(mesh, x, v, ell), ck.cell_kuf_plain(mesh, x, v, ell))]
+    pairs += zip(ck.cell_kuf_with_dl(mesh, x, v, ell), ck.cell_kuf_with_dl_plain(mesh, x, v, ell))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0}
+    for got, want in pairs:
+        assert got.shape == want.shape == (64, n)
+        assert float((got - want).abs().max() / want.abs().max()) < rtol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
+def test_cuda_cell_kuf_at_64_cell_face_edges_matches_plain(cuda, dtype, rtol):
+    """The collapsed model's q_dv face difference: cell_kuf at (64, 65) with
+    x the mesh itself; one launch."""
+    mesh = torch.linspace(0.0, 1.0, 65, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    v = torch.tensor(1.3, dtype=dtype, device=cuda)
+    ell = torch.tensor(0.2, dtype=dtype, device=cuda)
+    before = ck.LAUNCHES["cell_kuf"]
+    got = ck.cell_kuf(mesh, mesh, v, ell)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cell_kuf"] == before + 1
+    want = ck.cell_kuf_plain(mesh, mesh, v, ell)
+    assert got.shape == want.shape == (64, 65)
+    assert float((got - want).abs().max() / want.abs().max()) < rtol
+
+
+@pytest.mark.cuda
+def test_cuda_collapsed_bound_matches_cpu_f64(cuda):
+    """The collapsed bound of a 64×64-cell GriddedGP at n = 16384 on the card
+    (float32): cell_kuf_with_dl once per axis and never the fused kernel
+    (64-cell axes fail its gate, though n reaches its minimum); the ELBO
+    and every gradient leaf against the CPU's float64 by chip_smoke.py's
+    rule (``check_quantities``). The gradient floor, 1e-3, is 6× the
+    largest leaf error on an H100 (dσ², 1.7e-4); a TF32 ℓ-tangent misses
+    it by 10× and more at half this n (tools/torch_grad_control.py)."""
+    from chip_smoke import check_quantities, value_and_grads
+
+    from vggp_tpu_torch import SGPRSpec, sgpr
+
+    spec = SGPRSpec(kinds=("matern12",) * 2,
+                    features=tuple(CellIntegralFeature.from_lims(64, 0.0, 1.0) for _ in range(2)))
+    rng = np.random.default_rng(5)
+    x = rng.random((16384, 2))
+    y = np.sin(6 * x[:, 0]) * np.cos(5 * x[:, 1]) + 0.1 * rng.standard_normal(16384)
+    p_np = {"axes": ({"variance": np.asarray(0.2), "lengthscale": np.asarray(0.3)},
+                     {"variance": np.asarray(0.2), "lengthscale": np.asarray(0.25)}),
+            "noise": np.asarray(0.02)}
+    out = {}
+    for tag, dev, dt in (("card", cuda, torch.float32), ("f64", "cpu", torch.float64),
+                         ("f32", "cpu", torch.float32)):
+        p = convert.params_from_jax(p_np, dev, dt)
+        X, Y = (torch.tensor(a, dtype=dt, device=dev) for a in (x, y))
+        ck.reset_launch_counts()
+        val, grads = value_and_grads(lambda q: sgpr.loss(spec, q, X, Y), p)
+        if tag == "card":
+            torch.cuda.synchronize()
+            assert ck.LAUNCHES == {"cell_kuf": 0, "cell_kuf_with_dl": 2,
+                                   "fused_banded_whiten_kuf": 0}
+        out[tag] = {"loss": val, **grads}
+    check_quantities("collapsed bound", out["card"], out["f64"], out["f32"], 1e-3)

@@ -246,6 +246,28 @@ def test_training_takes_tangent_path_and_serving_the_primal(setup, monkeypatch):
     assert calls == {"cell_kuf": 2, "cell_kuf_with_dl": 0}
 
 
+def test_moments_backward_rides_the_model_precision(setup, monkeypatch):
+    """The hand-written backward of the Kronecker moments runs its products
+    at ``config.MATMUL_PRECISION`` (fp32 on the card), as every gradient
+    product of the port."""
+    _, tspec, p_np, x, y = setup[:5]
+    seen, real_prec, real_bwd = [], svgp.matmul_precision, svgp.KronMoments.backward
+    inside = []
+
+    def backward(ctx, *grads):
+        inside.append(1)
+        try:
+            return real_bwd(ctx, *grads)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(svgp, "matmul_precision",
+                        lambda prec: (seen.append(prec) if inside else None) or real_prec(prec))
+    monkeypatch.setattr(svgp.KronMoments, "backward", staticmethod(backward))
+    _torch_grads(tspec, p_np, x, y)
+    assert seen == [config.MATMUL_PRECISION]
+
+
 # --------------------------------------------------------------------------- #
 # module pieces
 # --------------------------------------------------------------------------- #
@@ -397,9 +419,11 @@ def test_unported_options_raise(what):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         if what == "full_family":
             svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10)
-        elif what == "likelihood":
-            svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
-                          variational="kron", likelihood="poisson")
+        elif what == "likelihood":    # per-output noise under a non-Gaussian likelihood
+            spec = svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
+                                 variational="kron", likelihood="student_t")
+            params = {**spec.init_params(device="cpu"), "noise": torch.full((2,), 0.1)}
+            svgp.loss(spec, params, torch.rand(4, 2), torch.rand(4))
         elif what == "kind":
             p = {"variance": torch.tensor(1.0), "lengthscale": torch.tensor(0.3)}
             feats[0].Kuf("matern32", p, torch.linspace(0, 1, 5))

@@ -14,17 +14,20 @@ import functools
 import torch
 
 # Matmul precision for model math run under :func:`highest_precision` (ELBO,
-# KL, predictions). Full fp32 on the card.
+# KL, predictions) and for every gradient product: the whitened ℓ-tangent
+# (``models.common._whitened_kuf_tangent``) and the backward of the
+# Kronecker q(f) moments. Full fp32 on the card. The JAX package gives the
+# gradient products a GRAD_MATMUL_PRECISION of one bf16 pass on the TPU;
+# the port has none. On an H100, a TF32 tangent moved the ℓ-gradients by
+# 47% in the collapsed bound and by 4% to 20× in the SVGP under the
+# non-Gaussian likelihoods; a TF32 moments backward put the Student-t
+# SVGP's dℓ 3.3e-3 from float64, 26× the CPU's float32 error.
 MATMUL_PRECISION: str = "high"
 
 # Precision of the whitening apply F⁻¹·Kuf: its result is consumed through
 # the cancellation k_ff − ‖a‖², so it is fp32-accurate, never single-pass
 # TF32 (full fp32 in cuBLAS, a six-product bf16 split in the fused kernel).
 WHITEN_MATMUL_PRECISION: str = "highest"
-
-# Precision of gradient-only matmuls (tangents and cotangents that never touch
-# the forward value). "default" allows TF32 on the card.
-GRAD_MATMUL_PRECISION: str = "default"
 
 # Whitened-block gradients through two precomputed scalar tangents
 # (``models.common.whitened_kuf_scalar``).
@@ -34,8 +37,8 @@ SCALAR_WHITEN_VJP: bool = True
 # dense fallback when the geometric ratio reaches 0.7.
 BANDED_WHITEN_APPLY: bool = True
 
-# Hand-written backward of the Kronecker q(f) moments at the gradient
-# precision (``models.svgp._kron_moments``).
+# Hand-written backward of the Kronecker q(f) moments
+# (``models.svgp.KronMoments``).
 FAST_MOMENTS_BWD: bool = True
 
 # Closed-form inverse Cholesky of the Matérn-1/2 cell Kuu (``ops.kms``).

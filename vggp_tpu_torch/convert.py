@@ -1,9 +1,10 @@
 """Carry parameter trees between the JAX package and the port.
 
-Both packages use the same tree: ``{"axes": ({"variance", "lengthscale"},
-…), "noise", "q": {"mu", "raw_L1", "raw_L2"}}``. Across the boundary its
-leaves are numpy arrays (``numpy.asarray`` of a JAX tree gives them), so the
-port never imports JAX.
+Both packages use the same trees: ``{"axes": ({"variance", "lengthscale"},
+…), "noise"}``, which the collapsed and exact GPs take as they are and the
+SVGP extends with ``"q": {"mu", "raw_L1", "raw_L2"}``. Across the boundary
+their leaves are numpy arrays (``numpy.asarray`` of a JAX tree gives them),
+so the port never imports JAX.
 """
 
 from __future__ import annotations

@@ -221,7 +221,9 @@ class CellIntegralFeature:
     def whitened_kuf_fused(self, kind: str, p: Params, finv, ratio, x):
         """(a, t) = (F⁻¹Kuf, F⁻¹∂Kuf/∂ℓ) in one fused kernel pass, or None
         when the fusion does not apply (batch below the fusion minimum, a
-        mesh that does not block into ≥ 2 bands, or no band ratio).
+        mesh that does not block into ≥ 2 bands, or no band ratio). ``t``
+        rides ``config.MATMUL_PRECISION``, as the rest of the ℓ-tangent
+        (``models.common._whitened_kuf_tangent``).
 
         At or above the ``ratio < 0.7`` gate the factor is not banded: the
         unfused pass and two dense products are taken instead. The gate is a
@@ -240,10 +242,10 @@ class CellIntegralFeature:
         if bool(ratio < 0.7):
             return ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell,
                                               config.WHITEN_MATMUL_PRECISION,
-                                              config.GRAD_MATMUL_PRECISION)
+                                              config.MATMUL_PRECISION)
         kuf, dkuf = ck.cell_kuf_with_dl(mesh, x, v, ell)
         with config.matmul_precision(config.WHITEN_MATMUL_PRECISION):
             a = finv @ kuf
-        with config.matmul_precision(config.GRAD_MATMUL_PRECISION):
+        with config.matmul_precision(config.MATMUL_PRECISION):
             t = finv @ dkuf
         return a, t

@@ -1,19 +1,23 @@
-"""Shared model plumbing of the port (the Kronecker-SVGP part of
-``vggp_tpu/models/common.py``): axis parameters, jitter policy, the
-scalar-tangent and dense-factor whitened Kuf, Khatri–Rao assembly, the grid
-and gridded-gradient blocks of the serving heads, and the Gaussian result."""
+"""Shared model plumbing of the port (``vggp_tpu/models/common.py``): axis
+parameters, jitter policy, the scalar-tangent and dense-factor whitened Kuf,
+Khatri–Rao assembly, the grid and gridded-gradient blocks of the serving
+heads, the collapsed (Titsias) bound's factored state, bound and posterior,
+and the Gaussian result."""
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
 
 import torch
+from torch import nn
 
 from vggp_tpu_torch import config, kernels
 from vggp_tpu_torch.config import matmul_precision
 from vggp_tpu_torch.ops import toeplitz
-from vggp_tpu_torch.ops.chol import F32_MIN_JITTER, PSDFactor, psd_factor
+from vggp_tpu_torch.ops.chol import (F32_MIN_JITTER, PSDFactor, psd_factor, safe_cholesky,
+                                    tri_solve)
 from vggp_tpu_torch.ops.kron import khatri_rao_rows, kron_dense
 
 Params = Dict
@@ -145,10 +149,14 @@ def _whitened_kuf_tangent(feat, kind, rel_jitter, ell, var, x):
 
     With M = F⁻¹(∂Kuu)F⁻ᵀ and Φ = strict lower + half diagonal,
     ∂a/∂ℓ = F⁻¹∂Kuf − Φ(M)·a, with ∂Kuu/∂ℓ from :func:`_kuu_jittered_dl`.
-    The ℓ-tangent is gradient-only signal and rides the gradient precision.
+    Its products ride ``config.MATMUL_PRECISION`` (fp32), not the gradient
+    precision the JAX package gives them: the two (m, n) terms nearly
+    cancel, and the ℓ-gradient sums their difference over every point. One
+    TF32 product there moved dℓ by 47% in the collapsed bound (m = 4096,
+    n = 65 536) and by 4% to 20× in the 512² SVGP under the non-Gaussian
+    likelihoods, on an H100.
     """
     prec = config.MATMUL_PRECISION
-    gprec = config.GRAD_MATMUL_PRECISION
     dK = _kuu_jittered_dl(feat, kind, rel_jitter, ell, var)
     finv, ratio = _finv_of_params(feat, kind, rel_jitter, ell, var)
     p_lv = {"lengthscale": ell, "variance": var}
@@ -158,12 +166,11 @@ def _whitened_kuf_tangent(feat, kind, rel_jitter, ell, var, x):
     else:
         kuf, dkuf = feat.Kuf_with_dl(kind, p_lv, x)
         a = _apply_finv(finv, ratio, kuf)
-        with matmul_precision(gprec):
+        with matmul_precision(prec):
             t = finv @ dkuf
     with matmul_precision(prec):
         M = finv @ dK @ finv.T
-    Phi = torch.tril(M, -1) + 0.5 * torch.diag(torch.diagonal(M))
-    with matmul_precision(gprec):
+        Phi = torch.tril(M, -1) + 0.5 * torch.diag(torch.diagonal(M))
         da_dl = t - Phi @ a
     return a, da_dl
 
@@ -344,3 +351,110 @@ def obs_noise(spec, params: Params, X: torch.Tensor):
     if noise.dim() != 0:
         raise NotImplementedError(f"per-output noise is not ported yet {_NOT_PORTED}")
     return noise
+
+
+# The collapsed bound (``common.py:607-690``), in the stable factored form
+#   A = F⁻¹Kuf/σ (Khatri–Rao over the axes), B = I + AAᵀ, L_B = chol(B),
+#   c = L_B⁻¹A y/σ.
+
+
+def factored_state(spec, params: Params, X: torch.Tensor, y: torch.Tensor,
+                   with_chols: bool = True):
+    """(chols, A, L_B, c, y) of the collapsed bound, y the residual.
+
+    ``chols`` are the per-axis dense Kuu factors the heads whiten with. The
+    JAX package always builds them and leaves XLA to drop them where unused;
+    run eagerly they would cost a Cholesky per axis per step, so on the
+    scalar-tangent path (fixed bases) they are built only ``with_chols``
+    (None otherwise). The state's A whitens through the closed-form F⁻¹, a
+    head's query block through ``chols``, as in the JAX package.
+    """
+    y = y.reshape(-1) - mean_fn(spec, params, X)
+    sigma = torch.sqrt(obs_noise(spec, params, X))
+    if scalar_whiten_eligible(spec, params):
+        chols = axis_chol_kuu(spec, params) if with_chols else None
+        blocks = axis_whitened_kuf_scalar(spec, params, X)
+    else:
+        chols = axis_chol_kuu(spec, params)
+        blocks = axis_whitened_kuf(spec, params, chols, X)
+    A = khatri_rao_all(blocks) / sigma          # (m, n)
+    m = A.shape[0]
+    B = torch.eye(m, dtype=A.dtype, device=A.device) + A @ A.T
+    LB = safe_cholesky(B, 1e-12)                # float32: the 1e-6 floor, relative to mean diag(B)
+    c = tri_solve(LB, A @ (y / sigma))
+    return chols, A, LB, c, y
+
+
+def nonneg(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) with ``jnp.maximum``'s gradient: a tie splits it evenly
+    (½ at x = 0), as ``torch.maximum`` does and ``torch.clamp`` does not."""
+    return torch.maximum(x, torch.zeros_like(x))
+
+
+def collapsed_elbo(spec, params: Params, X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The collapsed (Titsias) evidence lower bound, a scalar; diag K_ff is
+    :func:`kdiag`."""
+    _, A, LB, c, y = factored_state(spec, params, X, y, with_chols=False)
+    noise = obs_noise(spec, params, X).expand(y.shape[0])
+    kff = kdiag(spec, params, X)
+    bound = -0.5 * torch.sum(torch.log(2.0 * math.pi * noise))
+    bound = bound - torch.sum(torch.log(torch.diagonal(LB)))
+    bound = bound - 0.5 * torch.sum(y * y / noise)
+    bound = bound + 0.5 * torch.sum(c * c)
+    # the trace gap tr(D⁻¹(Kff − Qff)) ≥ 0: clamp the float32 cancellation
+    # error so that it can never turn into a reward
+    return bound - 0.5 * nonneg(torch.sum(kff / noise) - torch.sum(A * A))
+
+
+def collapsed_posterior(spec, params: Params, state, xstar: torch.Tensor,
+                        full_cov: bool = False, predictive: bool = False) -> Gaussian:
+    """q(f*) from a factored state: w = F⁻¹Kuf* through the state's dense
+    factors, mean = (L_B⁻¹w)ᵀc, cov = K** − wᵀw + (L_B⁻¹w)ᵀ(L_B⁻¹w)."""
+    chols, A, LB, c = state[:4]
+    w = khatri_rao_all(axis_whitened_kuf(spec, params, chols, xstar))   # (m, n*)
+    tmp = tri_solve(LB, w)
+    mean = tmp.T @ c + mean_fn(spec, params, xstar)
+    noise = obs_noise(spec, params, xstar) if predictive else 0.0
+    if full_cov:
+        cov = gram_full(spec, params, xstar, xstar) - w.T @ w + tmp.T @ tmp
+        if predictive:
+            cov = cov + noise * torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+        return Gaussian(mean=mean, cov=cov)
+    kss = kdiag(spec, params, xstar)
+    var = kss - torch.sum(w * w, dim=0) + torch.sum(tmp * tmp, dim=0)
+    return Gaussian(mean=mean, var=floor_var(var, kss) + noise)
+
+
+class HeldDataModule(nn.Module):
+    """A full-batch model as a module (the collapsed and exact GPs): the
+    training data as buffers, and the raw (unconstrained) parameters as
+    ``nn.Parameter``s in the layout of the JAX parameter tree (``axes`` →
+    one ``ParameterDict`` per axis, ``noise``). Built from ``params`` or the
+    spec's initial parameters (on ``cuda`` unless ``device`` is given)."""
+
+    def __init__(self, spec, X: torch.Tensor, y: torch.Tensor, params: Params = None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        from vggp_tpu_torch import train
+
+        if params is None:
+            params = spec.init_params(dtype, device)
+        raw = train.unconstrain(params)
+        like = raw["noise"]
+        self.spec = spec
+        self.axes = nn.ModuleList(
+            nn.ParameterDict({k: nn.Parameter(v.detach().clone()) for k, v in ax.items()})
+            for ax in raw["axes"])
+        self.noise = nn.Parameter(like.detach().clone())
+        self.register_buffer("X", X.to(dtype=like.dtype, device=like.device))
+        self.register_buffer("y", y.reshape(-1).to(dtype=like.dtype, device=like.device))
+
+    def raw_params(self) -> Params:
+        """The nested raw tree, its leaves the module's parameters."""
+        return {"axes": tuple(dict(ax.items()) for ax in self.axes), "noise": self.noise}
+
+    def params(self) -> Params:
+        """The constrained parameter tree the model functions take."""
+        from vggp_tpu_torch import train
+
+        return train.constrain(self.raw_params())

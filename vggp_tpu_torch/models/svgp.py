@@ -21,7 +21,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
-from vggp_tpu_torch import config
+from vggp_tpu_torch import config, likelihoods
 from vggp_tpu_torch.config import highest_precision, matmul_precision
 from vggp_tpu_torch.models import common
 from vggp_tpu_torch.models.common import Gaussian
@@ -50,7 +50,8 @@ class SVGPSpec:
     variational: str = "full"         # "full" | "kron"; only "kron" is ported
     jitter: float = 1e-6
     factor_method: str = "chol"       # Kuu factorization; only "chol" is ported
-    likelihood: str = "gaussian"
+    likelihood: str = "gaussian"      # see vggp_tpu_torch.likelihoods
+    likelihood_opts: Tuple[Tuple[str, float], ...] = ()  # static, e.g. (("df", 4.0),)
 
     def __post_init__(self):
         if self.variational not in ("full", "kron"):
@@ -67,10 +68,7 @@ class SVGPSpec:
                 "(ROADMAP queue 1, item 10: the other features and model families)")
         if len(self.features) < 2:
             raise ValueError("kron variational family requires ndim >= 2")
-        if self.likelihood != "gaussian":
-            raise NotImplementedError(
-                f"likelihood {self.likelihood!r} is not ported yet "
-                "(ROADMAP queue 1, item 9: collapsed and exact models, likelihoods)")
+        likelihoods.check_likelihood(self.likelihood)
 
     @property
     def ndim(self) -> int:
@@ -164,7 +162,7 @@ def _moments_math(mu, Ls, blocks):
 class KronMoments(torch.autograd.Function):
     """(mean, var_red, var_add) of the Kronecker family with the hand-written
     backward of ``svgp.py:213-242``, whose matmuls ride
-    ``config.GRAD_MATMUL_PRECISION``. Called as ``apply(mu, *Ls, *blocks)``."""
+    ``config.MATMUL_PRECISION``. Called as ``apply(mu, *Ls, *blocks)``."""
 
     @staticmethod
     def forward(ctx, mu, *mats):
@@ -182,7 +180,7 @@ class KronMoments(torch.autograd.Function):
         mu = saved[0]
         Ls, blocks, ts, rs, vs = (saved[1 + k * d:1 + (k + 1) * d] for k in range(5))
         dmu_str, da_strs = _mean_cotangent_einsums(d)
-        with matmul_precision(config.GRAD_MATMUL_PRECISION):
+        with matmul_precision(config.MATMUL_PRECISION):
             dmu = torch.einsum(dmu_str, gm, *blocks)
             dLs, das = [], []
             for i in range(d):
@@ -229,7 +227,9 @@ def kl(spec: SVGPSpec, params: Params) -> torch.Tensor:
 
 @highest_precision
 def elbo(spec: SVGPSpec, params: Params, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
-    """Minibatch ELBO estimate (scaled to the full dataset), Gaussian likelihood."""
+    """Minibatch ELBO estimate (scaled to the full dataset). The Gaussian
+    expected log-likelihood stays inline; the others route through
+    :func:`likelihoods.expected_log_lik`."""
     yb = yb.reshape(-1)
     nb = yb.shape[0]
     _, blocks = _whitened_blocks(spec, params, xb)
@@ -237,9 +237,13 @@ def elbo(spec: SVGPSpec, params: Params, xb: torch.Tensor, yb: torch.Tensor) -> 
     mean = mean + common.mean_fn(spec, params, xb)
     kff = common.kdiag(spec, params, xb)
     var_f = torch.clamp(kff - var_red, min=0.0) + var_add
-    noise = common.obs_noise(spec, params, xb)
-    ell_i = (-0.5 * torch.log(2.0 * math.pi * noise)
-             - ((yb - mean) ** 2 + var_f) / (2.0 * noise))
+    noise = common.obs_noise(spec, params, xb)   # per-output noise raises (item 10)
+    if spec.likelihood == "gaussian":
+        ell_i = (-0.5 * torch.log(2.0 * math.pi * noise)
+                 - ((yb - mean) ** 2 + var_f) / (2.0 * noise))
+    else:
+        ell_i = likelihoods.expected_log_lik(spec.likelihood, yb, mean, var_f,
+                                             {**params, "noise": noise}, spec.likelihood_opts)
     return (spec.num_data / nb) * torch.sum(ell_i) - kl(spec, params)
 
 
@@ -298,10 +302,20 @@ def posterior_predictive(spec: SVGPSpec, params: Params, xstar: torch.Tensor,
     return posterior(spec, params, xstar, full_cov=full_cov, predictive=True)
 
 
-def predict_y(spec: SVGPSpec, params: Params, xstar: torch.Tensor) -> Gaussian:
-    """Observable-space prediction: the Gaussian likelihood's predictive
-    marginals (other likelihoods raise at :class:`SVGPSpec`, item 9)."""
-    return posterior_predictive(spec, params, xstar)
+def predict_y(spec: SVGPSpec, params: Params, xstar: torch.Tensor):
+    """Observable-space prediction under the spec's likelihood: gaussian and
+    student_t → Gaussian(mean, var + the observation variance); bernoulli →
+    p(y* = 1) = Φ(μ/√(1+σ²)); poisson → (E[λ], Var[y])."""
+    if spec.likelihood == "gaussian":
+        return posterior_predictive(spec, params, xstar)
+    q = posterior(spec, params, xstar, full_cov=False)
+    if spec.likelihood == "bernoulli":
+        return likelihoods.predict_bernoulli(q.mean, q.var)
+    if spec.likelihood == "poisson":
+        return likelihoods.predict_poisson(q.mean, q.var)
+    df = dict(spec.likelihood_opts).get("df", 4.0)
+    scale = df / max(df - 2.0, 1e-12)  # Var[T] = ν/(ν−2)·scale²
+    return Gaussian(mean=q.mean, var=q.var + scale * params["noise"])
 
 
 def prior(spec: SVGPSpec, params: Params, xstar: torch.Tensor) -> Gaussian:

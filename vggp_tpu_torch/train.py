@@ -1,5 +1,6 @@
-"""Parameter transforms and training loops of the port (the main-path part of
-``vggp_tpu/train.py``).
+"""Parameter transforms, init heuristics and training loops of the port
+(``vggp_tpu/train.py``: the transforms, ``non_informative_init``,
+``informative_init``, ``fit``, ``fit_minibatch`` and ``make_step_fn``).
 
 Positive hyperparameters (variance, lengthscale, noise) live unconstrained
 under a floored softplus; models always see constrained values. The
@@ -8,7 +9,7 @@ optimizer is ``torch.optim.Adam`` on the raw leaves.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -67,6 +68,39 @@ def constrain(raw_params: Dict) -> Dict:
     return _map_positive(raw_params, lambda k, v: FLOORS[k] + softplus(v))
 
 
+_NOT_PORTED = "(ROADMAP queue 1, item 10: the other features and model families)"
+
+
+def _init_axes(params: Dict, X: torch.Tensor, variance, lmbda: float) -> tuple:
+    """The axes with variance ← ``variance`` and lengthscale_i ← std(x_i)/λ
+    (population moments, as ``jnp.std``)."""
+    if "components" in params:
+        raise NotImplementedError(f"sum-of-kernels parameters are not ported yet {_NOT_PORTED}")
+    if X.dim() == 1:
+        X = X[:, None]
+    return tuple({**p, "variance": torch.as_tensor(variance).to(p["variance"]),
+                  "lengthscale": (torch.std(X[:, i], correction=0) / lmbda).to(p["lengthscale"])}
+                 for i, p in enumerate(params["axes"]))
+
+
+def non_informative_init(params: Dict, X: torch.Tensor, y: torch.Tensor,
+                         lmbda: float = 1.0, kappa: float = 2.0) -> Dict:
+    """variance ← var(y); noise ← variance/κ²; lengthscale_i ← std(x_i)/λ."""
+    yvar = torch.var(y.reshape(-1), correction=0)
+    return {**params, "axes": _init_axes(params, X, yvar, lmbda),
+            "noise": (yvar / kappa ** 2).to(params["noise"])}
+
+
+def informative_init(params: Dict, X: torch.Tensor, y: torch.Tensor,
+                     prior_amplitude: float, lmbda: float = 1.0) -> Dict:
+    """variance ← (amplitude/2)²; noise ← max(var(y) − variance, 1e-6·var(y));
+    lengthscale_i ← std(x_i)/λ."""
+    var = (prior_amplitude / 2.0) ** 2
+    yvar = torch.var(y.reshape(-1), correction=0)
+    return {**params, "axes": _init_axes(params, X, var, lmbda),
+            "noise": torch.maximum(yvar - var, 1e-6 * yvar).to(params["noise"])}
+
+
 def guarded_update(optimizer: torch.optim.Optimizer, leaves, val: torch.Tensor) -> bool:
     """Take the optimizer step only when the loss and every gradient are
     finite; otherwise skip it whole, optimizer state included — the
@@ -109,6 +143,58 @@ def raw_leaves_from(params: Dict) -> Dict:
     """The raw tree of ``params`` with every leaf a fresh tensor that
     requires grad — the state a functional fit optimizes."""
     return tree_map(lambda v: v.detach().clone().requires_grad_(True), unconstrain(params))
+
+
+def _history_entry(params: Dict, loss_val: torch.Tensor) -> Dict:
+    """One step's record: the loss and ELBO, the noise, and each axis's
+    ``scale_sigma_i`` and ``lengthscale_i``."""
+    h = {"loss": loss_val, "elbo": -loss_val, "noise": params["noise"]}
+    for i, p in enumerate(params["axes"]):
+        h[f"scale_sigma_{i + 1}"] = p["variance"]
+        h[f"lengthscale_{i + 1}"] = p["lengthscale"]
+    return h
+
+
+def _frozen_leaves(raw, mask) -> list:
+    """The leaves of ``raw`` whose entry in the same-structured ``mask`` is False."""
+    if isinstance(raw, dict):
+        return [leaf for k in raw for leaf in _frozen_leaves(raw[k], mask[k])]
+    if isinstance(raw, (tuple, list)):
+        return [leaf for r, m in zip(raw, mask, strict=True) for leaf in _frozen_leaves(r, m)]
+    return [] if mask else [raw]
+
+
+def fit(loss_fn: Callable[[Dict], torch.Tensor], params: Dict, n_iters: int,
+        learning_rate: float = 0.1,
+        trainable: Optional[Callable[[Dict], Dict]] = None) -> Tuple[Dict, Dict]:
+    """Full-batch fit: ``n_iters`` guarded ``torch.optim.Adam`` steps.
+
+    ``loss_fn(params)`` takes constrained params. ``trainable(params)``
+    gives a tree of bools of the same structure: the gradients of the False
+    leaves are zeroed before each update, so they keep their initial values
+    exactly. Returns (final constrained params, history): each entry of the
+    history a tensor over the steps, the loss before the step and the
+    parameters after it, as the JAX package records them.
+    """
+    raw = raw_leaves_from(params)
+    leaves = tree_leaves(raw)
+    frozen = [] if trainable is None else _frozen_leaves(raw, trainable(params))
+    opt = torch.optim.Adam(leaves, lr=learning_rate)
+    hist = []
+    for _ in range(n_iters):
+        opt.zero_grad(set_to_none=False)
+        val = loss_fn(constrain(raw))
+        val.backward()
+        for leaf in frozen:
+            if leaf.grad is not None:
+                leaf.grad.zero_()
+        guarded_update(opt, leaves, val)
+        with torch.no_grad():
+            hist.append(_history_entry(constrain(raw), val.detach()))
+    history = {k: torch.stack([h[k] for h in hist]) for k in hist[0]} if hist else {}
+    with torch.no_grad():
+        final = constrain(tree_map(lambda v: v.detach(), raw))
+    return final, history
 
 
 def fit_minibatch(
