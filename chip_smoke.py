@@ -58,13 +58,32 @@ Phases (each asserts; any failure exits non-zero before the result line):
    likelihoods: 5 steps each at batch 4096 (``cell_kuf_with_dl`` twice a
    step), the loss and every gradient leaf and ``predict_y`` at the 4096
    points against the CPU in float64 by the same rule;
-10. profile three steps at each batch (device busy share, the ops with the
+10. the slice of the other cell kinds, the non-uniform mesh and the
+   pointwise-gradient heads, on phase 1's data: (a) the Matérn-3/2, 5/2 and
+   RBF Toeplitz rows against the ``bench.py`` goldens (in phase 3b); (b) the
+   512×512-cell SVGP with Matérn-3/2 cells, 8 steps at batch 4096, its loss,
+   gradient leaves, ``posterior_grad`` on both axes cold and warm and
+   ``q_dv`` against the CPU's float64, no kernel launched; (c) the same SVGP
+   with Matérn-1/2 cells on a mesh refined toward the middle of each axis:
+   both cell kernels against their plain versions on that mesh, steps at
+   4096 and 16 384 (``cell_kuf_with_dl`` twice a step, the fused kernel
+   never), the posterior (``cell_kuf`` twice), against the CPU's float64;
+   (d) the collapsed GriddedGP with Matérn-3/2 cells (64×64, 65 536 points),
+   its ELBO, gradients, ``posterior_grad`` and ``q_dv`` on both axes against
+   the card's float64 and the CPU's at 8192 points; (e) the exact GP with
+   Matérn-3/2 at n = 4096, ``posterior_grad`` on both axes, marginal and
+   ``full_cov``, against the CPU's float64; the RBF fits of
+   ``bench.py:228-260``; and the float32 λ_min readings of the jittered
+   Matérn-3/2, 5/2 and RBF cell Grams (phase 6 also reads the warm
+   posterior's error with the Kuu Cholesky taken on the other device);
+11. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
-11. time each kernel and its plain version (device time from the profiler's
+12. time each kernel and its plain version (device time from the profiler's
    CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
    serving grid's (512, 65 536) beside one warm cold ``posterior`` and one
    ``posterior_from_state`` on that grid and at the face difference's
-   (512, 513), both cell kernels at the collapsed model's (64, 65 536), and
+   (512, 513), both cell kernels at the collapsed model's (64, 65 536) and
+   on the stretched mesh, ``cell_kuf`` at (64, 4096) and (64, 65), and
    the fused kernel beside the unfused route it replaces, and print them and
    the steady-state step and serving times with the card's name and power
    limit.
@@ -153,6 +172,11 @@ _GOLD_KUF_SAMPLES = {
 _GOLD_KUF_SUM = 133.36001797326242
 _GOLD_R_SUM = 330.72390424878466   # colsum((F⁻¹Kuf)²), rel jitter 1e-6
 _GOLD_R_17 = 1.2891879138256372
+# the first entries of the 128-cell feature's Toeplitz Kuu rows (bench.py:71-73)
+_GOLD_M32_ROW3 = [7.93294240e-05, 7.92343147e-05, 7.89592508e-05]
+_GOLD_M52_ROW3 = [7.93364803e-05, 7.92812306e-05, 7.91161120e-05]
+_GOLD_RBF_ROW4 = [7.93401676e-05, 7.93069656e-05, 7.92074430e-05, 7.90418494e-05]
+GOLD_ROWS = {"matern32": _GOLD_M32_ROW3, "matern52": _GOLD_M52_ROW3, "rbf": _GOLD_RBF_ROW4}
 GOLD_TOL_F32 = 2e-4                # bench.py's own bound
 GOLD_TOL_F64 = 1e-9
 
@@ -321,14 +345,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_inputs(m, n, dtype, device, seed):
+def kernel_inputs(m, n, dtype, device, seed, mesh=None):
+    """(mesh, x, σ², ℓ, F⁻¹ or None) in ``dtype`` on ``device``: the uniform
+    mesh of m cells on [0, 1], or the numpy edges ``mesh``; n points from a
+    seed over [−0.05, 1.05]; the closed-form F⁻¹ of the uniform mesh where m
+    blocks into bands."""
     import numpy as np
     import torch
 
     from vggp_tpu_torch.ops import kms
 
     rng = np.random.default_rng(seed)
-    mesh = torch.linspace(0.0, 1.0, m + 1, dtype=torch.float64).to(dtype).to(device)
+    mesh = torch.as_tensor(np.linspace(0.0, 1.0, m + 1) if mesh is None else mesh,
+                           dtype=torch.float64).to(dtype).to(device)
     x = torch.as_tensor(rng.random(n) * 1.1 - 0.05, dtype=dtype, device=device)
     v = torch.tensor(1.3, dtype=dtype, device=device)
     ell = torch.tensor(0.27, dtype=dtype, device=device)
@@ -421,7 +450,8 @@ def check_fused_tf32_t(finv, mesh, x, v, ell, a, t, t_tf32, shape) -> None:
 
 
 def check_goldens(device) -> None:
-    """Phase 3b: the bench goldens through the port's feature API."""
+    """Phase 3b (and 10a): the bench goldens through the port's feature API,
+    the Matérn-3/2, 5/2 and RBF Toeplitz rows among them."""
     import numpy as np
     import torch
 
@@ -448,6 +478,10 @@ def check_goldens(device) -> None:
             "r_sum": abs(float(r.sum()) - _GOLD_R_SUM) / _GOLD_R_SUM,
             "r_17": abs(float(r[17]) - _GOLD_R_17) / _GOLD_R_17,
         }
+        for kind, gold in GOLD_ROWS.items():
+            row = g.kuu_first_row(kind, p)[:len(gold)].double().cpu()
+            gold = torch.tensor(gold, dtype=torch.float64)
+            errs[f"{kind}_row"] = float((row - gold).abs().max() / gold.abs().max())
         tag = "f64" if dtype == torch.float64 else "f32"
         print(f"check goldens {tag}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         for k, v in errs.items():
@@ -775,7 +809,38 @@ def serve_heads(device, spec, model, Xs):
                      lambda: svgp.q_dv_from_state(spec, p, st, own, 0))):
         timings[key] = host_ms(fn)
     print("serve heads: " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+    timings["warm_posterior_cholesky_swap"] = cholesky_swap(device, spec, ctx, Xs)
     return launches, edge_launches, timings, st
+
+
+def cholesky_swap(device, spec, ctx, Xs) -> dict:
+    """Phase 6b (ROADMAP queue 3, item 4): the warm posterior at the 4096
+    points on the card with the 512² Kuu Cholesky factors that the CPU takes
+    in float32 moved over, and on the CPU in float32 with the card's factors
+    moved there, each against the CPU's float64, as ratios to the CPU's own
+    float32 error. A ratio near 1 with the CPU's factors on the card puts
+    the card's gap on cuSOLVER's factorization. A reading, not a check."""
+    import torch
+
+    from vggp_tpu_torch import svgp
+    from vggp_tpu_torch.ops.chol import PSDFactor
+
+    (p_card, (ch_card, ls_card), _), (p32, (ch32, ls32), _) = ctx["main", "card"], ctx["main", "f32"]
+    swap = lambda chols, dev: tuple(PSDFactor(c.F.to(dev)) for c in chols)
+    xs32 = Xs.cpu()
+    with torch.no_grad():
+        ref = svgp.posterior_from_state(spec, *ctx["main", "f64"][:2], Xs.double().cpu())
+        errs = {"cpu f32": gauss_err(svgp.posterior_from_state(spec, p32, (ch32, ls32), xs32), ref),
+                "card f32": gauss_err(svgp.posterior_from_state(spec, p_card, (ch_card, ls_card),
+                                                                Xs), ref),
+                "card f32, cpu factors": gauss_err(svgp.posterior_from_state(
+                    spec, p_card, (swap(ch32, device), ls_card), Xs), ref),
+                "cpu f32, card factors": gauss_err(svgp.posterior_from_state(
+                    spec, p32, (swap(ch_card, xs32.device), ls32), xs32), ref)}
+    out = {k: {"err": v, "ratio_to_cpu_f32": v / errs["cpu f32"]} for k, v in errs.items()}
+    print("6b warm posterior at 4096 points vs cpu f64, the Kuu Cholesky swapped: " + "; ".join(
+        f"{k} {v['err']:.3e} (ratio {v['ratio_to_cpu_f32']:.2f})" for k, v in out.items()))
+    return out
 
 
 def host_ms(fn) -> float:
@@ -1268,11 +1333,433 @@ def likelihood_phase(device, X, y, Xs) -> tuple:
     return launches, timings
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: the Matérn-3/2, 5/2 and RBF cell features, the non-uniform mesh
+# and the pointwise-gradient heads
+# --------------------------------------------------------------------------- #
+
+KIND_STEPS = 8          # 10b and 10c at batch 4096, the first WARM_STEPS untimed
+KIND_FUSED_STEPS = 4    # 10c at batch 16 384
+SGPR_KIND_STEPS = 4     # 10d, full batch
+EXACT_KIND_STEPS = 5    # 10e
+# bench.py:228-260: a 1-D collapsed GriddedGP with RBF cells across ℓ/δ
+RBF_CELLS, RBF_N, RBF_STEPS, RBF_LR = 64, 384, 30, 3e-2
+RBF_RATIOS = (0.1, 1.0, 10.0, 50.0)
+LAMBDA_RATIOS = (0.1, 1.0, 10.0, 50.0, 512.0)   # ℓ/δ of the λ_min readings, m = 512
+NO_LAUNCHES = {"cell_kuf": 0, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+# The Matérn-3/2 models of 10b and 10d take the float32 jitter floor of their
+# cells (KIND_JITTER_F32 and the feature's 2e-4) as their spec's jitter, so
+# that the float64 references are the same model: with the default 1e-6 the
+# float64 Gram would be jittered 200× less, which moved the loss by 1% and
+# the gradients by up to 13% on the CPU at 16 and 8 cells an axis.
+SLICE_JITTER = 2e-4
+# gradient floors of phase 10's comparisons, as TOL_GRAD's: the SVGPs (10b,
+# 10c) as the likelihood SVGPs', the exact GP as phase 8's; the Matérn-3/2
+# collapsed GP's about 5× the largest sound reading, which is 10× phase 7's:
+# its float32 leaves scatter from 1e-6 to 2.6e-4 off float64 on the card
+# and the CPU alike, by which of its factorizations runs in float64
+# (tools/torch_collapsed_precision.py; an H100).
+TOL_GRAD_SLICE = {"svgp": 2e-3, "collapsed": 1.5e-3, "exact": 2.5e-5}
+
+
+def stretched_mesh(m: int):
+    """m cells on [0, 1] refined toward the middle, standing in for a grid
+    refined over a front: the edges 0.5 + 0.5·sinh(1.5(2t − 1))/sinh(1.5) on
+    a uniform t, the middle cells 2.35× narrower than the end ones."""
+    import numpy as np
+
+    t = np.linspace(0.0, 1.0, m + 1)
+    return 0.5 + 0.5 * np.sinh(1.5 * (2.0 * t - 1.0)) / np.sinh(1.5)
+
+
+def check_nonuniform_kernels(device) -> dict:
+    """10c: both cell kernels against their plain versions on the stretched
+    mesh, at the SVGP step's (512, 4096) and, every point on an (unevenly
+    spaced) cell edge, at (512, 513), in float64 (TOL_F64) and float32
+    (TOL_F32). Returns the float32 max |kernel − plain| by kernel."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    errs = {}
+    for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for n, on_edges in ((TRAIN_BATCH, False), (M_AXIS + 1, True)):
+            mesh, x, v, ell, _ = kernel_inputs(M_AXIS, n, dtype, device, seed=12,
+                                               mesh=stretched_mesh(M_AXIS))
+            if on_edges:
+                x = mesh.clone()
+            pairs = [("cell_kuf", "Kuf", ck.cell_kuf(mesh, x, v, ell),
+                      ck.cell_kuf_plain(mesh, x, v, ell))]
+            pairs += [("cell_kuf_with_dl", name, g, w) for name, g, w in zip(
+                ("Kuf", "dKuf"), ck.cell_kuf_with_dl(mesh, x, v, ell),
+                ck.cell_kuf_with_dl_plain(mesh, x, v, ell))]
+            for kernel, name, got, want in pairs:
+                e = rel_err(got, want)
+                print(f"check {kernel} {name} {tag} ({M_AXIS}, {n}) stretched mesh"
+                      f"{', x = the mesh' if on_edges else ''}: rel {e:.3e}")
+                check(e < tol, f"{kernel} {name} {tag} stretched ({M_AXIS}, {n}) rel {e}")
+                if tag == "f32":
+                    errs[kernel] = max(errs.get(kernel, 0.0), float((got - want).abs().max()))
+    return errs
+
+
+def lambda_min_readings(device) -> dict:
+    """10: λ_min of the jittered 512-cell Grams over their mean diagonal,
+    built in float32 on the card against float64, at ℓ/δ ∈ LAMBDA_RATIOS (δ
+    the mean cell width), and whether the float32 Cholesky succeeds: the
+    Matérn-3/2, 5/2 and RBF Grams of the uniform mesh at their float32
+    jitter floor (2e-4), and the Matérn-1/2 Gram of the stretched mesh at
+    its floor (1e-6), as the port builds it and by the JAX package's generic
+    cell/cell form. Readings, not checks: the JAX floors are kept."""
+    import types
+
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature
+    from vggp_tpu_torch.features import _cell_cell_cov
+    from vggp_tpu_torch.models import common
+
+    uniform = CellIntegralFeature.from_lims(M_AXIS, 0.0, 1.0)
+    stretched = CellIntegralFeature(stretched_mesh(M_AXIS))
+    spec = types.SimpleNamespace(jitter=1e-6)
+
+    def generic(feat, kind, rel, ell, var):
+        mesh = feat.mesh_j({"lengthscale": ell})
+        k = _cell_cell_cov(kind, mesh, mesh, var, ell)
+        k = 0.5 * (k + k.T)
+        return k + torch.mean(torch.diagonal(k)) * rel * torch.eye(k.shape[0], dtype=k.dtype,
+                                                                    device=k.device)
+
+    cases = [(kind, uniform, common._kuu_jittered) for kind in ("matern32", "matern52", "rbf")]
+    cases += [("matern12 stretched", stretched, common._kuu_jittered),
+              ("matern12 stretched, generic form", stretched, generic)]
+    out = {}
+    for name, feat, gram in cases:
+        kind = name.split()[0]
+        rel = common.axis_rel_jitter(spec, kind, torch.float32, feat)
+        cells = []
+        for ratio in LAMBDA_RATIOS:
+            lam = {}
+            for dtype in (torch.float32, torch.float64):
+                var = torch.tensor(1.0, dtype=dtype, device=device)
+                ell = torch.tensor(ratio / M_AXIS, dtype=dtype, device=device)
+                k = gram(feat, kind, rel, ell, var)
+                lam[dtype] = (float(torch.linalg.eigvalsh(k.double())[0])
+                              / float(torch.mean(torch.diagonal(k))))
+                if dtype == torch.float32:
+                    chol_ok = int(torch.linalg.cholesky_ex(k).info) == 0
+            cells.append({"l_over_delta": ratio, "lambda_min_f32": lam[torch.float32],
+                          "lambda_min_f64": lam[torch.float64], "f32_cholesky": chol_ok})
+        out[name] = {"rel_jitter": rel, "readings": cells}
+        print(f"lambda_min {name} m={M_AXIS} rel jitter {rel:g}: " + "; ".join(
+            f"l/d {c['l_over_delta']:g}: f32 {c['lambda_min_f32']:.4e}, "
+            f"f64 {c['lambda_min_f64']:.4e}, f32 chol {'ok' if c['f32_cholesky'] else 'FAILS'}"
+            for c in cells))
+    return out
+
+
+def train_svgp(device, spec, X, y, runs, seed) -> tuple:
+    """The Kronecker SVGP of ``spec`` from its initial parameters, Adam at
+    lr 1e-2 for each (batch, steps) of ``runs`` in turn, the launches of each
+    run counted (reset just before, read just after). Returns (model,
+    [(losses, ms a step, launches)])."""
+    import torch
+
+    from vggp_tpu_torch import SVGP, svgp, train
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    model = SVGP(spec)
+    step = train.make_step_fn(lambda p, xb, yb: svgp.loss(spec, p, xb, yb), model.raw_params(),
+                              torch.optim.Adam(model.parameters(), lr=1e-2))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = []
+    for batch, n_steps in runs:
+        ck.reset_launch_counts()
+        losses, ms = run_steps(step, X, y, batch, n_steps, gen)
+        out.append((losses, ms, dict(ck.LAUNCHES)))
+        check(all(v == v and abs(v) != float("inf") for v in losses),
+              f"{spec.kinds}: loss not finite at batch {batch}: {losses}")
+    return model, out
+
+
+def svgp_slice_quantities(spec, params, xb, yb, heads, cast) -> dict:
+    """The loss and its gradient leaves at (xb, yb), and every head of
+    ``heads`` ((name, fn(spec, params, state, pts))) from one ``precompute``
+    state, in one context (``cast`` to its device and dtype)."""
+    import torch
+
+    from vggp_tpu_torch import svgp
+
+    p = cast(params)
+    val, grads = value_and_grads(lambda q: svgp.loss(spec, q, cast(xb), cast(yb)), p)
+    with torch.no_grad():
+        state = svgp.precompute(spec, p)
+        return {"loss": val, **grads, **{name: fn(spec, p, state, cast) for name, fn in heads}}
+
+
+def hold_against_cpu(what, quantities, device, floor) -> float:
+    """Phase 10's rule: ``quantities(cast)`` on the card in float32 against
+    the CPU's float64, by :func:`check_quantities` with the CPU's float32;
+    returns the seconds it took."""
+    import torch
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    check_quantities(what, *(quantities(cast_to(dev, dt)) for dev, dt in (
+        (device, torch.float32), (cpu, torch.float64), (cpu, torch.float32))), floor)
+    return time.perf_counter() - t0
+
+
+def timed_heads(heads, spec, params, state, cast) -> dict:
+    """Host ms of one warm call of each head (:func:`host_ms`), with no
+    kernel launched (the launches of both calls counted)."""
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    out = {}
+    for name, fn in heads:
+        ck.reset_launch_counts()
+        out[name] = host_ms(lambda: fn(spec, params, state, cast))
+        check(dict(ck.LAUNCHES) == NO_LAUNCHES, f"{name}: launches {dict(ck.LAUNCHES)}")
+    return out
+
+
+def kinds_svgp_part(device, X, y, Xs, timings) -> None:
+    """10b: the 512² Kronecker SVGP with Matérn-3/2 cells (dense F⁻¹, the
+    forward-mode ℓ-tangent): KIND_STEPS steps at batch 4096, the loss and its
+    gradient leaves, ``posterior_grad`` on both axes cold and from
+    ``precompute`` at the 4096 points and ``q_dv`` on axis 0 of the 512²
+    cells against the CPU's float64. No kernel launches anywhere."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, svgp, train
+
+    spec = SVGPSpec(kinds=("matern32",) * 2, features=tuple(
+        CellIntegralFeature.from_lims(M_AXIS, 0.0, 1.0) for _ in range(2)),
+        num_data=NUM_DATA, variational="kron", jitter=SLICE_JITTER)
+    model, [(losses, ms, got)] = train_svgp(device, spec, X, y, ((TRAIN_BATCH, KIND_STEPS),), 30)
+    print(f"10b matern32 SVGP: {KIND_STEPS} steps at batch {TRAIN_BATCH}, loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g}, {ms:.3f} ms a step, launches {got}")
+    check(got == NO_LAUNCHES, f"10b matern32 SVGP launches {got}")
+    check(sum(losses[-3:]) < sum(losses[:3]), f"10b: the loss did not fall: {losses}")
+    timings["matern32_svgp_step_ms_batch4096"] = ms
+    own = spec.features
+    heads = [(f"posterior_grad axis {a}", lambda s, p, st, c, a=a: svgp.posterior_grad(s, p, c(Xs), a))
+             for a in (0, 1)]
+    heads += [(f"posterior_grad_from_state axis {a}",
+               lambda s, p, st, c, a=a: svgp.posterior_grad_from_state(s, p, st, c(Xs), a))
+              for a in (0, 1)]
+    heads.append(("q_dv axis 0 own cells", lambda s, p, st, c: svgp.q_dv(s, p, own, 0)))
+    with torch.no_grad():
+        params = train.tree_map(lambda v: v.detach(), model.params())
+        state = svgp.precompute(spec, params)
+    cast = cast_to(device, torch.float32)
+    for name, t in timed_heads(heads, spec, params, state, cast).items():
+        timings[f"matern32_svgp_{name.replace(' ', '_')}_ms"] = t
+    xb, yb = X[:TRAIN_BATCH], y[:TRAIN_BATCH]
+    timings["check 10b s"] = hold_against_cpu(
+        "10b matern32 SVGP vs cpu f64",
+        lambda c: svgp_slice_quantities(spec, params, xb, yb, heads, c), device,
+        TOL_GRAD_SLICE["svgp"])
+
+
+def nonuniform_svgp_part(device, X, y, Xs, timings) -> tuple:
+    """10c: the 512² Kronecker SVGP with Matérn-1/2 cells on the stretched
+    mesh: the cell kernels against their plain versions there, KIND_STEPS
+    steps at batch 4096 and KIND_FUSED_STEPS at 16 384 (cell_kuf_with_dl
+    twice a step, the fused kernel never: no band ratio), the posterior at
+    the 4096 points (cell_kuf twice), and the loss, its gradient leaves and
+    the posterior against the CPU's float64. Returns (launches, the kernels'
+    float32 errors, the launches by kernel at the stretched shapes)."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, svgp, train
+
+    errs = check_nonuniform_kernels(device)
+    feats = tuple(CellIntegralFeature(stretched_mesh(M_AXIS)) for _ in range(2))
+    spec = SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=NUM_DATA,
+                    variational="kron")
+    check(not feats[0].uniform, "the stretched mesh is not uniform")
+    runs = ((TRAIN_BATCH, KIND_STEPS), (FUSED_BATCH, KIND_FUSED_STEPS))
+    model, out = train_svgp(device, spec, X, y, runs, 31)
+    launches = dict(NO_LAUNCHES)
+    for (batch, n_steps), (losses, ms, got) in zip(runs, out):
+        print(f"10c stretched matern12 SVGP: {n_steps} steps at batch {batch}, loss "
+              f"{losses[0]:.6g} -> {losses[-1]:.6g}, {ms:.3f} ms a step, launches {got}")
+        check(got == {**NO_LAUNCHES, "cell_kuf_with_dl": 2 * n_steps},
+              f"10c launches at batch {batch}: {got}")
+        timings[f"stretched_svgp_step_ms_batch{batch}"] = ms
+        launches = add_launches(launches, got)
+    check(sum(out[0][0][-3:]) < sum(out[0][0][:3]), f"10c: the loss did not fall: {out[0][0]}")
+    _, ms, got = run_counted("10c posterior", lambda: model.posterior(Xs), 2)
+    timings["stretched_svgp_posterior_ms_4096"] = ms
+    launches = add_launches(launches, got)
+    at_shape = {"cell_kuf_with_dl": launches["cell_kuf_with_dl"], "cell_kuf": got["cell_kuf"]}
+    print(f"10c posterior at {SERVE_POINTS} points: {ms:.3f} ms, launches of two calls {got}")
+    with torch.no_grad():
+        params = train.tree_map(lambda v: v.detach(), model.params())
+    heads = [("posterior", lambda s, p, st, c: svgp.posterior(s, p, c(Xs)))]
+    xb, yb = X[:TRAIN_BATCH], y[:TRAIN_BATCH]
+    timings["check 10c s"] = hold_against_cpu(
+        "10c stretched matern12 SVGP vs cpu f64",
+        lambda c: svgp_slice_quantities(spec, params, xb, yb, heads, c), device,
+        TOL_GRAD_SLICE["svgp"])
+    return launches, errs, at_shape
+
+
+def kinds_collapsed_part(device, X, y, Xs, timings) -> None:
+    """10d: the collapsed GriddedGP with Matérn-3/2 cells (64×64, the model
+    of ``experiments/velocity.py`` at phase 7's size) on the first SGPR_N
+    points: SGPR_KIND_STEPS full-batch steps, then the ELBO, its gradient
+    leaves, ``posterior_grad`` (marginal at the 4096 points, ``full_cov`` at
+    FULL_COV_POINTS) and ``q_dv`` on both axes from ``precompute``, against
+    the card's float64 at the full n (the ELBO and the heads, beside the
+    CPU's float32) and the CPU's float64 at SGPR_CUT_N (with the gradient
+    leaves). No kernel launches."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SGPRSpec, sgpr, train
+
+    spec = SGPRSpec(kinds=("matern32",) * 2, features=tuple(
+        CellIntegralFeature.from_lims(SGPR_CELLS, 0.0, 1.0) for _ in range(2)),
+        jitter=SLICE_JITTER)
+    Xn, yn = X[:SGPR_N], y[:SGPR_N]
+    params0 = train.non_informative_init(spec.init_params(torch.float32), Xn, yn)
+    params, ms, got = fit_counted("10d collapsed matern32 m=4096",
+                                  lambda p: sgpr.loss(spec, p, Xn, yn), params0, SGPR_KIND_STEPS)
+    check(got == NO_LAUNCHES, f"10d fit launches {got}")
+    timings["matern32_sgpr_fit_ms_per_step"] = ms
+    own = spec.features
+    for a in (0, 1):
+        _, ms, _ = run_counted(f"10d posterior_grad axis {a}", lambda a=a: sgpr.posterior_grad(
+            spec, params, Xn, yn, Xs, a), 0)
+        timings[f"matern32_sgpr_posterior_grad_axis{a}_ms"] = ms
+
+    def quantities(cast, n, grads):
+        p, Xc, yc, xs = cast(params), cast(X[:n]), cast(y[:n]), cast(Xs)
+        out = {}
+        if grads:
+            val, leaves = value_and_grads(lambda q: sgpr.loss(spec, q, Xc, yc), p)
+            out = {"elbo": -val, **leaves}
+        with torch.no_grad():
+            if not grads:
+                out["elbo"] = sgpr.elbo(spec, p, Xc, yc)
+            state = sgpr.precompute(spec, p, Xc, yc)
+            for a in (0, 1):
+                out[f"posterior_grad axis {a}"] = sgpr.posterior_grad_from_state(
+                    spec, p, state, xs, a)
+                out[f"posterior_grad full_cov axis {a}"] = sgpr.posterior_grad_from_state(
+                    spec, p, state, xs[:FULL_COV_POINTS], a, full_cov=True)
+                out[f"q_dv axis {a}"] = sgpr.q_dv_from_state(spec, p, state, own, a)
+        return out
+
+    # As phase 7: at the full n the ELBO and the heads against the card's
+    # float64, beside the CPU's float32 (no gradient: three (4096, 65 536)
+    # products); the gradient leaves at the cut n. The Matérn-3/2 model's
+    # float32 is far from float64 on any device (dσ² 5.2e-2 at the full n,
+    # the gradient heads 6e-3, on an H100), so no floor alone holds it.
+    cpu = torch.device("cpu")
+    for what, n, grads, refs in (
+            (f"10d collapsed matern32 n={SGPR_N} vs card f64", SGPR_N, False,
+             ((device, torch.float64), (cpu, torch.float32))),
+            (f"10d collapsed matern32 n={SGPR_CUT_N} vs cpu f64", SGPR_CUT_N, True,
+             ((cpu, torch.float64), (cpu, torch.float32)))):
+        t0 = time.perf_counter()
+        got = quantities(cast_to(device, torch.float32), n, grads)
+        ref, *f32 = (quantities(cast_to(dev, dt), n, grads) for dev, dt in refs)
+        check_quantities(what, got, ref, f32[0] if f32 else {}, TOL_GRAD_SLICE["collapsed"])
+        timings[f"check {what} s"] = time.perf_counter() - t0
+
+
+def kinds_exact_part(device, X, y, Xs, timings) -> None:
+    """10e: the exact GP with Matérn-3/2 on EXACT_N points: EXACT_KIND_STEPS
+    steps, then ``posterior_grad`` on both axes, marginal at the 4096 points
+    and ``full_cov`` at FULL_COV_POINTS of them, against the CPU's float64."""
+    import torch
+
+    from vggp_tpu_torch import ExactGPSpec, exact, train
+
+    spec = ExactGPSpec(("matern32", "matern32"))
+    Xn, yn = X[:EXACT_N], y[:EXACT_N]
+    params0 = train.non_informative_init(spec.init_params(torch.float32), Xn, yn)
+    params, ms, got = fit_counted(f"10e exact matern32 n={EXACT_N}",
+                                  lambda p: exact.loss(spec, p, Xn, yn), params0, EXACT_KIND_STEPS)
+    check(got == NO_LAUNCHES, f"10e fit launches {got}")
+    timings["matern32_exact_fit_ms_per_step"] = ms
+    heads = [(f"posterior_grad{' full_cov' if full else ''} axis {a}", a, full)
+             for a in (0, 1) for full in (False, True)]
+    for name, a, full in heads:
+        pts = Xs[:FULL_COV_POINTS] if full else Xs
+        _, ms, _ = run_counted(f"10e {name}", lambda a=a, full=full, pts=pts: exact.posterior_grad(
+            spec, params, Xn, yn, pts, a, full_cov=full), 0)
+        timings[f"matern32_exact_{name.replace(' ', '_')}_ms"] = ms
+
+    def quantities(cast):
+        p, Xc, yc, xs = cast(params), cast(Xn), cast(yn), cast(Xs)
+        with torch.no_grad():
+            return {"mll": exact.mll(spec, p, Xc, yc),
+                    **{name: exact.posterior_grad(spec, p, Xc, yc,
+                                                  xs[:FULL_COV_POINTS] if full else xs, a,
+                                                  full_cov=full)
+                       for name, a, full in heads}}
+
+    timings["check 10e s"] = hold_against_cpu(f"10e exact matern32 n={EXACT_N} vs cpu f64",
+                                              quantities, device, TOL_GRAD_SLICE["exact"])
+
+
+def rbf_fits(device, timings) -> None:
+    """10: ``bench.py``'s RBF check: a 1-D collapsed GriddedGP with RBF_CELLS
+    RBF cells, RBF_N points from seed 7, RBF_STEPS Adam steps at RBF_LR from
+    ℓ = ratio·δ for each ratio of RBF_RATIOS; the losses finite and falling."""
+    import numpy as np
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SGPRSpec, sgpr, train
+
+    feat = CellIntegralFeature.from_lims(RBF_CELLS, 0.0, 1.0)
+    spec = SGPRSpec(kinds=("rbf",), features=(feat,))
+    rng = np.random.default_rng(7)
+    xr = np.sort(rng.random(RBF_N))
+    yr = np.sin(6 * xr) + 0.05 * rng.standard_normal(RBF_N)
+    Xr, Yr = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (xr, yr))
+    t0 = time.perf_counter()
+    for ratio in RBF_RATIOS:
+        p = spec.init_params(torch.float32)
+        p["axes"][0]["lengthscale"] = torch.tensor(ratio * feat.delta, dtype=torch.float32,
+                                                   device=device)
+        _, hist = train.fit(lambda q: sgpr.loss(spec, q, Xr, Yr), p, RBF_STEPS, RBF_LR)
+        losses = hist["loss"].double().cpu()
+        print(f"10 rbf fit l/d {ratio:g}: loss {float(losses[0]):.6g} -> {float(losses[-1]):.6g}")
+        check(bool(torch.isfinite(losses).all()) and float(losses[-1]) < float(losses[0]),
+              f"rbf gridded fit at l/d {ratio}: {losses.tolist()}")
+    timings["rbf_fits_s"] = time.perf_counter() - t0
+
+
+def slice_phase(device, X, y, Xs) -> tuple:
+    """Phase 10: 10b–10e and the RBF fits (10a is check_goldens), with the
+    λ_min readings. Returns (launches, timings, (the kernels' float32 errors
+    and launches on the stretched mesh, the λ_min readings))."""
+    timings = {}
+    launches = dict(NO_LAUNCHES)
+    for part in (kinds_svgp_part, nonuniform_svgp_part, kinds_collapsed_part,
+                 kinds_exact_part):
+        t0 = time.perf_counter()
+        out = part(device, X, y, Xs, timings)
+        if part is nonuniform_svgp_part:
+            launches, errs, at_shape = out
+        timings[f"{part.__name__}_s"] = time.perf_counter() - t0
+        print(f"{part.__name__}: {timings[f'{part.__name__}_s']:.1f} s")
+    rbf_fits(device, timings)
+    readings = lambda_min_readings(device)
+    return launches, timings, ({"errs": errs, "launches": at_shape}, readings)
+
+
 PROFILE_STEPS = 3
 
 
 def profile_steps(step, X, y, batch, gen) -> dict:
-    """Phase 10: where a training step's time goes. Three steps under
+    """Phase 11: where a training step's time goes. Three steps under
     torch.profiler: the device's busy share of the window (kernel time over
     wall time) and the ops with the most host and device time."""
     import torch
@@ -1380,16 +1867,17 @@ def kuf_bounds(m: int, n: int, with_dl: bool) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_kuf_shape(device, m, n, x_is_mesh=False, name="cell_kuf") -> dict:
+def time_kuf_shape(device, m, n, x_is_mesh=False, name="cell_kuf", edges=None) -> dict:
     """``name`` (cell_kuf or cell_kuf_with_dl) at (m, n) in f32, kernel in
     turns with its plain version: device ms from the profiler's trace, and
     the bound. ``x_is_mesh``: the points are the cell edges themselves
-    (n = m + 1), as in q_dv's face difference."""
+    (n = m + 1), as in q_dv's face difference; ``edges``: numpy edges in
+    place of the uniform mesh."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
 
-    mesh, x, v, ell, _ = kernel_inputs(m, n, torch.float32, device, seed=7)
+    mesh, x, v, ell, _ = kernel_inputs(m, n, torch.float32, device, seed=7, mesh=edges)
     if x_is_mesh:
         x = mesh.clone()
     kern = lambda: getattr(ck, name)(mesh, x, v, ell)
@@ -1400,14 +1888,15 @@ def time_kuf_shape(device, m, n, x_is_mesh=False, name="cell_kuf") -> dict:
     p2, _ = time_ms(plain, iters=10)
     out = {"shape": [m, n], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
            **kuf_bounds(m, n, name == "cell_kuf_with_dl")}
-    print(f"time {name} at ({m}, {n}){' x = mesh' if x_is_mesh else ''}: device ms kernel "
+    print(f"time {name} at ({m}, {n}){' x = mesh' if x_is_mesh else ''}"
+          f"{'' if edges is None else ' stretched mesh'}: device ms kernel "
           f"{k1:.5f}/{k2:.5f}, plain {p1:.5f}/{p2:.5f}; bound {out['bound_ms']:.5f} ms "
           f"({out['bound_by']})")
     return out
 
 
 def time_serving_grid(device, spec, model, state) -> dict:
-    """Phase 11b: cell_kuf at the serving grid's (512, 65 536), and the cold
+    """Phase 12b: cell_kuf at the serving grid's (512, 65 536), and the cold
     ``posterior`` (``precompute`` and the warm head) and the warm
     ``posterior_from_state`` on the 256×256 grid in turns (cold, warm, warm,
     cold; one call each after a warm one, host clock around a call that ends
@@ -1439,13 +1928,12 @@ def time_serving_grid(device, spec, model, state) -> dict:
     return out
 
 
-def measure_kernels(device, errs, launches, serving_grid, face_edges, at_64_cells) -> list:
-    """Phase 11: kernel and plain times at the main path's f32 shapes, and the
+def measure_kernels(device, errs, launches, shapes) -> list:
+    """Phase 12: kernel and plain times at the main path's f32 shapes, and the
     fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
-    kms.banded_whiten_apply for a and t at MAIN_PRECISIONS);
-    ``serving_grid`` (phase 11b) and ``face_edges`` (phase 11c) go into
-    cell_kuf's row, ``at_64_cells`` (by kernel, phase 11d) into both cell
-    kernels' rows."""
+    kms.banded_whiten_apply for a and t at MAIN_PRECISIONS); ``shapes``
+    (by kernel, then by key: the timings of phases 12b–12e at the other
+    shapes of the main path) go into the kernels' rows."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
@@ -1492,11 +1980,7 @@ def measure_kernels(device, errs, launches, serving_grid, face_edges, at_64_cell
             **bound, "library_ms": None,
         }
         extra = ""
-        if name == "cell_kuf":
-            row["at_serving_grid"] = serving_grid
-            row["at_face_edges"] = face_edges
-        if name in at_64_cells:
-            row["at_64_cells"] = at_64_cells[name]
+        row.update(shapes.get(name, {}))
         if fused:
             row["precisions"] = list(MAIN_PRECISIONS)
             row["unfused_ms"] = (u1 + u2) / 2
@@ -1538,7 +2022,7 @@ def main() -> int:
     got, edge_launches, serve_times, state = serve_heads(device, spec, model, Xs)
     launches = add_launches(launches, got)
     timings.update(serve_times)
-    for phase in (collapsed_phase, exact_phase, likelihood_phase):
+    for phase in (collapsed_phase, exact_phase, likelihood_phase, slice_phase):
         t0 = time.perf_counter()
         got, phase_times, *more = phase(device, X, y, Xs)
         timings[f"{phase.__name__}_s"] = time.perf_counter() - t0
@@ -1547,17 +2031,38 @@ def main() -> int:
         timings.update(phase_times)
         if phase is collapsed_phase:
             at_n = more[0]   # the launches at (64, 65 536) by kernel
+        if phase is slice_phase:
+            stretched, timings["lambda_min"] = more[0]
     for batch in (TRAIN_BATCH, FUSED_BATCH):
         timings.update(profile_steps(step, X, y, batch, gen))
     serving_grid = time_serving_grid(device, spec, model, state)
     timings["posterior_ms_grid65536"] = serving_grid["posterior_ms"]
     timings["posterior_from_state_ms_grid65536"] = serving_grid["posterior_from_state_ms"]
-    face_edges = {**time_kuf_shape(device, M_AXIS, M_AXIS + 1, x_is_mesh=True),
-                  "launches": edge_launches}
-    at_64_cells = {name: {**time_kuf_shape(device, SGPR_CELLS, SGPR_N, name=name),
-                          "launches": at_n[name]}
-                   for name in ("cell_kuf", "cell_kuf_with_dl")}
-    rows = measure_kernels(device, errs, launches, serving_grid, face_edges, at_64_cells)
+    edges = stretched_mesh(M_AXIS)
+    shapes = {
+        "cell_kuf": {
+            "at_serving_grid": serving_grid,
+            "at_face_edges": {**time_kuf_shape(device, M_AXIS, M_AXIS + 1, x_is_mesh=True),
+                              "launches": edge_launches},
+            "at_64_cells": {**time_kuf_shape(device, SGPR_CELLS, SGPR_N),
+                            "launches": at_n["cell_kuf"]},
+            "at_64_cells_4096": time_kuf_shape(device, SGPR_CELLS, EXACT_N),
+            "at_64_cells_face_edges": time_kuf_shape(device, SGPR_CELLS, SGPR_CELLS + 1,
+                                                     x_is_mesh=True),
+            "at_stretched_mesh": {**time_kuf_shape(device, M_AXIS, SERVE_POINTS, edges=edges),
+                                  "launches": stretched["launches"]["cell_kuf"],
+                                  "max_abs_err": stretched["errs"]["cell_kuf"]},
+            "at_stretched_face_edges": time_kuf_shape(device, M_AXIS, M_AXIS + 1,
+                                                      x_is_mesh=True, edges=edges)},
+        "cell_kuf_with_dl": {
+            "at_64_cells": {**time_kuf_shape(device, SGPR_CELLS, SGPR_N, name="cell_kuf_with_dl"),
+                            "launches": at_n["cell_kuf_with_dl"]},
+            "at_stretched_mesh": {**time_kuf_shape(device, M_AXIS, TRAIN_BATCH,
+                                                   name="cell_kuf_with_dl", edges=edges),
+                                  "launches": stretched["launches"]["cell_kuf_with_dl"],
+                                  "max_abs_err": stretched["errs"]["cell_kuf_with_dl"]}},
+    }
+    rows = measure_kernels(device, errs, launches, shapes)
     timings["card"] = card
     print(json.dumps({"steps": timings}))
     print(json.dumps({"kernels": rows, "card": card}))

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import gauss_err, heads_tol
+from chip_smoke import gauss_err, heads_tol, stretched_mesh
 from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, convert, svgp, train
 from vggp_tpu_torch.ops import cell_kuf as ck
 from vggp_tpu_torch.ops import kms
@@ -284,6 +284,38 @@ def test_cuda_cell_kuf_at_64_cell_face_edges_matches_plain(cuda, dtype, rtol):
     want = ck.cell_kuf_plain(mesh, mesh, v, ell)
     assert got.shape == want.shape == (64, 65)
     assert float((got - want).abs().max() / want.abs().max()) < rtol
+
+
+_UNEVEN_MESHES = {
+    # chip_smoke's 512-cell mesh refined toward the middle, and the 7-cell
+    # mesh of tests/test_nonuniform.py (cell widths 0.06 to 0.29)
+    "stretched": stretched_mesh(512),
+    "uneven": np.array([0.0, 0.07, 0.21, 0.30, 0.55, 0.61, 0.90, 1.0]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("points", ["scattered", "edges"])
+@pytest.mark.parametrize("mesh_name", sorted(_UNEVEN_MESHES))
+def test_cuda_cell_kernels_on_uneven_meshes_match_plain(cuda, dtype, rtol, points, mesh_name):
+    """Both cell kernels on meshes whose cells differ in width: 4096 points
+    scattered over the mesh and beyond it, or every point on a cell edge (a
+    point on a shared edge lies inside both of its cells);
+    max|Δ|/max|plain| at 1e-12 (f64) and 2e-5 (f32), one launch each."""
+    mesh = torch.as_tensor(_UNEVEN_MESHES[mesh_name], dtype=dtype, device=cuda)
+    x = (mesh.clone() if points == "edges" else
+         torch.linspace(-0.05, 1.05, 4096, dtype=torch.float64).to(dtype=dtype, device=cuda))
+    v = torch.tensor(1.3, dtype=dtype, device=cuda)
+    ell = torch.tensor(0.27, dtype=dtype, device=cuda)
+    ck.reset_launch_counts()
+    pairs = [(ck.cell_kuf(mesh, x, v, ell), ck.cell_kuf_plain(mesh, x, v, ell))]
+    pairs += zip(ck.cell_kuf_with_dl(mesh, x, v, ell), ck.cell_kuf_with_dl_plain(mesh, x, v, ell))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0}
+    for got, want in pairs:
+        assert got.shape == want.shape == (mesh.shape[0] - 1, x.shape[0])
+        assert float((got - want).abs().max() / want.abs().max()) < rtol
 
 
 @pytest.mark.cuda

@@ -421,12 +421,34 @@ def test_sgpr_module_and_convert_round_trip():
         _gauss_close(got, want, 1e-12)
 
 
+# Cases ported since they were written: each now checks that the port raises
+# what the JAX package raises for the same call (a Matérn-1/2 axis in a
+# gradient head: ValueError).
+_RAISES_AS_JAX = ("posterior_grad", "posterior_grad_from_state")
+
+
 @pytest.mark.parametrize("what", ["eigh_factor", "per_output_noise", "learned_mean",
                                   "coregion", "posterior_grad", "posterior_grad_from_state",
                                   "components_init"])
 def test_unported_options_raise(what):
-    feats = tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
     kinds = ("matern12",) * 2
+    if what in _RAISES_AS_JAX:
+        for mod, cell, X, y, xs, p_of in (
+                (jsgpr, JaxCellFeature, jnp.ones((6, 2)) * 0.3, jnp.ones(6), jnp.ones((3, 2)) * 0.4,
+                 lambda spec: spec.init_params()),
+                (sgpr, CellIntegralFeature, torch.rand(6, 2), torch.rand(6), torch.rand(3, 2),
+                 lambda spec: spec.init_params(device="cpu"))):
+            spec = mod.SGPRSpec(kinds=kinds, features=tuple(cell.from_lims(8, 0.0, 1.0)
+                                                            for _ in range(2)))
+            p = p_of(spec)
+            with pytest.raises(ValueError, match="once-differentiable"):
+                if what == "posterior_grad":
+                    mod.posterior_grad(spec, p, X, y, xs, axis=0)
+                else:
+                    mod.posterior_grad_from_state(spec, p, mod.precompute(spec, p, X, y), xs,
+                                                  axis=0)
+        return
+    feats = tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         if what == "eigh_factor":
             sgpr.SGPRSpec(kinds=kinds, features=feats, factor_method="eigh")
@@ -436,15 +458,6 @@ def test_unported_options_raise(what):
             sgpr.SGPRSpec(kinds=kinds, features=feats, learn_mean=True)
         elif what == "coregion":
             sgpr.SGPRSpec(kinds=("matern12", "coregion"), features=feats)
-        elif what == "components_init":
+        else:
             train.non_informative_init({"components": (), "noise": torch.tensor(0.1)},
                                        torch.rand(4, 2), torch.rand(4))
-        else:
-            spec = sgpr.SGPRSpec(kinds=kinds, features=feats)
-            p = spec.init_params(device="cpu")
-            X, y = torch.rand(6, 2), torch.rand(6)
-            if what == "posterior_grad":
-                sgpr.posterior_grad(spec, p, X, y, torch.rand(3, 2), axis=0)
-            else:
-                sgpr.posterior_grad_from_state(spec, p, sgpr.precompute(spec, p, X, y),
-                                               torch.rand(3, 2), axis=0)

@@ -412,10 +412,36 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert tspec.init_params(device="cpu")["noise"].device.type == "cpu"
 
 
+# Cases ported since they were written: each now checks that the port raises
+# what the JAX package raises for the same call (an unknown kind in Kuf, a
+# Matérn-1/2 axis in a gradient head).
+_RAISES_AS_JAX = {"kind": KeyError, "posterior_grad": ValueError}
+
+
 @pytest.mark.parametrize("what", ["full_family", "likelihood", "kind", "learned_mean",
                                   "posterior_grad", "coregion_gram", "eigh_factor"])
 def test_unported_options_raise(what):
     feats = tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
+    if what in _RAISES_AS_JAX:
+        jfeats = tuple(JaxCellFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
+        for pkg, fs in (("jax", jfeats), ("port", feats)):
+            with pytest.raises(_RAISES_AS_JAX[what]):
+                if what == "kind":
+                    p = ({"variance": jnp.asarray(1.0), "lengthscale": jnp.asarray(0.3)}
+                         if pkg == "jax" else
+                         {"variance": torch.tensor(1.0), "lengthscale": torch.tensor(0.3)})
+                    fs[0].Kuf("matern33", p, jnp.linspace(0, 1, 5) if pkg == "jax"
+                              else torch.linspace(0, 1, 5))
+                elif pkg == "jax":
+                    spec = jsvgp.SVGPSpec(kinds=("matern12",) * 2, features=fs, num_data=10,
+                                          variational="kron")
+                    jsvgp.posterior_grad(spec, spec.init_params(), jnp.ones((4, 2)) * 0.5, 0)
+                else:
+                    spec = svgp.SVGPSpec(kinds=("matern12",) * 2, features=fs, num_data=10,
+                                         variational="kron")
+                    svgp.posterior_grad(spec, spec.init_params(device="cpu"), torch.rand(4, 2),
+                                        axis=0)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         if what == "full_family":
             svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10)
@@ -424,9 +450,6 @@ def test_unported_options_raise(what):
                                  variational="kron", likelihood="student_t")
             params = {**spec.init_params(device="cpu"), "noise": torch.full((2,), 0.1)}
             svgp.loss(spec, params, torch.rand(4, 2), torch.rand(4))
-        elif what == "kind":
-            p = {"variance": torch.tensor(1.0), "lengthscale": torch.tensor(0.3)}
-            feats[0].Kuf("matern32", p, torch.linspace(0, 1, 5))
         elif what == "coregion_gram":
             vggp_tpu_torch.kernels.axis_gram("coregion", {}, torch.zeros(3), torch.zeros(3))
         elif what == "eigh_factor":
@@ -435,8 +458,4 @@ def test_unported_options_raise(what):
         else:
             spec = svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
                                  variational="kron")
-            params = spec.init_params(device="cpu")
-            if what == "learned_mean":
-                svgp.q_v(spec, {**params, "mean": torch.tensor(0.5)}, feats)
-            else:
-                svgp.posterior_grad(spec, params, torch.rand(4, 2), axis=0)
+            svgp.q_v(spec, {**spec.init_params(device="cpu"), "mean": torch.tensor(0.5)}, feats)

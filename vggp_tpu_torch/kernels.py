@@ -1,6 +1,7 @@
 """Kernel primitives of the port (the part of ``vggp_tpu/kernels.py`` the
 ported heads read): k(r), the Matérn decay rate, dense 1-D Grams, the
-per-axis Gram dispatch and the stable k(0) − k(r)."""
+per-axis Gram dispatch, the stable k(0) − k(r), and the derivative kernels
+of the gradient heads."""
 
 from __future__ import annotations
 
@@ -17,6 +18,12 @@ SQRT3 = math.sqrt(3.0)
 SQRT5 = math.sqrt(5.0)
 
 _NOT_PORTED = "(ROADMAP queue 1, item 10: the other features and model families)"
+
+
+def validate_kind(kind: str) -> str:
+    if kind not in STATIONARY_KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}; expected one of {STATIONARY_KINDS}")
+    return kind
 
 
 def k_r(kind: str, r: torch.Tensor, variance, lengthscale) -> torch.Tensor:
@@ -88,3 +95,82 @@ def axis_kdiag(kind: str, p: Dict, x: torch.Tensor) -> torch.Tensor:
     n = x.reshape(-1).shape[0]
     v = p["variance"]
     return torch.ones((n,), dtype=v.dtype, device=v.device) * v
+
+
+# Kernels whose GP is once mean-square differentiable: gradient observables
+# ∂f/∂x exist only for these (−k″(0) = ∞ for Matérn-1/2). The
+# second-derivative observables also need a finite k⁗(0).
+DIFFERENTIABLE_KINDS = ("matern32", "matern52", "rbf")
+TWICE_DIFFERENTIABLE_KINDS = ("matern52", "rbf")
+
+
+def require_differentiable(kind: str) -> str:
+    validate_kind(kind)
+    if kind not in DIFFERENTIABLE_KINDS:
+        raise ValueError(
+            f"gradient observables need a once-differentiable GP; {kind!r} is "
+            f"not (use one of {DIFFERENTIABLE_KINDS})")
+    return kind
+
+
+def require_twice_differentiable(kind: str) -> str:
+    validate_kind(kind)
+    if kind not in TWICE_DIFFERENTIABLE_KINDS:
+        raise ValueError(
+            f"second-derivative observables need a twice-differentiable GP; "
+            f"{kind!r} is not (use one of {TWICE_DIFFERENTIABLE_KINDS})")
+    return kind
+
+
+def dk_dr(kind: str, r: torch.Tensor, variance, lengthscale) -> torch.Tensor:
+    """k′(r) at the signed displacement r = x − x′ (odd in r):
+    Cov(∂f(x), f(x′)) = k′(x − x′)."""
+    require_differentiable(kind)
+    if kind == "matern32":
+        l_ = SQRT3 / lengthscale
+        return -variance * l_ ** 2 * r * torch.exp(-l_ * torch.abs(r))
+    if kind == "matern52":
+        l_ = SQRT5 / lengthscale
+        z = l_ * torch.abs(r)
+        return -variance * (l_ ** 2 / 3.0) * r * (1.0 + z) * torch.exp(-z)
+    z = r / lengthscale
+    return -variance * (r / lengthscale ** 2) * torch.exp(-0.5 * z * z)
+
+
+def neg_d2k_dr2(kind: str, r: torch.Tensor, variance, lengthscale) -> torch.Tensor:
+    """−k″(r) at the signed displacement r: Cov(∂f(x), ∂f(x′)) = −k″(x − x′)."""
+    require_differentiable(kind)
+    if kind == "matern32":
+        l_ = SQRT3 / lengthscale
+        z = l_ * torch.abs(r)
+        return variance * l_ ** 2 * (1.0 - z) * torch.exp(-z)
+    if kind == "matern52":
+        l_ = SQRT5 / lengthscale
+        z = l_ * torch.abs(r)
+        return variance * (l_ ** 2 / 3.0) * (1.0 + z - z * z) * torch.exp(-z)
+    z = r / lengthscale
+    return variance * (1.0 - z * z) * torch.exp(-0.5 * z * z) / lengthscale ** 2
+
+
+def grad_variance(kind: str, variance, lengthscale):
+    """Var[∂f/∂x] = −k″(0) of the 1-D axis process."""
+    require_differentiable(kind)
+    if kind == "matern32":
+        return 3.0 * variance / lengthscale ** 2
+    if kind == "matern52":
+        return (5.0 / 3.0) * variance / lengthscale ** 2
+    return variance / lengthscale ** 2
+
+
+def dgram_1d(kind: str, x1: torch.Tensor, x2: torch.Tensor, variance,
+             lengthscale) -> torch.Tensor:
+    """D[i, j] = ∂/∂x1_i k(x1_i − x2_j) = Cov(∂f(x1_i), f(x2_j))."""
+    return dk_dr(kind, x1.reshape(-1)[:, None] - x2.reshape(-1)[None, :], variance,
+                 lengthscale)
+
+
+def grad_gram_1d(kind: str, x1: torch.Tensor, x2: torch.Tensor, variance,
+                 lengthscale) -> torch.Tensor:
+    """G[i, j] = Cov(∂f(x1_i), ∂f(x2_j)) = −k″(x1_i − x2_j)."""
+    return neg_d2k_dr2(kind, x1.reshape(-1)[:, None] - x2.reshape(-1)[None, :], variance,
+                       lengthscale)

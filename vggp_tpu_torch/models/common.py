@@ -1,8 +1,8 @@
 """Shared model plumbing of the port (``vggp_tpu/models/common.py``): axis
 parameters, jitter policy, the scalar-tangent and dense-factor whitened Kuf,
 Khatri–Rao assembly, the grid and gridded-gradient blocks of the serving
-heads, the collapsed (Titsias) bound's factored state, bound and posterior,
-and the Gaussian result."""
+heads, the pointwise-gradient blocks, the collapsed (Titsias) bound's
+factored state, bound and posterior, and the Gaussian result."""
 
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from torch import nn
 
 from vggp_tpu_torch import config, kernels
 from vggp_tpu_torch.config import matmul_precision
+from vggp_tpu_torch.features import ell_tangent
 from vggp_tpu_torch.ops import toeplitz
 from vggp_tpu_torch.ops.chol import (F32_MIN_JITTER, PSDFactor, psd_factor, safe_cholesky,
                                     tri_solve)
@@ -63,14 +64,21 @@ def floor_var(var: torch.Tensor, ref_diag: torch.Tensor) -> torch.Tensor:
 KIND_JITTER_F32 = {"matern12": 1e-6, "matern32": 1e-4, "matern52": 1e-4, "rbf": 1e-4}
 
 
-def axis_rel_jitter(spec, kind: str, dtype) -> float:
+def _feature_f32_jitter(feat, kind: str) -> float:
+    """Per-(feature, kind) float32 jitter floor on top of KIND_JITTER_F32
+    (``CellIntegralFeature.extra_f32_jitter``; 0 for a feature without one)."""
+    return getattr(feat, "extra_f32_jitter", lambda k: 0.0)(kind)
+
+
+def axis_rel_jitter(spec, kind: str, dtype, feat=None) -> float:
     """Effective relative Kuu jitter for one axis: ``spec.jitter`` in
-    float64; in float32 floored at the per-kernel and global minimums. (The
-    JAX package's per-feature floor is 0 for the Matérn-1/2 cell feature,
-    the only one ported.)"""
+    float64; in float32 floored at the per-kernel, the global and, given
+    ``feat``, the per-feature minimums."""
     jitter = spec.jitter
     if dtype != torch.float64:
         jitter = max(jitter, KIND_JITTER_F32.get(kind, 1e-4), F32_MIN_JITTER)
+        if feat is not None:
+            jitter = max(jitter, _feature_f32_jitter(feat, kind))
     return jitter
 
 
@@ -80,7 +88,7 @@ def axis_chol_kuu(spec, params: Params) -> Tuple[PSDFactor, ...]:
     out = []
     for i, (kind, feat) in enumerate(zip(spec.kinds, spec.features)):
         kuu = feat.Kuu(kind, axis_params(params, i))
-        out.append(psd_factor(kuu, jitter=axis_rel_jitter(spec, kind, kuu.dtype)))
+        out.append(psd_factor(kuu, jitter=axis_rel_jitter(spec, kind, kuu.dtype, feat)))
     return tuple(out)
 
 
@@ -100,13 +108,17 @@ def _kuu_jittered(feat, kind, rel_jitter, ell, var):
 
 
 def _kuu_jittered_dl(feat, kind, rel_jitter, ell, var):
-    """∂(jittered Kuu)/∂ℓ — what ``common.py:243`` takes by ``jax.jvp``.
+    """∂(jittered Kuu)/∂ℓ — what ``common.py:243`` takes by ``jax.jvp``,
+    the jitter mean(diag K)·rel's own ℓ-dependence included.
 
-    The cell Kuu is symmetric Toeplitz with a constant diagonal, so the
-    jittered Gram is T(row) + row[0]·rel·I and its ℓ-derivative is
-    T(row′) + row′[0]·rel·I: the jitter's own dependence on ℓ included.
+    Matérn-1/2 on a uniform mesh has it in closed form: the Gram is
+    symmetric Toeplitz with a constant diagonal, so the derivative is
+    T(row′) + row′[0]·rel·I. Elsewhere it is the forward-mode tangent of
+    :func:`_kuu_jittered` (``features.ell_tangent``).
     """
     drow = feat.kuu_first_row_dl(kind, {"lengthscale": ell, "variance": var})
+    if drow is None:
+        return ell_tangent(lambda t: _kuu_jittered(feat, kind, rel_jitter, t, var), ell)[1]
     dk = toeplitz.sym_toeplitz_dense(drow)
     return dk + (drow[0] * rel_jitter) * torch.eye(dk.shape[0], dtype=dk.dtype,
                                                     device=dk.device)
@@ -114,14 +126,16 @@ def _kuu_jittered_dl(feat, kind, rel_jitter, ell, var):
 
 def _finv_of_params(feat, kind, rel_jitter, ell, var):
     """(F⁻¹, band ratio or None) of the jittered Kuu: the closed form of
-    ``ops.kms`` by default, a dense Cholesky and triangular inverse when
-    ``config.STRUCTURED_FINV`` is off."""
+    ``ops.kms`` where the feature has one (Matérn-1/2 on a uniform mesh) and
+    ``config.STRUCTURED_FINV`` is on; otherwise a dense Cholesky and
+    triangular inverse."""
     p_lv = {"lengthscale": ell, "variance": var}
     if config.STRUCTURED_FINV:
         fi = feat.inv_chol_kuu(kind, p_lv, rel_jitter)
-        ratio = (feat.whiten_band_ratio(kind, p_lv, rel_jitter)
-                 if config.BANDED_WHITEN_APPLY else None)
-        return fi, ratio
+        if fi is not None:
+            ratio = (feat.whiten_band_ratio(kind, p_lv, rel_jitter)
+                     if config.BANDED_WHITEN_APPLY else None)
+            return fi, ratio
     K = _kuu_jittered(feat, kind, rel_jitter, ell, var)
     F = torch.linalg.cholesky(K)
     eye = torch.eye(F.shape[0], dtype=F.dtype, device=F.device)
@@ -176,13 +190,14 @@ def _whitened_kuf_tangent(feat, kind, rel_jitter, ell, var, x):
 
 
 class WhitenedKufScalar(torch.autograd.Function):
-    """a = F⁻¹Kuf with the scalar-tangent backward of ``common.py:262-266``:
-    ∂/∂ℓ = Σ ḡ·∂a/∂ℓ and ∂/∂σ² = Σ ḡ·a / (2σ²) (a ∝ √σ² for a fixed basis).
-    The points get no gradient."""
+    """Attaches the scalar-tangent backward of ``common.py:262-266`` to
+    a = F⁻¹Kuf and its ℓ-tangent, both computed before: ∂/∂ℓ = Σ ḡ·∂a/∂ℓ
+    and ∂/∂σ² = Σ ḡ·a / (2σ²) (a ∝ √σ² for a fixed basis). The points get
+    no gradient. (The tangents are taken outside the Function: inside its
+    forward, forward-mode AD is off and a dual ℓ would carry no tangent.)"""
 
     @staticmethod
-    def forward(ctx, ell, var, x, feat, kind, rel_jitter):
-        a, da_dl = _whitened_kuf_tangent(feat, kind, rel_jitter, ell, var, x)
+    def forward(ctx, ell, var, a, da_dl):
         ctx.save_for_backward(a, da_dl, var)
         return a
 
@@ -191,7 +206,7 @@ class WhitenedKufScalar(torch.autograd.Function):
         a, da_dl, var = ctx.saved_tensors
         dl = torch.sum(g * da_dl)
         dv = torch.sum(g * a) / (2.0 * var)
-        return dl, dv, None, None, None, None
+        return dl, dv, None, None
 
 
 def whitened_kuf_scalar(feat, kind: str, rel_jitter: float, p: Params,
@@ -199,14 +214,18 @@ def whitened_kuf_scalar(feat, kind: str, rel_jitter: float, p: Params,
     """a = F⁻¹ Kuf for a fixed-basis feature.
 
     When a gradient is wanted (grad mode on and ℓ or σ² requiring grad) the
-    forward computes the ℓ-tangent alongside a, through ``cell_kuf_with_dl``
-    or, at large batch, the fused kernel — as JAX's ``custom_vjp`` runs only
-    ``wk_fwd`` under differentiation. Otherwise only the primal is built:
-    the ``cell_kuf`` kernel and the banded apply, no tangents.
+    ℓ-tangent is computed alongside a, through ``cell_kuf_with_dl`` or, at
+    large batch, the fused kernel (a forward-mode tangent for the other
+    kinds) — as JAX's ``custom_vjp`` runs only ``wk_fwd`` under
+    differentiation. Otherwise only the primal is built: the ``cell_kuf``
+    kernel and the banded apply, no tangents.
     """
     ell, var = p["lengthscale"], p["variance"]
     if torch.is_grad_enabled() and (ell.requires_grad or var.requires_grad):
-        return WhitenedKufScalar.apply(ell, var, x, feat, kind, rel_jitter)
+        with torch.no_grad():
+            a, da_dl = _whitened_kuf_tangent(feat, kind, rel_jitter, ell.detach(),
+                                             var.detach(), x)
+        return WhitenedKufScalar.apply(ell, var, a, da_dl)
     return _whitened_kuf_primal(feat, kind, rel_jitter, ell, var, x)
 
 
@@ -217,7 +236,7 @@ def axis_whitened_kuf_scalar(spec, params: Params, X: torch.Tensor) -> Tuple[tor
     dtype = params["noise"].dtype
     out = []
     for i, (kind, feat) in enumerate(zip(spec.kinds, spec.features)):
-        rel = axis_rel_jitter(spec, kind, dtype)
+        rel = axis_rel_jitter(spec, kind, dtype, feat)
         out.append(whitened_kuf_scalar(feat, kind, rel, axis_params(params, i), X[:, i]))
     return tuple(out)
 
@@ -286,6 +305,88 @@ def canonical_axis(spec, axis: int) -> int:
     if not -nd <= axis < nd:
         raise ValueError(f"axis {axis} out of range for a {nd}-axis model")
     return axis % nd
+
+
+# Pointwise gradient observables ∂f/∂x_axis (``common.py:381-465``): for the
+# separable kernel only the axis's factor is differentiated, so
+# Cov(∂f(x), u) = (∂Kuf_axis) ⊙ Π_{i≠axis} Kuf_i and
+# Var[∂f(x)] = −k_axis″(0) · Π_{i≠axis} σ²_i. They need a once-differentiable
+# kind on the axis (kernels.require_differentiable).
+
+
+def grad_kdiag(spec, params: Params, X: torch.Tensor, axis: int) -> torch.Tensor:
+    """diag Cov[∂_axis f] = −k_axis″(0) · Π_{i≠axis} diag K_i."""
+    axis = canonical_axis(spec, axis)
+    if X.dim() == 1:
+        X = X[:, None]
+    p_ax = axis_params(params, axis)
+    v = kernels.grad_variance(spec.kinds[axis], p_ax["variance"], p_ax["lengthscale"])
+    out = torch.ones((X.shape[0],), dtype=X.dtype, device=X.device) * v
+    for i, kind in enumerate(spec.kinds):
+        if i != axis:
+            out = out * kernels.axis_kdiag(kind, axis_params(params, i), X[:, i])
+    return out
+
+
+def grad_gram_full(spec, params: Params, x1: torch.Tensor, x2: torch.Tensor,
+                   axis: int) -> torch.Tensor:
+    """Dense Cov(∂_axis f(x1), ∂_axis f(x2)) = (−k_axis″) · Π_{i≠axis} k_i."""
+    axis = canonical_axis(spec, axis)
+    if x1.dim() == 1:
+        x1 = x1[:, None]
+    if x2.dim() == 1:
+        x2 = x2[:, None]
+    out = None
+    for i, kind in enumerate(spec.kinds):
+        p = axis_params(params, i)
+        if i == axis:
+            g = kernels.grad_gram_1d(kind, x1[:, i], x2[:, i], p["variance"], p["lengthscale"])
+        else:
+            g = kernels.axis_gram(kind, p, x1[:, i], x2[:, i])
+        out = g if out is None else out * g
+    return out
+
+
+def normalize_deriv_orders(spec, entry) -> Tuple[int, ...]:
+    """An int axis j → the one-hot order tuple; a tuple gives the order per
+    axis (0, 1 or 2). Each differentiated axis's kind must support its order."""
+    if isinstance(entry, int):
+        entry = canonical_axis(spec, entry)
+        orders = tuple(1 if i == entry else 0 for i in range(len(spec.kinds)))
+    else:
+        orders = tuple(int(o) for o in entry)
+        if len(orders) != len(spec.kinds):
+            raise ValueError(f"derivative orders {orders} must have one entry per axis "
+                             f"({len(spec.kinds)})")
+    for i, o in enumerate(orders):
+        if o == 1:
+            kernels.require_differentiable(spec.kinds[i])
+        elif o == 2:
+            kernels.require_twice_differentiable(spec.kinds[i])
+        elif o != 0:
+            raise ValueError(f"derivative order {o} not supported (0, 1, 2)")
+    return orders
+
+
+def axis_whitened_deriv_kuf(spec, params: Params, chols, X: torch.Tensor,
+                            orders) -> Tuple[torch.Tensor, ...]:
+    """Per-axis whitened blocks F_i⁻¹ ∂^{o_i}Kuf_i: the cross-covariance of
+    the whitened inducing coordinates with the mixed partial Π ∂^{o_i}f."""
+    if X.dim() == 1:
+        X = X[:, None]
+    out = []
+    for i, (kind, feat) in enumerate(zip(spec.kinds, spec.features)):
+        p = axis_params(params, i)
+        blk = (feat.Kuf, feat.dKuf_dx, feat.dKuf_dx2)[orders[i]](kind, p, X[:, i])
+        out.append(chols[i].whiten(blk))
+    return tuple(out)
+
+
+def axis_whitened_dkuf(spec, params: Params, chols, X: torch.Tensor,
+                       axis: int) -> Tuple[torch.Tensor, ...]:
+    """Per-axis whitened blocks, axis ``axis`` carrying F⁻¹ ∂Kuf/∂x."""
+    orders = normalize_deriv_orders(spec, axis)
+    return axis_whitened_deriv_kuf(spec, params, chols, X, orders)
 
 
 def grad_grid_kvu(spec, params: Params, grid_axes, axis: int) -> Tuple[torch.Tensor, ...]:
@@ -379,9 +480,16 @@ def factored_state(spec, params: Params, X: torch.Tensor, y: torch.Tensor,
         blocks = axis_whitened_kuf(spec, params, chols, X)
     A = khatri_rao_all(blocks) / sigma          # (m, n)
     m = A.shape[0]
-    B = torch.eye(m, dtype=A.dtype, device=A.device) + A @ A.T
+    # The n-term sums AAᵀ and Ay accumulate in float64 (a float32 state
+    # keeps float32 otherwise): on an H100, cuBLAS's float32 Gram over
+    # n = 65 536 points is 4e-5 off float64, which the Cholesky of B
+    # (condition ~1e7) carried into the heads 27× further than the CPU's
+    # float32 did (tools/torch_collapsed_precision.py, ROADMAP queue 3).
+    # There the float64 tensor-core rate equals the float32 CUDA-core one.
+    A64 = A.double()
+    B = (torch.eye(m, dtype=torch.float64, device=A.device) + A64 @ A64.T).to(A.dtype)
     LB = safe_cholesky(B, 1e-12)                # float32: the 1e-6 floor, relative to mean diag(B)
-    c = tri_solve(LB, A @ (y / sigma))
+    c = tri_solve(LB, (A64 @ (y / sigma).double()).to(A.dtype))
     return chols, A, LB, c, y
 
 
@@ -407,20 +515,27 @@ def collapsed_elbo(spec, params: Params, X: torch.Tensor, y: torch.Tensor) -> to
 
 
 def collapsed_posterior(spec, params: Params, state, xstar: torch.Tensor,
-                        full_cov: bool = False, predictive: bool = False) -> Gaussian:
+                        full_cov: bool = False, predictive: bool = False,
+                        kdiag_fn=kdiag, gram_fn=gram_full, blocks_fn=None) -> Gaussian:
     """q(f*) from a factored state: w = F⁻¹Kuf* through the state's dense
-    factors, mean = (L_B⁻¹w)ᵀc, cov = K** − wᵀw + (L_B⁻¹w)ᵀ(L_B⁻¹w)."""
+    factors, mean = (L_B⁻¹w)ᵀc, cov = K** − wᵀw + (L_B⁻¹w)ᵀ(L_B⁻¹w).
+
+    The gradient heads pass ``blocks_fn`` (F⁻¹∂Kuf in place of F⁻¹Kuf) and
+    the prior's ``kdiag_fn`` / ``gram_fn`` of ∂f, and reuse the same algebra;
+    they see no prior mean (∂m = 0)."""
     chols, A, LB, c = state[:4]
-    w = khatri_rao_all(axis_whitened_kuf(spec, params, chols, xstar))   # (m, n*)
+    w = khatri_rao_all((blocks_fn or axis_whitened_kuf)(spec, params, chols, xstar))
     tmp = tri_solve(LB, w)
-    mean = tmp.T @ c + mean_fn(spec, params, xstar)
+    mean = tmp.T @ c
+    if blocks_fn is None:
+        mean = mean + mean_fn(spec, params, xstar)
     noise = obs_noise(spec, params, xstar) if predictive else 0.0
     if full_cov:
-        cov = gram_full(spec, params, xstar, xstar) - w.T @ w + tmp.T @ tmp
+        cov = gram_fn(spec, params, xstar, xstar) - w.T @ w + tmp.T @ tmp
         if predictive:
             cov = cov + noise * torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
         return Gaussian(mean=mean, cov=cov)
-    kss = kdiag(spec, params, xstar)
+    kss = kdiag_fn(spec, params, xstar)
     var = kss - torch.sum(w * w, dim=0) + torch.sum(tmp * tmp, dim=0)
     return Gaussian(mean=mean, var=floor_var(var, kss) + noise)
 

@@ -1,7 +1,8 @@
-"""Exact GP regression with a separable product kernel and gridded q(v) and
-q(∂v) heads — port of ``vggp_tpu/models/exact.py`` for continuous kernel
-kinds. Every operation is Cholesky-factored: the marginal likelihood is one
-O(n³/3) factorization of Kxx + σ²I.
+"""Exact GP regression with a separable product kernel, gridded q(v) and
+q(∂v) heads and the pointwise-gradient posterior — port of
+``vggp_tpu/models/exact.py`` for continuous kernel kinds. Every operation is
+Cholesky-factored: the marginal likelihood is one O(n³/3) factorization of
+Kxx + σ²I.
 """
 
 from __future__ import annotations
@@ -172,12 +173,34 @@ def q_dv(spec: ExactGPSpec, params: Params, X: torch.Tensor, y: torch.Tensor,
     return _grid_marginal(y, L, common.khatri_rao_all(blocks), kvv_blocks, full_cov)
 
 
+@highest_precision
 def posterior_grad(spec: ExactGPSpec, params: Params, X: torch.Tensor, y: torch.Tensor,
                    xstar: torch.Tensor, axis: int, full_cov: bool = False) -> Gaussian:
-    """The pointwise-gradient posterior: not ported (item 10)."""
-    raise NotImplementedError(
-        "posterior_grad is not ported yet (ROADMAP queue 1, item 10: it needs a "
-        "once-differentiable kernel's derivative Grams)")
+    """The posterior of ∂f/∂x_axis: Cov(∂f(x*), f(X)) factorises per axis
+    (k′ on ``axis``, k elsewhere); mean that block times (Kxx + σ²I)⁻¹y,
+    variance from −k″(0)·Πσ². Needs a once-differentiable kind on ``axis``
+    (Matérn-1/2 raises ValueError)."""
+    axis = common.canonical_axis(spec, axis)
+    kernels.require_differentiable(spec.kinds[axis])
+    y = _residual(spec, params, X, y)
+    Xs = xstar[:, None] if xstar.dim() == 1 else xstar
+    Xd = X[:, None] if X.dim() == 1 else X
+    L = _chol_ky(spec, params, X)
+    kdx = None   # (n*, n) Cov(∂f(x*), f(X))
+    for i, kind in enumerate(spec.kinds):
+        p = common.axis_params(params, i)
+        if i == axis:
+            g = kernels.dgram_1d(kind, Xs[:, i], Xd[:, i], p["variance"], p["lengthscale"])
+        else:
+            g = kernels.axis_gram(kind, p, Xs[:, i], Xd[:, i])
+        kdx = g if kdx is None else kdx * g
+    w = tri_solve(L, kdx.T)                  # (n, n*)
+    mean = w.T @ tri_solve(L, y)
+    if full_cov:
+        return Gaussian(mean=mean,
+                        cov=common.grad_gram_full(spec, params, xstar, xstar, axis) - w.T @ w)
+    kss = common.grad_kdiag(spec, params, xstar, axis)
+    return Gaussian(mean=mean, var=common.floor_var(kss - torch.sum(w * w, dim=0), kss))
 
 
 class ExactGP(common.HeldDataModule):

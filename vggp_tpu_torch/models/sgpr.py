@@ -1,8 +1,9 @@
 """Collapsed-bound sparse GP regression (Titsias) — port of
-``vggp_tpu/models/sgpr.py`` for the family the port has: Matérn-1/2 cell
-features on uniform meshes, in 1-D or Kronecker d-D, with a Gaussian
-likelihood. With cell features on the mesh of interest this is the paper's
-GriddedGP, whose optimal q(u) is the gridded product itself.
+``vggp_tpu/models/sgpr.py`` for the family the port has: cell features of
+every kernel kind on uniform or non-uniform meshes, in 1-D or Kronecker
+d-D, with a Gaussian likelihood. With cell features on the mesh of interest
+this is the paper's GriddedGP, whose optimal q(u) is the gridded product
+itself.
 
 Math (the stable factored form of ``models.common.factored_state``):
     A  = F⁻¹ Kuf / σ   (Khatri–Rao over the axes; Kuu = F Fᵀ per axis)
@@ -131,20 +132,27 @@ def q_dv_from_state(spec: SGPRSpec, params: Params, state, grid_axes: Sequence, 
     return _grid_gaussian_from_state(spec, state, kvu_blocks, kvv_blocks, full_cov)
 
 
-_GRAD_NOT_PORTED = ("is not ported yet (ROADMAP queue 1, item 10: it needs a "
-                    "once-differentiable kernel, and only the Matérn-1/2 cell feature is ported)")
-
-
+@highest_precision
 def posterior_grad_from_state(spec: SGPRSpec, params: Params, state, xstar: torch.Tensor,
                               axis: int, full_cov: bool = False) -> Gaussian:
-    """The pointwise-gradient posterior ∂f/∂x_axis: not ported (item 10)."""
-    raise NotImplementedError(f"posterior_grad_from_state {_GRAD_NOT_PORTED}")
+    """The posterior of the pointwise gradient ∂f/∂x_axis from a
+    :func:`precompute` state: :func:`posterior_from_state`'s algebra with
+    the axis block F⁻¹∂Kuf/∂x and the prior −k″(0)·Πσ². Needs a
+    once-differentiable kind on ``axis`` (Matérn-1/2 raises ValueError)."""
+    return common.collapsed_posterior(
+        spec, params, state, xstar, full_cov=full_cov,
+        kdiag_fn=lambda s, p, x: common.grad_kdiag(s, p, x, axis),
+        gram_fn=lambda s, p, x1, x2: common.grad_gram_full(s, p, x1, x2, axis),
+        blocks_fn=lambda s, p, ch, x: common.axis_whitened_dkuf(s, p, ch, x, axis))
 
 
+@highest_precision
 def posterior_grad(spec: SGPRSpec, params: Params, X: torch.Tensor, y: torch.Tensor,
                    xstar: torch.Tensor, axis: int, full_cov: bool = False) -> Gaussian:
-    """The pointwise-gradient posterior: not ported (item 10)."""
-    raise NotImplementedError(f"posterior_grad {_GRAD_NOT_PORTED}")
+    """The pointwise-gradient posterior (:func:`posterior_grad_from_state`)
+    on a fresh state."""
+    return posterior_grad_from_state(spec, params, precompute(spec, params, X, y), xstar,
+                                     axis, full_cov=full_cov)
 
 
 @highest_precision

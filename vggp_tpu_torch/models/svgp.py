@@ -1,8 +1,8 @@
 """Whitened, minibatchable SVGP with the Kronecker variational family —
 port of the Kronecker branch of ``vggp_tpu/models/svgp.py``: training, and
 the serving heads (posteriors with full covariance, q(u), p(v | u), the
-gridded product q(v), its gradient field q(∂v) and the warm
-``precompute`` state).
+gridded product q(v), its gradient field q(∂v), the pointwise-gradient
+posteriors and the warm ``precompute`` state).
 
 With per-axis whitened features a_i = F_i⁻¹ Kuf_i (m_i, n) and
 S = S₁ ⊗ S₂, every ELBO term is computed from per-axis (m_i, m_i) and
@@ -432,20 +432,41 @@ def q_dv_from_state(spec: SVGPSpec, params: Params, state, grid_axes: Sequence,
     return _grid_gaussian(spec, params, r_blocks, kvv_blocks, Ls, full_cov)
 
 
-_GRAD_NOT_PORTED = ("is not ported yet (ROADMAP queue 1, item 10: it needs a "
-                    "once-differentiable kernel, and only the Matérn-1/2 cell feature is ported)")
+def _grad_from_blocks(spec: SVGPSpec, params: Params, blocks, Ls, xstar, axis: int,
+                      full_cov: bool) -> Gaussian:
+    """q(∂f*/∂x_axis) from the whitened derivative blocks ∂a = F⁻¹∂Kuf:
+    mean ∂aᵀμ, variance −k″(0)·Πσ² − ‖∂a‖² + ‖L_Sᵀ∂a‖² (floored), or the
+    dense covariance for ``full_cov``."""
+    mean, var_red, var_add = _qf_mean_var(spec, params, blocks, Ls=Ls)
+    if not full_cov:
+        kdd = common.grad_kdiag(spec, params, xstar, axis)
+        var = torch.clamp(kdd - var_red, min=0.0) + var_add
+        return Gaussian(mean=mean, var=common.floor_var(var, kdd))
+    a = common.khatri_rao_all(blocks)
+    sa = common.khatri_rao_all(tuple(Ls[i].T @ blocks[i] for i in range(spec.ndim)))
+    cov = common.grad_gram_full(spec, params, xstar, xstar, axis) - a.T @ a + sa.T @ sa
+    return Gaussian(mean=mean, cov=cov)
 
 
-def posterior_grad(spec: SVGPSpec, params: Params, xstar: torch.Tensor, axis: int,
-                   full_cov: bool = False) -> Gaussian:
-    """The pointwise-gradient posterior ∂f/∂x_axis: not ported (item 10)."""
-    raise NotImplementedError(f"posterior_grad {_GRAD_NOT_PORTED}")
-
-
+@highest_precision
 def posterior_grad_from_state(spec: SVGPSpec, params: Params, state, xstar: torch.Tensor,
                               axis: int, full_cov: bool = False) -> Gaussian:
-    """The warm pointwise-gradient posterior: not ported (item 10)."""
-    raise NotImplementedError(f"posterior_grad_from_state {_GRAD_NOT_PORTED}")
+    """The pointwise-gradient posterior from a :func:`precompute` state."""
+    chols, Ls = state
+    blocks = common.axis_whitened_dkuf(spec, params, chols, xstar, axis)
+    return _grad_from_blocks(spec, params, blocks, Ls, xstar, axis, full_cov)
+
+
+@highest_precision
+def posterior_grad(spec: SVGPSpec, params: Params, xstar: torch.Tensor, axis: int,
+                   full_cov: bool = False) -> Gaussian:
+    """The posterior of the pointwise gradient ∂f/∂x_axis at ``xstar``: the
+    exact linear-functional posterior through the dense Kuu factors. Needs
+    a once-differentiable kind on ``axis`` (Matérn-1/2 raises ValueError)."""
+    chols = common.axis_chol_kuu(spec, params)
+    blocks = common.axis_whitened_dkuf(spec, params, chols, xstar, axis)
+    return _grad_from_blocks(spec, params, blocks, _kron_chols(spec, params["q"]), xstar,
+                             axis, full_cov)
 
 
 class SVGP(nn.Module):
