@@ -76,9 +76,26 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``bench.py:228-260``; and the float32 λ_min readings of the jittered
    Matérn-3/2, 5/2 and RBF cell Grams (phase 6 also reads the warm
    posterior's error with the Kuu Cholesky taken on the other device);
-11. profile three steps at each batch (device busy share, the ops with the
+11. the full variational family, the learned mean and the other inducing
+   features: both cell kernels against their plain versions at (64, 4096),
+   (512, 4096) on 1-D data and (15, 20 000), the fused kernel at
+   (512, 16 384) on one axis; (a) the 2-D full-family SVGP on 64×64
+   Matérn-1/2 cells (m = 4096) with a learned mean, 8 steps at batch 4096
+   (``cell_kuf_with_dl`` twice a step), the posterior cold and warm, q_v,
+   q_dv, p_v_u, q_u and one ``elbo_muS`` value-and-grad, against the CPU's
+   float64 at 512 points; (b) the 1-D full-family SVGP on 512 cells with a
+   learned mean, 8 steps at 4096 and 4 at 16 384 (the fused kernel where
+   the band-ratio gate admits ℓ, its reading printed), the posterior;
+   (c) the 1-D SVGP on 512 learnable Matérn-3/2 inducing points, 8 steps,
+   ``posterior`` and ``posterior_grad`` cold and warm, no kernel launched;
+   (d) the 2-D collapsed zoo at ``zoo.sgpr_specs_2d``'s widths on 20 000
+   points (points, VFF at every Matérn order, B1, B2, B3, 15×15 cells),
+   20 ``train.fit`` steps each and q_v on the 15×15 cells, the GriddedGP
+   through both cell kernels; each against the CPU's float64; and the
+   float32 λ_min readings of the VFF and spline Grams;
+12. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
-12. time each kernel and its plain version (device time from the profiler's
+13. time each kernel and its plain version (device time from the profiler's
    CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
    serving grid's (512, 65 536) beside one warm cold ``posterior`` and one
    ``posterior_from_state`` on that grid and at the face difference's
@@ -862,8 +879,8 @@ def host_ms(fn) -> float:
 
 def value_and_grads(loss_fn, params):
     """(loss, {name: gradient}) at constrained ``params``: ``d<key>_<axis>``
-    for the axes, ``dnoise``, ``d<key>`` for the variational leaves; a leaf
-    the loss does not reach has none."""
+    for the axes, ``dnoise``, ``d<key>`` for the variational leaves,
+    ``dmean`` for a learned mean; a leaf the loss does not reach has none."""
     from vggp_tpu_torch import train
 
     pg = train.tree_map(lambda v: v.detach().clone().requires_grad_(), params)
@@ -872,6 +889,8 @@ def value_and_grads(loss_fn, params):
     grads = {f"d{k}_{i}": v.grad for i, ax in enumerate(pg["axes"]) for k, v in ax.items()}
     grads["dnoise"] = pg["noise"].grad
     grads.update({f"d{k}": v.grad for k, v in pg.get("q", {}).items()})
+    if "mean" in pg:
+        grads["dmean"] = pg["mean"].grad
     return val.detach(), {k: g for k, g in grads.items() if g is not None}
 
 
@@ -901,10 +920,21 @@ def finite(g) -> bool:
     return bool(torch.isfinite(g).all())
 
 
-def check_quantities(what: str, got: dict, ref: dict, f32: dict, grad_floor: float) -> None:
+def quantity_tol(name: str, e32: float, grad_floor: float,
+                 head_floor: float = TOL_E2E_POST) -> float:
+    """The bound of :func:`check_quantities` on the quantity ``name`` whose
+    CPU float32 error is ``e32``: the larger of its floor and
+    CPU_ERR_RATIO × ``e32``."""
+    floor = (grad_floor if name.startswith("d") else
+             TOL_E2E_LOSS if name in ("elbo", "loss", "mll", "elbo_muS") else head_floor)
+    return max(floor, CPU_ERR_RATIO * e32)
+
+
+def check_quantities(what: str, got: dict, ref: dict, f32: dict, grad_floor: float,
+                     head_floor: float = TOL_E2E_POST) -> None:
     """Every quantity on the card (``got``, float32) against ``ref``: finite,
     and within the larger of its floor (``grad_floor`` for a gradient leaf,
-    TOL_E2E_LOSS for a loss, TOL_E2E_POST for a head) and CPU_ERR_RATIO ×
+    TOL_E2E_LOSS for a loss, ``head_floor`` for a head) and CPU_ERR_RATIO ×
     the CPU's own float32 error (``f32``; a quantity it lacks is held at
     its floor alone)."""
     check(sorted(got) == sorted(ref) and set(f32) <= set(ref),
@@ -912,11 +942,9 @@ def check_quantities(what: str, got: dict, ref: dict, f32: dict, grad_floor: flo
     worst = (0.0, "")
     for name in ref:
         check(finite(got[name]), f"{what} {name}: not finite")
-        floor = (grad_floor if name.startswith("d") else
-                 TOL_E2E_LOSS if name in ("elbo", "loss", "mll") else TOL_E2E_POST)
         e = quantity_err(got[name], ref[name])
         e32 = quantity_err(f32[name], ref[name]) if name in f32 else 0.0
-        tol = max(floor, CPU_ERR_RATIO * e32)
+        tol = quantity_tol(name, e32, grad_floor, head_floor)
         worst = max(worst, (e / tol, name))
         print(f"check {what} {name}: card f32 {e:.3e}, "
               f"cpu f32 {f'{e32:.3e}' if name in f32 else 'not taken'}, tol {tol:.3e}")
@@ -1459,11 +1487,12 @@ def lambda_min_readings(device) -> dict:
     return out
 
 
-def train_svgp(device, spec, X, y, runs, seed) -> tuple:
-    """The Kronecker SVGP of ``spec`` from its initial parameters, Adam at
-    lr 1e-2 for each (batch, steps) of ``runs`` in turn, the launches of each
-    run counted (reset just before, read just after). Returns (model,
-    [(losses, ms a step, launches)])."""
+def train_svgp(device, spec, X, y, runs, seed, after_run=None) -> tuple:
+    """The SVGP of ``spec`` from its initial parameters, Adam at lr 1e-2 for
+    each (batch, steps) of ``runs`` in turn, the launches of each run
+    counted (reset just before, read just after); ``after_run(model)`` is
+    called after each run. Returns (model, [(losses, ms a step,
+    launches)])."""
     import torch
 
     from vggp_tpu_torch import SVGP, svgp, train
@@ -1481,6 +1510,8 @@ def train_svgp(device, spec, X, y, runs, seed) -> tuple:
         out.append((losses, ms, dict(ck.LAUNCHES)))
         check(all(v == v and abs(v) != float("inf") for v in losses),
               f"{spec.kinds}: loss not finite at batch {batch}: {losses}")
+        if after_run is not None:
+            after_run(model)
     return model, out
 
 
@@ -1499,16 +1530,27 @@ def svgp_slice_quantities(spec, params, xb, yb, heads, cast) -> dict:
         return {"loss": val, **grads, **{name: fn(spec, p, state, cast) for name, fn in heads}}
 
 
-def hold_against_cpu(what, quantities, device, floor) -> float:
+def hold_against_cpu(what, quantities, device, floor, head_floor=TOL_E2E_POST,
+                     launches=None) -> float:
     """Phase 10's rule: ``quantities(cast)`` on the card in float32 against
     the CPU's float64, by :func:`check_quantities` with the CPU's float32;
-    returns the seconds it took."""
+    with ``launches``, the card's evaluation must launch exactly those
+    (counted from just before it to just after). Returns the seconds it
+    took."""
     import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
 
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
-    check_quantities(what, *(quantities(cast_to(dev, dt)) for dev, dt in (
-        (device, torch.float32), (cpu, torch.float64), (cpu, torch.float32))), floor)
+    ck.reset_launch_counts()
+    got = quantities(cast_to(device, torch.float32))
+    counted = dict(ck.LAUNCHES)
+    if launches is not None:
+        print(f"{what}: the card's evaluation launched {counted}")
+        check(counted == launches, f"{what}: launches {counted}, expected {launches}")
+    check_quantities(what, got, *(quantities(cast_to(cpu, dt))
+                                  for dt in (torch.float64, torch.float32)), floor, head_floor)
     return time.perf_counter() - t0
 
 
@@ -1755,11 +1797,503 @@ def slice_phase(device, X, y, Xs) -> tuple:
     return launches, timings, ({"errs": errs, "launches": at_shape}, readings)
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the full variational family, the learned constant mean, and the
+# collapsed zoo of the other inducing features (points, VFF, B1/B2/B3)
+# --------------------------------------------------------------------------- #
+
+FULL_CELLS = 64         # 11a: 64×64 Matérn-1/2 cells, m = 4096 (phase 7's dense-feasible size)
+FULL_STEPS = 8          # 11a–11c at batch 4096, the first WARM_STEPS untimed
+FULL_FUSED_STEPS = 4    # 11b at batch 16 384
+FULL_CUT_N = 512        # 11a: the batch and query points of its CPU references
+FULL1D_CELLS = 512      # 11b: the 1-D full family on [0, 1]
+POINTS_M = 512          # 11c: learnable inducing points, Matérn-3/2
+# 11d: the published widths of zoo.sgpr_specs_2d (vggp_tpu/experiments/zoo.py:99-133)
+# on the max_obs of experiments/northsea.py:55
+ZOO_POINTS, ZOO_FREQS, ZOO_KNOTS, ZOO_CELLS = 10, 15, 15, 15
+ZOO_N = 20_000
+ZOO_STEPS = 20
+# 11c takes Matérn-3/2's float32 jitter floor (KIND_JITTER_F32) as its spec's
+# jitter, so that its float64 reference is the same model (as SLICE_JITTER)
+POINTS_JITTER = 1e-4
+# gradient floors of phase 11's comparisons: the cell SVGPs as phase 10's;
+# the point SVGP (11c) about 5× the largest sound reading, the CPU float32's
+# own draw_L error of 1.26e-3 (the card's was 2.82e-3, 2.25× it, on an H100);
+# the zoo's collapsed models as the Matérn-3/2 collapsed GP's (TOL_GRAD_SLICE).
+# 11c's heads take POINTS_HEAD_FLOOR, about 5× the CPU float32's own
+# posterior_grad error (5.2e-4; the card's 1.15e-3). The point SVGP's float32
+# is set by the whitening F⁻¹·Kuf of a 512-point Matérn-3/2 Gram at
+# ℓ/δ ≈ 500, on any device: with the whitening in float64 its card leaves
+# fall 10–50× (draw_L 2.8e-3 → 5.9e-5; tools/torch_points_precision.py, an
+# H100; ROADMAP queue 3, item 8).
+TOL_GRAD_FULL = {"svgp": 2e-3, "points": 6e-3, "zoo": 1.5e-3}
+POINTS_HEAD_FLOOR = 3e-3
+LAMBDA_FULL_RATIOS = (0.1, 1.0, 10.0, 50.0)      # ℓ/δ of the new features' λ_min readings
+# 11a's elbo_muS takes S = LLᵀ + ELBO_MUS_RIDGE·I at the trained (μ, L): LLᵀ
+# alone is singular to working precision (a triangular factor trained by
+# Adam: σ_min(L) = 1.7e-13 against σ_max 8.1 at m = 4096 after 8 steps on an
+# H100, as 11a prints them), so its float32 Cholesky fails on the CPU; the
+# ridge bounds cond(S) by 1e5. The factorization of LLᵀ itself is read, not
+# checked.
+ELBO_MUS_RIDGE = 1e-3
+
+
+def make_data_1d(device):
+    """11b–11c's data: NUM_DATA points on [0, 1] from a numpy seed, the
+    1-D counterpart of :func:`make_data`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    x = rng.random(NUM_DATA)
+    y = np.sin(6 * x) + 0.5 * np.cos(17 * x) + 0.1 * rng.standard_normal(NUM_DATA)
+    xs = rng.random(SERVE_POINTS)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return as_t(x), as_t(y), as_t(xs)
+
+
+def check_full_kernels(device, X, x1) -> dict:
+    """11: both cell kernels against their plain versions at phase 11's
+    shapes on its own data: (64, 4096) on the 2-D data's first axis,
+    (512, 4096) on the 1-D data and (15, 20 000), an odd cell count, and the
+    fused kernel at (512, 16 384) on one axis of the 1-D data (its F⁻¹ the
+    closed form at ℓ = 0.27), in float64 (TOL_F64) and float32 (TOL_F32, the
+    fused t at TOL_F32_T). Returns the float32 max |kernel − plain| by
+    (kernel, m, n), each shape's own."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+    from vggp_tpu_torch.ops import kms
+
+    errs = {}
+    for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        v = torch.tensor(1.3, dtype=dtype, device=device)
+        ell = torch.tensor(0.27, dtype=dtype, device=device)
+        for m, x in ((FULL_CELLS, X[:TRAIN_BATCH, 0]), (FULL1D_CELLS, x1[:TRAIN_BATCH]),
+                     (ZOO_CELLS, X[:ZOO_N, 0])):
+            mesh = torch.linspace(0.0, 1.0, m + 1, dtype=torch.float64).to(dtype).to(device)
+            x = x.to(dtype).contiguous()     # a column of the 2-D data is a strided view
+            pairs = [("cell_kuf", "Kuf", ck.cell_kuf(mesh, x, v, ell),
+                      ck.cell_kuf_plain(mesh, x, v, ell))]
+            pairs += [("cell_kuf_with_dl", name, g, w) for name, g, w in zip(
+                ("Kuf", "dKuf"), ck.cell_kuf_with_dl(mesh, x, v, ell),
+                ck.cell_kuf_with_dl_plain(mesh, x, v, ell))]
+            if m == FULL1D_CELLS:
+                xf = x1[:FUSED_BATCH].to(dtype)
+                finv = kms.m12_cell_inv_chol(m, 1.0 / m, v, ell, 1e-6)
+                a, t = ck.fused_banded_whiten_kuf(finv, mesh, xf, v, ell, *MAIN_PRECISIONS)
+                a_p, t_p = ck.fused_banded_whiten_kuf_plain(finv, mesh, xf, v, ell,
+                                                            *MAIN_PRECISIONS)
+                pairs += [("fused_banded_whiten_kuf", "a", a, a_p),
+                          ("fused_banded_whiten_kuf", "t", t, t_p)]
+            for kernel, name, got, want in pairs:
+                n = got.shape[1]
+                e = rel_err(got, want)
+                bound = TOL_F32_T if tag == "f32" and name == "t" else tol
+                print(f"check {kernel} {name} {tag} ({m}, {n}) on phase 11's data: rel {e:.3e}")
+                check(e < bound, f"{kernel} {name} {tag} ({m}, {n}) rel {e}")
+                if tag == "f32":
+                    key = (kernel, m, n)
+                    errs[key] = max(errs.get(key, 0.0), float((got - want).abs().max()))
+    torch.cuda.synchronize()
+    return errs
+
+
+def svgp_cut_quantities(spec, params, xb, yb, heads, cast, mu_s=None) -> dict:
+    """:func:`svgp_slice_quantities`, and with ``mu_s`` = (μ, S) the value and
+    the (μ, S) gradients of ``elbo_muS`` at (xb, yb)."""
+    from vggp_tpu_torch import svgp
+
+    out = svgp_slice_quantities(spec, params, xb, yb, heads, cast)
+    if mu_s is not None:
+        mu, S = (cast(t).requires_grad_() for t in mu_s)
+        val = svgp.elbo_muS(spec, cast(params), mu, S, cast(xb), cast(yb))
+        val.backward()
+        out.update({"elbo_muS": val.detach(), "delbo_muS_mu": mu.grad, "delbo_muS_S": S.grad})
+    return out
+
+
+def full_2d_part(device, X, y, Xs, timings) -> dict:
+    """11a: the 2-D full-family gridded SVGP, 64×64 Matérn-1/2 cells
+    (m = 4096) and a learned mean: FULL_STEPS steps at batch 4096
+    (cell_kuf_with_dl twice a step at (64, 4096)); the posterior at the 4096
+    points cold and from ``precompute`` (cell_kuf twice each), q_v and q_dv
+    (axis 0; cell_kuf once at (64, 65)) marginal on the 64×64 cells, p_v_u on
+    the cells shifted by half a cell and q_u ((4096)² each), one ``elbo_muS``
+    value-and-grad at the trained μ and S = LLᵀ + ELBO_MUS_RIDGE·I
+    (cell_kuf_with_dl twice); then the loss, its gradient
+    leaves, the heads and elbo_muS at FULL_CUT_N points against the CPU's
+    float64. Returns the launches."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, svgp, train
+
+    own = tuple(CellIntegralFeature.from_lims(FULL_CELLS, 0.0, 1.0) for _ in range(2))
+    # p(v | u) on the model's own cells is a cancellation to zero (v is u
+    # there); on cells shifted by half a cell it is not, as in phase 7
+    h = 0.5 / FULL_CELLS
+    shifted = tuple(CellIntegralFeature.from_lims(FULL_CELLS, h, 1.0 + h) for _ in range(2))
+    spec = SVGPSpec(kinds=("matern12",) * 2, features=own, num_data=NUM_DATA,
+                    variational="full", learn_mean=True)
+    model, [(losses, ms, got)] = train_svgp(device, spec, X, y, ((TRAIN_BATCH, FULL_STEPS),), 41)
+    m = spec.num_inducing
+    # each step: Lᵀa forward, and a·dtᵀ and L·dt backward, (m, m) × (m, batch)
+    flops = 3 * 2 * m * m * TRAIN_BATCH
+    print(f"11a full 2-D SVGP m={m}: {FULL_STEPS} steps at batch {TRAIN_BATCH}, loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}, {ms:.3f} ms a step (its three "
+          f"({m}, {m}) x ({m}, {TRAIN_BATCH}) products need {flops / FP32_FLOPS_PER_S * 1e3:.3f} ms "
+          f"at the fp32 peak), launches {got}")
+    check(got == {**NO_LAUNCHES, "cell_kuf_with_dl": 2 * FULL_STEPS}, f"11a launches {got}")
+    check(sum(losses[-3:]) < sum(losses[:3]), f"11a: the loss did not fall: {losses}")
+    timings["full2d_step_ms_batch4096"] = ms
+    timings["full2d_step_product_bound_ms"] = flops / FP32_FLOPS_PER_S * 1e3
+    launches = dict(got)
+    with torch.no_grad():
+        params = train.tree_map(lambda v: v.detach(), model.params())
+        state = svgp.precompute(spec, params)
+        L = svgp.chol_from_raw(params["q"]["raw_L"])
+        S = L @ L.T
+        sv = torch.linalg.svdvals(L.double())
+        print(f"11a the trained L: sigma max {float(sv[0]):.4g}, min {float(sv[-1]):.4g}; "
+              f"the Cholesky of LL^T on the card: float32 info "
+              f"{int(torch.linalg.cholesky_ex(S).info)}, float64 info "
+              f"{int(torch.linalg.cholesky_ex(S.double()).info)} (0: it factors)")
+        timings["full2d_trained_L_sigma"] = [float(sv[0]), float(sv[-1])]
+        mu_s = (params["q"]["mu"],
+                S + ELBO_MUS_RIDGE * torch.eye(m, dtype=S.dtype, device=S.device))
+    grid_heads = [("q_v own cells", lambda s, p, st, c: svgp.q_v(s, p, own), 0),
+                  ("q_dv axis 0 own cells", lambda s, p, st, c: svgp.q_dv(s, p, own, 0), 1),
+                  ("p_v_u shifted cells", lambda s, p, st, c: svgp.p_v_u(s, p, shifted), 0),
+                  ("q_u", lambda s, p, st, c: svgp.q_u(s, p), 0)]
+    point_heads = [(f"posterior {n}", lambda s, p, st, c, n=n: svgp.posterior(s, p, c(Xs[:n])), 2)
+                   for n in (SERVE_POINTS, FULL_CUT_N)]
+    point_heads += [(f"posterior_from_state {n}",
+                     lambda s, p, st, c, n=n: svgp.posterior_from_state(s, p, st, c(Xs[:n])), 2)
+                    for n in (SERVE_POINTS, FULL_CUT_N)]
+    for name, fn, n_launch in point_heads[:1] + point_heads[2:3] + grid_heads:
+        _, t, got = run_counted(f"11a {name}", lambda fn=fn: fn(spec, params, state, lambda v: v),
+                                n_launch)
+        timings[f"full2d_{name.replace(' ', '_')}_ms"] = t
+        launches = add_launches(launches, got)
+    # elbo_muS value-and-grad at the trained μ and the ridged S, batch 4096
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    ck.reset_launch_counts()
+    p = train.tree_map(lambda v: v.clone().requires_grad_(), params)
+    mu, S = (t.clone().requires_grad_() for t in mu_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = svgp.elbo_muS(spec, p, mu, S, X[:TRAIN_BATCH], y[:TRAIN_BATCH])
+    val.backward()
+    torch.cuda.synchronize()
+    timings["full2d_elbo_muS_value_and_grad_ms"] = (time.perf_counter() - t0) * 1e3
+    got = dict(ck.LAUNCHES)
+    print(f"11a elbo_muS at batch {TRAIN_BATCH}: {float(val.detach()):.6g}, value and grad "
+          f"{timings['full2d_elbo_muS_value_and_grad_ms']:.3f} ms, launches {got}")
+    check(got == {**NO_LAUNCHES, "cell_kuf_with_dl": 2}, f"11a elbo_muS launches {got}")
+    check(finite((val.detach(), mu.grad, S.grad)), "11a elbo_muS not finite")
+    launches = add_launches(launches, got)
+    heads = [(name, fn) for name, fn, _ in point_heads[1:2] + point_heads[3:] + grid_heads]
+    xb, yb = X[:FULL_CUT_N], y[:FULL_CUT_N]
+    timings["check 11a s"] = hold_against_cpu(
+        f"11a full 2-D SVGP m={m} vs cpu f64 at {FULL_CUT_N} points",
+        lambda c: svgp_cut_quantities(spec, params, xb, yb, heads, c, mu_s), device,
+        TOL_GRAD_FULL["svgp"])
+    # where the step's time goes: three more steps under the profiler (their
+    # launches are not the path's, as phase 12's)
+    step = train.make_step_fn(lambda p, xb, yb: svgp.loss(spec, p, xb, yb), model.raw_params(),
+                              torch.optim.Adam(model.parameters(), lr=1e-2))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(42)
+    print("11a profile:")
+    timings.update({f"full2d_{k}": v for k, v in
+                    profile_steps(step, X, y, TRAIN_BATCH, gen).items()})
+    return launches
+
+
+def full_1d_part(device, x1, y1, xs1, timings) -> dict:
+    """11b: the 1-D full-family SVGP, the facade's 1-D default: 512
+    Matérn-1/2 cells on [0, 1] and a learned mean, FULL_STEPS steps at batch
+    4096 (cell_kuf_with_dl once a step at (512, 4096)), FULL_FUSED_STEPS at
+    16 384 (the fused kernel once a step where the band-ratio gate admits ℓ,
+    cell_kuf_with_dl where it does not; the gate's readings printed), the
+    posterior at 4096 points (cell_kuf once), and the loss, its gradient
+    leaves and the posterior against the CPU's float64 at 4096 points, then
+    the loss and its leaves at 16 384 (the steps' route) too. Returns the
+    launches."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, svgp, train
+    from vggp_tpu_torch.models import common
+
+    feat = CellIntegralFeature.from_lims(FULL1D_CELLS, 0.0, 1.0)
+    spec = SVGPSpec(kinds=("matern12",), features=(feat,), num_data=NUM_DATA,
+                    variational="full", learn_mean=True)
+    rel = common.axis_rel_jitter(spec, "matern12", torch.float32, feat)
+    X1 = x1[:, None]
+
+    def gate(model):
+        with torch.no_grad():
+            q = feat.whiten_band_ratio("matern12", model.params()["axes"][0], rel)
+        return float(q)
+
+    runs = ((TRAIN_BATCH, FULL_STEPS), (FUSED_BATCH, FULL_FUSED_STEPS))
+    readings = []     # the gate after each run: before and after the steps at 16 384
+    model, out = train_svgp(device, spec, X1, y1, runs, 51,
+                            after_run=lambda mdl: readings.append(gate(mdl)))
+    q_before, q_after = readings
+    print(f"11b the band-ratio gate (fuse while q < 0.7) at the trained lengthscale: q = "
+          f"{q_before:.4f} before the steps at {FUSED_BATCH}, {q_after:.4f} after")
+    launches = dict(NO_LAUNCHES)
+    for (batch, n_steps), (losses, ms, got) in zip(runs, out):
+        print(f"11b full 1-D SVGP m={FULL1D_CELLS}: {n_steps} steps at batch {batch}, loss "
+              f"{losses[0]:.6g} -> {losses[-1]:.6g}, {ms:.3f} ms a step, launches {got}")
+        check(all(v == v and abs(v) != float("inf") for v in losses), f"11b loss {losses}")
+        timings[f"full1d_step_ms_batch{batch}"] = ms
+        if batch == TRAIN_BATCH:
+            want = {**NO_LAUNCHES, "cell_kuf_with_dl": n_steps}
+            check(got == want, f"11b launches at {batch}: {got}")
+        elif q_before < 0.7 and q_after < 0.7:
+            check(got == {**NO_LAUNCHES, "fused_banded_whiten_kuf": n_steps},
+                  f"11b launches at {batch}, the gate admitting ℓ: {got}")
+        elif q_before >= 0.7 and q_after >= 0.7:
+            check(got == {**NO_LAUNCHES, "cell_kuf_with_dl": n_steps},
+                  f"11b launches at {batch}, the gate declining ℓ: {got}")
+        else:
+            check(got["cell_kuf"] == 0 and got["cell_kuf_with_dl"]
+                  + got["fused_banded_whiten_kuf"] == n_steps, f"11b launches at {batch}: {got}")
+        launches = add_launches(launches, got)
+    check(sum(out[0][0][-3:]) < sum(out[0][0][:3]), f"11b: the loss did not fall: {out[0][0]}")
+    timings["full1d_gate_ratio"] = [q_before, q_after]
+    _, ms, got = run_counted("11b posterior", lambda: model.posterior(xs1[:, None]), 1)
+    timings["full1d_posterior_ms_4096"] = ms
+    launches = add_launches(launches, got)
+    with torch.no_grad():
+        params = train.tree_map(lambda v: v.detach(), model.params())
+    heads = [("posterior", lambda s, p, st, c: svgp.posterior(s, p, c(xs1[:, None])))]
+    timings["check 11b s"] = hold_against_cpu(
+        "11b full 1-D SVGP vs cpu f64",
+        lambda c: svgp_slice_quantities(spec, params, X1[:TRAIN_BATCH], y1[:TRAIN_BATCH],
+                                        heads, c), device, TOL_GRAD_FULL["svgp"])
+    # the route of the steps at 16 384 end to end: the loss and its leaves at
+    # FUSED_BATCH points, one fused launch on the card where the gate admits
+    # ℓ (cell_kuf_with_dl where it declines); not the path's launches
+    route = "fused_banded_whiten_kuf" if q_after < 0.7 else "cell_kuf_with_dl"
+    timings["check 11b fused s"] = hold_against_cpu(
+        f"11b full 1-D SVGP at {FUSED_BATCH} points vs cpu f64",
+        lambda c: svgp_slice_quantities(spec, params, X1[:FUSED_BATCH], y1[:FUSED_BATCH], [], c),
+        device, TOL_GRAD_FULL["svgp"], launches={**NO_LAUNCHES, route: 1})
+    return launches
+
+
+def points_spec():
+    """11c's model: POINTS_M learnable Matérn-3/2 inducing points on [0, 1]
+    in the full family."""
+    import numpy as np
+
+    from vggp_tpu_torch import PointFeature, SVGPSpec
+
+    feat = PointFeature(POINTS_M, np.linspace(0.0, 1.0, POINTS_M))
+    return SVGPSpec(kinds=("matern32",), features=(feat,), num_data=NUM_DATA,
+                    variational="full", jitter=POINTS_JITTER)
+
+
+def points_heads(xs) -> list:
+    """11c's heads at the points ``xs``, (name, fn(spec, params, state, cast))."""
+    from vggp_tpu_torch import svgp
+
+    return [("posterior", lambda s, p, st, c: svgp.posterior(s, p, c(xs))),
+            ("posterior_from_state", lambda s, p, st, c: svgp.posterior_from_state(s, p, st, c(xs))),
+            ("posterior_grad", lambda s, p, st, c: svgp.posterior_grad(s, p, c(xs), 0)),
+            ("posterior_grad_from_state",
+             lambda s, p, st, c: svgp.posterior_grad_from_state(s, p, st, c(xs), 0))]
+
+
+def points_part(device, x1, y1, xs1, timings) -> dict:
+    """11c: the 1-D SVGP with POINTS_M learnable inducing points, Matérn-3/2,
+    in the full family (the dense factor, differentiated by autograd through
+    the Cholesky): FULL_STEPS steps at batch 4096, ``posterior`` and
+    ``posterior_grad`` cold and from ``precompute`` at 4096 points, and the
+    loss, its gradient leaves (dz among them) and the heads against the CPU's
+    float64. No kernel launches. Returns the launches."""
+    import torch
+
+    from vggp_tpu_torch import svgp, train
+
+    spec = points_spec()
+    feat = spec.features[0]
+    X1 = x1[:, None]
+    model, [(losses, ms, got)] = train_svgp(device, spec, X1, y1, ((TRAIN_BATCH, FULL_STEPS),),
+                                            61)
+    print(f"11c point SVGP m={POINTS_M} matern32: {FULL_STEPS} steps at batch {TRAIN_BATCH}, "
+          f"loss {losses[0]:.6g} -> {losses[-1]:.6g}, {ms:.3f} ms a step, launches {got}")
+    check(got == NO_LAUNCHES, f"11c launches {got}")
+    check(sum(losses[-3:]) < sum(losses[:3]), f"11c: the loss did not fall: {losses}")
+    timings["points_step_ms_batch4096"] = ms
+    with torch.no_grad():
+        params = train.tree_map(lambda v: v.detach(), model.params())
+        state = svgp.precompute(spec, params)
+        dz = float((params["axes"][0]["z"] - torch.as_tensor(feat.z_init, device=device)).abs().max())
+    print(f"11c the points moved by up to {dz:.3e}")
+    check(dz > 0, "11c: the inducing points did not move")
+    heads = points_heads(xs1[:, None])
+    for name, t in timed_heads(heads, spec, params, state, lambda v: v).items():
+        timings[f"points_{name}_ms"] = t
+    timings["check 11c s"] = hold_against_cpu(
+        "11c point SVGP vs cpu f64",
+        lambda c: svgp_slice_quantities(spec, params, X1[:TRAIN_BATCH], y1[:TRAIN_BATCH],
+                                        heads, c), device, TOL_GRAD_FULL["points"],
+        POINTS_HEAD_FLOOR)
+    return dict(got)
+
+
+def zoo_specs():
+    """11d: the 2-D collapsed zoo at the published widths of
+    ``zoo.sgpr_specs_2d``, Matérn-1/2 (points, VFF, B1, cells), with VFF at
+    Matérn-3/2 and 5/2 and the B2 (3/2) and B3 (5/2) spline RKHS features
+    beside them at the same widths (m = 15 per axis for the splines)."""
+    import numpy as np
+
+    from vggp_tpu_torch import (B1SplineFeature, B2SplineFeature, B3SplineFeature,
+                                CellIntegralFeature, FourierFeature, PointFeature, SGPRSpec)
+
+    pad = 0.05
+    make = {
+        "svgp": ("matern12", lambda: PointFeature(ZOO_POINTS,
+                                                  np.linspace(pad, 1.0 - pad, ZOO_POINTS))),
+        "vffgp": ("matern12", lambda: FourierFeature(ZOO_FREQS, 0.0, 1.0)),
+        "asvgp": ("matern12", lambda: B1SplineFeature(np.linspace(0.0, 1.0, ZOO_KNOTS))),
+        "griddedgp": ("matern12", lambda: CellIntegralFeature.from_lims(ZOO_CELLS, 0.0, 1.0)),
+        "vffgp matern32": ("matern32", lambda: FourierFeature(ZOO_FREQS, 0.0, 1.0)),
+        "vffgp matern52": ("matern52", lambda: FourierFeature(ZOO_FREQS, 0.0, 1.0)),
+        "asvgp b2": ("matern32", lambda: B2SplineFeature(ZOO_KNOTS - 2, 0.0, 1.0)),
+        "asvgp b3": ("matern52", lambda: B3SplineFeature(ZOO_KNOTS - 3, 0.0, 1.0)),
+    }
+    # each spec's jitter is its kind's float32 floor (KIND_JITTER_F32), so that
+    # the float64 reference is the same model (as SLICE_JITTER in phase 10)
+    from vggp_tpu_torch.models.common import KIND_JITTER_F32
+
+    return {name: SGPRSpec(kinds=(kind,) * 2, features=(f(), f()), jitter=KIND_JITTER_F32[kind])
+            for name, (kind, f) in make.items()}
+
+
+def zoo_part(device, X, y, timings) -> dict:
+    """11d: each model of :func:`zoo_specs` on the first ZOO_N points:
+    ``non_informative_init``, ZOO_STEPS ``train.fit`` steps, then ``q_v`` on
+    the 15×15 cells (full_cov), with the launches counted (the GriddedGP's
+    cell_kuf_with_dl twice a step at (15, 20 000), cell_kuf twice in q_v;
+    none for the other members), and the ELBO, its gradient leaves and q_v
+    against the CPU's float64. Returns the launches."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, sgpr, train
+
+    Xn, yn = X[:ZOO_N], y[:ZOO_N]
+    grid = tuple(CellIntegralFeature.from_lims(ZOO_CELLS, 0.0, 1.0) for _ in range(2))
+    launches = dict(NO_LAUNCHES)
+    for name, spec in zoo_specs().items():
+        cells = name == "griddedgp"
+        params0 = train.non_informative_init(spec.init_params(torch.float32), Xn, yn)
+        params, ms, got = fit_counted(f"11d zoo {name} m={spec.num_inducing}",
+                                      lambda p, spec=spec: sgpr.loss(spec, p, Xn, yn), params0,
+                                      ZOO_STEPS)
+        check(got == ({**NO_LAUNCHES, "cell_kuf_with_dl": 2 * ZOO_STEPS} if cells
+                      else NO_LAUNCHES), f"11d {name} fit launches {got}")
+        launches = add_launches(launches, got)
+        timings[f"zoo_{name.replace(' ', '_')}_fit_ms_per_step"] = ms
+        qv, ms, got = run_counted(f"11d {name} q_v", lambda spec=spec, params=params: sgpr.q_v(
+            spec, params, Xn, yn, grid), 2 if cells else 0)
+        check(qv.mean.shape == (ZOO_CELLS ** 2,), f"11d {name} q_v shape {qv.mean.shape}")
+        launches = add_launches(launches, got)
+        timings[f"zoo_{name.replace(' ', '_')}_q_v_ms"] = ms
+
+        def quantities(cast, spec=spec, params=params):
+            p, Xc, yc = cast(params), cast(Xn), cast(yn)
+            val, leaves = value_and_grads(lambda q: sgpr.loss(spec, q, Xc, yc), p)
+            with torch.no_grad():
+                return {"elbo": -val, **leaves, "q_v": sgpr.q_v(spec, p, Xc, yc, grid)}
+
+        timings[f"check 11d {name} s"] = hold_against_cpu(
+            f"11d zoo {name} n={ZOO_N} vs cpu f64", quantities, device, TOL_GRAD_FULL["zoo"])
+    return launches
+
+
+def lambda_min_full_readings(device) -> dict:
+    """11: λ_min of the jittered float32 Grams of the new features over
+    their mean diagonal against float64, at ℓ/δ ∈ LAMBDA_FULL_RATIOS (δ the
+    interval width: (b − a)/m), and whether the float32 Cholesky succeeds:
+    VFF at every Matérn order, B1, B2 and B3, at m ≈ 512 and at the zoo's
+    widths, each at its float32 jitter floor. Readings, not checks: the JAX
+    floors are kept."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from vggp_tpu_torch import (B1SplineFeature, B2SplineFeature, B3SplineFeature,
+                                FourierFeature)
+    from vggp_tpu_torch.models import common
+
+    spec = types.SimpleNamespace(jitter=1e-6)
+    cases = []
+    for m_vff, m_spl in ((255, 512), (ZOO_FREQS, ZOO_KNOTS)):
+        vff = FourierFeature(m_vff, 0.0, 1.0)
+        cases += [(f"vff {k} m={vff.m}", k, vff) for k in ("matern12", "matern32", "matern52")]
+        cases += [(f"b1 m={m_spl}", "matern12", B1SplineFeature(np.linspace(0.0, 1.0, m_spl))),
+                  (f"b2 m={m_spl}", "matern32", B2SplineFeature(m_spl - 2, 0.0, 1.0)),
+                  (f"b3 m={m_spl}", "matern52", B3SplineFeature(m_spl - 3, 0.0, 1.0))]
+    out = {}
+    for name, kind, feat in cases:
+        rel = common.axis_rel_jitter(spec, kind, torch.float32, feat)
+        cells = []
+        for ratio in LAMBDA_FULL_RATIOS:
+            lam, chol_ok = {}, None
+            for dtype in (torch.float32, torch.float64):
+                var = torch.tensor(1.0, dtype=dtype, device=device)
+                ell = torch.tensor(ratio / feat.m, dtype=dtype, device=device)
+                k = common._kuu_jittered(feat, kind, rel, ell, var)
+                ok = bool(torch.isfinite(k).all())
+                lam[dtype] = (float(torch.linalg.eigvalsh(k.double())[0])
+                              / float(torch.mean(torch.diagonal(k)))) if ok else float("nan")
+                if dtype == torch.float32:
+                    chol_ok = ok and int(torch.linalg.cholesky_ex(k).info) == 0
+            cells.append({"l_over_delta": ratio, "lambda_min_f32": lam[torch.float32],
+                          "lambda_min_f64": lam[torch.float64], "f32_cholesky": chol_ok})
+        out[name] = {"rel_jitter": rel, "readings": cells}
+        print(f"lambda_min {name} rel jitter {rel:g}: " + "; ".join(
+            f"l/d {c['l_over_delta']:g}: f32 {c['lambda_min_f32']:.4e}, "
+            f"f64 {c['lambda_min_f64']:.4e}, f32 chol {'ok' if c['f32_cholesky'] else 'FAILS'}"
+            for c in cells))
+    return out
+
+
+def full_phase(device, X, y, Xs) -> tuple:
+    """Phase 11: 11a–11d and the new features' λ_min readings, with the cell
+    kernels held against their plain versions at the phase's shapes first.
+    Returns (launches, timings, (the kernels' float32 errors, the λ_min
+    readings))."""
+    timings = {}
+    x1, y1, xs1 = make_data_1d(device)
+    errs = check_full_kernels(device, X, x1)
+    launches = dict(NO_LAUNCHES)
+    for name, part in (("full_2d_part", lambda: full_2d_part(device, X, y, Xs, timings)),
+                       ("full_1d_part", lambda: full_1d_part(device, x1, y1, xs1, timings)),
+                       ("points_part", lambda: points_part(device, x1, y1, xs1, timings)),
+                       ("zoo_part", lambda: zoo_part(device, X, y, timings))):
+        t0 = time.perf_counter()
+        launches = add_launches(launches, part())
+        timings[f"{name}_s"] = time.perf_counter() - t0
+        print(f"{name}: {timings[f'{name}_s']:.1f} s")
+    readings = lambda_min_full_readings(device)
+    return launches, timings, (errs, readings)
+
+
 PROFILE_STEPS = 3
 
 
 def profile_steps(step, X, y, batch, gen) -> dict:
-    """Phase 11: where a training step's time goes. Three steps under
+    """Phase 12: where a training step's time goes. Three steps under
     torch.profiler: the device's busy share of the window (kernel time over
     wall time) and the ops with the most host and device time."""
     import torch
@@ -1896,7 +2430,7 @@ def time_kuf_shape(device, m, n, x_is_mesh=False, name="cell_kuf", edges=None) -
 
 
 def time_serving_grid(device, spec, model, state) -> dict:
-    """Phase 12b: cell_kuf at the serving grid's (512, 65 536), and the cold
+    """Phase 13b: cell_kuf at the serving grid's (512, 65 536), and the cold
     ``posterior`` (``precompute`` and the warm head) and the warm
     ``posterior_from_state`` on the 256×256 grid in turns (cold, warm, warm,
     cold; one call each after a warm one, host clock around a call that ends
@@ -1929,10 +2463,10 @@ def time_serving_grid(device, spec, model, state) -> dict:
 
 
 def measure_kernels(device, errs, launches, shapes) -> list:
-    """Phase 12: kernel and plain times at the main path's f32 shapes, and the
+    """Phase 13: kernel and plain times at the main path's f32 shapes, and the
     fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
     kms.banded_whiten_apply for a and t at MAIN_PRECISIONS); ``shapes``
-    (by kernel, then by key: the timings of phases 12b–12e at the other
+    (by kernel, then by key: the timings of phases 13b–13e at the other
     shapes of the main path) go into the kernels' rows."""
     import torch
 
@@ -2022,7 +2556,7 @@ def main() -> int:
     got, edge_launches, serve_times, state = serve_heads(device, spec, model, Xs)
     launches = add_launches(launches, got)
     timings.update(serve_times)
-    for phase in (collapsed_phase, exact_phase, likelihood_phase, slice_phase):
+    for phase in (collapsed_phase, exact_phase, likelihood_phase, slice_phase, full_phase):
         t0 = time.perf_counter()
         got, phase_times, *more = phase(device, X, y, Xs)
         timings[f"{phase.__name__}_s"] = time.perf_counter() - t0
@@ -2033,6 +2567,8 @@ def main() -> int:
             at_n = more[0]   # the launches at (64, 65 536) by kernel
         if phase is slice_phase:
             stretched, timings["lambda_min"] = more[0]
+        if phase is full_phase:
+            full_errs, timings["lambda_min_new_features"] = more[0]
     for batch in (TRAIN_BATCH, FUSED_BATCH):
         timings.update(profile_steps(step, X, y, batch, gen))
     serving_grid = time_serving_grid(device, spec, model, state)
@@ -2046,21 +2582,36 @@ def main() -> int:
                               "launches": edge_launches},
             "at_64_cells": {**time_kuf_shape(device, SGPR_CELLS, SGPR_N),
                             "launches": at_n["cell_kuf"]},
-            "at_64_cells_4096": time_kuf_shape(device, SGPR_CELLS, EXACT_N),
+            "at_64_cells_4096": {**time_kuf_shape(device, FULL_CELLS, TRAIN_BATCH),
+                                 "max_abs_err": full_errs[("cell_kuf", FULL_CELLS, TRAIN_BATCH)]},
             "at_64_cells_face_edges": time_kuf_shape(device, SGPR_CELLS, SGPR_CELLS + 1,
                                                      x_is_mesh=True),
             "at_stretched_mesh": {**time_kuf_shape(device, M_AXIS, SERVE_POINTS, edges=edges),
                                   "launches": stretched["launches"]["cell_kuf"],
                                   "max_abs_err": stretched["errs"]["cell_kuf"]},
             "at_stretched_face_edges": time_kuf_shape(device, M_AXIS, M_AXIS + 1,
-                                                      x_is_mesh=True, edges=edges)},
+                                                      x_is_mesh=True, edges=edges),
+            "at_15_cells": {**time_kuf_shape(device, ZOO_CELLS, ZOO_N),
+                            "max_abs_err": full_errs[("cell_kuf", ZOO_CELLS, ZOO_N)]},
+            "at_512_cells_4096_one_axis": {
+                "max_abs_err": full_errs[("cell_kuf", FULL1D_CELLS, TRAIN_BATCH)]}},
         "cell_kuf_with_dl": {
             "at_64_cells": {**time_kuf_shape(device, SGPR_CELLS, SGPR_N, name="cell_kuf_with_dl"),
                             "launches": at_n["cell_kuf_with_dl"]},
             "at_stretched_mesh": {**time_kuf_shape(device, M_AXIS, TRAIN_BATCH,
                                                    name="cell_kuf_with_dl", edges=edges),
                                   "launches": stretched["launches"]["cell_kuf_with_dl"],
-                                  "max_abs_err": stretched["errs"]["cell_kuf_with_dl"]}},
+                                  "max_abs_err": stretched["errs"]["cell_kuf_with_dl"]},
+            "at_64_cells_4096": {
+                **time_kuf_shape(device, FULL_CELLS, TRAIN_BATCH, name="cell_kuf_with_dl"),
+                "max_abs_err": full_errs[("cell_kuf_with_dl", FULL_CELLS, TRAIN_BATCH)]},
+            "at_512_cells_4096_one_axis": {
+                "max_abs_err": full_errs[("cell_kuf_with_dl", FULL1D_CELLS, TRAIN_BATCH)]},
+            "at_15_cells": {**time_kuf_shape(device, ZOO_CELLS, ZOO_N, name="cell_kuf_with_dl"),
+                            "max_abs_err": full_errs[("cell_kuf_with_dl", ZOO_CELLS, ZOO_N)]}},
+        "fused_banded_whiten_kuf": {
+            "at_one_axis_16384": {"max_abs_err": full_errs[
+                ("fused_banded_whiten_kuf", FULL1D_CELLS, FUSED_BATCH)]}},
     }
     rows = measure_kernels(device, errs, launches, shapes)
     timings["card"] = card

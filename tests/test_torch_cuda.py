@@ -352,3 +352,83 @@ def test_cuda_collapsed_bound_matches_cpu_f64(cuda):
                                    "fused_banded_whiten_kuf": 0}
         out[tag] = {"loss": val, **grads}
     check_quantities("collapsed bound", out["card"], out["f64"], out["f32"], 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("m,n", [(15, 20000), (64, 4096), (512, 4096)])
+def test_cuda_cell_kernels_at_the_full_family_and_zoo_shapes(cuda, dtype, rtol, m, n):
+    """Both cell kernels at the shapes of the full family and the zoo: the
+    2-D full family's (64, 4096), the 1-D full family's (512, 4096) on
+    points over [0, 1], and the zoo's odd 15 cells at (15, 20 000); one
+    launch each, 1e-12 (f64) and 2e-5 (f32) of the plain version."""
+    rng = np.random.default_rng(m)
+    mesh = torch.linspace(0.0, 1.0, m + 1, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    x = torch.as_tensor(rng.random(n), dtype=dtype, device=cuda)
+    v = torch.tensor(1.3, dtype=dtype, device=cuda)
+    ell = torch.tensor(0.27, dtype=dtype, device=cuda)
+    ck.reset_launch_counts()
+    pairs = [(ck.cell_kuf(mesh, x, v, ell), ck.cell_kuf_plain(mesh, x, v, ell))]
+    pairs += zip(ck.cell_kuf_with_dl(mesh, x, v, ell), ck.cell_kuf_with_dl_plain(mesh, x, v, ell))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0}
+    for got, want in pairs:
+        assert got.shape == want.shape == (m, n)
+        assert float((got - want).abs().max() / want.abs().max()) < rtol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_fused_kernel_on_one_axis_matches_plain(cuda, dtype):
+    """The fused kernel at the 1-D full family's (512, 16 384) on points
+    over [0, 1], at the main path's precisions: a at 1e-12 (f64) and 2e-5
+    (f32), t at 1e-12 and 1e-3; one launch."""
+    rng = np.random.default_rng(3)
+    mesh = torch.linspace(0.0, 1.0, 513, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    x = torch.as_tensor(rng.random(16384), dtype=dtype, device=cuda)
+    v = torch.tensor(1.3, dtype=dtype, device=cuda)
+    ell = torch.tensor(0.27, dtype=dtype, device=cuda)
+    finv = kms.m12_cell_inv_chol(512, 1.0 / 512, v, ell, 1e-6)
+    before = ck.LAUNCHES["fused_banded_whiten_kuf"]
+    got = ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell, "highest", "high")
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fused_banded_whiten_kuf"] == before + 1
+    want = ck.fused_banded_whiten_kuf_plain(finv, mesh, x, v, ell, "highest", "high")
+    f64 = dtype == torch.float64
+    for g, w, tol in zip(got, want, (1e-12 if f64 else 2e-5, 1e-12 if f64 else 1e-3)):
+        assert float((g - w).abs().max() / w.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", ["cells", "points", "vff", "b3"])
+def test_cuda_full_family_matches_cpu_f64(cuda, feature):
+    """The 1-D full-family SVGP with a learned mean, its loss on the card in
+    f32 against the CPU in f64 (rtol 1e-4, as the f32 CPU check): cells
+    through the kernels (one cell_kuf_with_dl launch), points, VFF and B3
+    in plain torch (none)."""
+    from vggp_tpu_torch import B3SplineFeature, FourierFeature, PointFeature
+
+    rng = np.random.default_rng(1)
+    feat, kind = {"cells": (CellIntegralFeature.from_lims(64, 0.0, 1.0), "matern12"),
+                  "points": (PointFeature(32, np.linspace(0.0, 1.0, 32)), "matern32"),
+                  "vff": (FourierFeature(12, 0.0, 1.0), "matern32"),
+                  "b3": (B3SplineFeature(20, 0.0, 1.0), "matern52")}[feature]
+    spec = SVGPSpec(kinds=(kind,), features=(feat,), num_data=10_000, learn_mean=True,
+                    jitter=1e-6 if kind == "matern12" else 1e-4)
+    p_np = convert.params_to_numpy(spec.init_params(torch.float64, "cpu"))
+    p_np["axes"][0]["lengthscale"] = np.asarray(0.2)
+    p_np["mean"] = np.asarray(0.3)
+    p_np["q"]["mu"] = 0.3 * rng.standard_normal(feat.m)
+    x = rng.random(512)
+    y = np.sin(6 * x) + 0.1 * rng.standard_normal(512)
+    want = float(svgp.loss(spec, convert.params_from_jax(p_np, "cpu", torch.float64),
+                           torch.tensor(x), torch.tensor(y)))
+    ck.reset_launch_counts()
+    p = train.tree_map(lambda t: t.requires_grad_(), convert.params_from_jax(p_np, cuda,
+                                                                             torch.float32))
+    got = svgp.loss(spec, p, torch.tensor(x, dtype=torch.float32, device=cuda),
+                    torch.tensor(y, dtype=torch.float32, device=cuda))
+    got.backward()
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cell_kuf_with_dl"] == (1 if feature == "cells" else 0)
+    np.testing.assert_allclose(float(got.detach()), want, rtol=1e-4)

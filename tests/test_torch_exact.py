@@ -183,10 +183,20 @@ def test_unported_options_raise(what):
             with pytest.raises(ValueError, match="once-differentiable"):
                 mod.posterior_grad(spec, p_of(spec), X, y, xs, axis=0)
         return
+    if what == "learned_mean":
+        # ported since: a per-output mean vector without a coregion axis
+        # raises what the JAX package raises
+        for mod, X, y, vec, p_of in (
+                (jexact, jnp.ones((5, 2)) * 0.3, jnp.ones(5), jnp.zeros(2),
+                 lambda spec: spec.init_params()),
+                (exact, torch.rand(5, 2), torch.rand(5), torch.zeros(2),
+                 lambda spec: spec.init_params(device="cpu"))):
+            spec = mod.ExactGPSpec(_KINDS, learn_mean=True)
+            with pytest.raises(ValueError, match="per-output mean"):
+                mod.loss(spec, {**p_of(spec), "mean": vec}, X, y)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         if what == "coregion":
             exact.ExactGPSpec(("matern12", "coregion"), n_outputs=2)
-        elif what == "per_output_noise":
-            exact.ExactGPSpec(_KINDS, per_output_noise=True)
         else:
-            exact.ExactGPSpec(_KINDS, learn_mean=True)
+            exact.ExactGPSpec(_KINDS, per_output_noise=True)

@@ -448,14 +448,25 @@ def test_unported_options_raise(what):
                     mod.posterior_grad_from_state(spec, p, mod.precompute(spec, p, X, y), xs,
                                                   axis=0)
         return
+    if what == "learned_mean":
+        # ported since: a per-output mean vector without a coregion axis
+        # raises what the JAX package raises
+        for mod, cell, X, y, vec, p_of in (
+                (jsgpr, JaxCellFeature, jnp.ones((6, 2)) * 0.3, jnp.ones(6), jnp.zeros(2),
+                 lambda spec: spec.init_params()),
+                (sgpr, CellIntegralFeature, torch.rand(6, 2), torch.rand(6), torch.zeros(2),
+                 lambda spec: spec.init_params(device="cpu"))):
+            spec = mod.SGPRSpec(kinds=kinds, features=tuple(cell.from_lims(8, 0.0, 1.0)
+                                                            for _ in range(2)), learn_mean=True)
+            with pytest.raises(ValueError, match="per-output mean"):
+                mod.loss(spec, {**p_of(spec), "mean": vec}, X, y)
+        return
     feats = tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         if what == "eigh_factor":
             sgpr.SGPRSpec(kinds=kinds, features=feats, factor_method="eigh")
         elif what == "per_output_noise":
             sgpr.SGPRSpec(kinds=kinds, features=feats, per_output_noise=True)
-        elif what == "learned_mean":
-            sgpr.SGPRSpec(kinds=kinds, features=feats, learn_mean=True)
         elif what == "coregion":
             sgpr.SGPRSpec(kinds=("matern12", "coregion"), features=feats)
         else:

@@ -414,8 +414,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 # Cases ported since they were written: each now checks that the port raises
 # what the JAX package raises for the same call (an unknown kind in Kuf, a
-# Matérn-1/2 axis in a gradient head).
-_RAISES_AS_JAX = {"kind": KeyError, "posterior_grad": ValueError}
+# Matérn-1/2 axis in a gradient head, the Kronecker family on one axis now
+# that the full family is ported, a per-output mean vector without a
+# coregion axis now that the constant mean is).
+_RAISES_AS_JAX = {"kind": KeyError, "posterior_grad": ValueError, "full_family": ValueError,
+                  "learned_mean": ValueError}
 
 
 @pytest.mark.parametrize("what", ["full_family", "likelihood", "kind", "learned_mean",
@@ -426,7 +429,19 @@ def test_unported_options_raise(what):
         jfeats = tuple(JaxCellFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
         for pkg, fs in (("jax", jfeats), ("port", feats)):
             with pytest.raises(_RAISES_AS_JAX[what]):
-                if what == "kind":
+                if what == "full_family":
+                    (jsvgp if pkg == "jax" else svgp).SVGPSpec(
+                        kinds=("matern12",), features=fs[:1], num_data=10, variational="kron")
+                elif what == "learned_mean":
+                    mod = jsvgp if pkg == "jax" else svgp
+                    spec = mod.SVGPSpec(kinds=("matern12",) * 2, features=fs, num_data=10,
+                                        variational="kron")
+                    p0 = spec.init_params() if pkg == "jax" else spec.init_params(device="cpu")
+                    vec, X, y = ((jnp.zeros(2), jnp.ones((4, 2)) * 0.5, jnp.ones(4))
+                                 if pkg == "jax" else
+                                 (torch.zeros(2), torch.rand(4, 2), torch.rand(4)))
+                    mod.loss(spec, {**p0, "mean": vec}, X, y)
+                elif what == "kind":
                     p = ({"variance": jnp.asarray(1.0), "lengthscale": jnp.asarray(0.3)}
                          if pkg == "jax" else
                          {"variance": torch.tensor(1.0), "lengthscale": torch.tensor(0.3)})
@@ -443,19 +458,13 @@ def test_unported_options_raise(what):
                                         axis=0)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        if what == "full_family":
-            svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10)
-        elif what == "likelihood":    # per-output noise under a non-Gaussian likelihood
+        if what == "likelihood":    # per-output noise under a non-Gaussian likelihood
             spec = svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
                                  variational="kron", likelihood="student_t")
             params = {**spec.init_params(device="cpu"), "noise": torch.full((2,), 0.1)}
             svgp.loss(spec, params, torch.rand(4, 2), torch.rand(4))
         elif what == "coregion_gram":
             vggp_tpu_torch.kernels.axis_gram("coregion", {}, torch.zeros(3), torch.zeros(3))
-        elif what == "eigh_factor":
+        else:
             svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
                           variational="kron", factor_method="eigh")
-        else:
-            spec = svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
-                                 variational="kron")
-            svgp.q_v(spec, {**spec.init_params(device="cpu"), "mean": torch.tensor(0.5)}, feats)

@@ -5,8 +5,10 @@ module layout and parameter trees. Entry points run on ``cuda`` unless the
 caller passes another device, and raise when no card is present.
 """
 
-from vggp_tpu_torch import config, convert, features, kernels, likelihoods, train  # noqa: F401
-from vggp_tpu_torch.features import CellIntegralFeature  # noqa: F401
+from vggp_tpu_torch import basis, config, convert, features, kernels, likelihoods, train  # noqa: F401
+from vggp_tpu_torch.features import (  # noqa: F401
+    AxisFeature, B1SplineFeature, B2SplineFeature, B3SplineFeature, CellIntegralFeature,
+    FourierFeature, PointFeature, SplineRKHSFeature)
 from vggp_tpu_torch.models import common, exact, sgpr, svgp  # noqa: F401
 from vggp_tpu_torch.models.common import Gaussian  # noqa: F401
 from vggp_tpu_torch.models.exact import ExactGP, ExactGPSpec  # noqa: F401

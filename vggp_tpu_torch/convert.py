@@ -1,10 +1,14 @@
 """Carry parameter trees between the JAX package and the port.
 
 Both packages use the same trees: ``{"axes": ({"variance", "lengthscale"},
-…), "noise"}``, which the collapsed and exact GPs take as they are and the
-SVGP extends with ``"q": {"mu", "raw_L1", "raw_L2"}``. Across the boundary
-their leaves are numpy arrays (``numpy.asarray`` of a JAX tree gives them),
-so the port never imports JAX.
+…), "noise"}``, which the collapsed and exact GPs take as they are. A point
+feature's axis adds its inducing locations ``"z"``; a model with a learned
+constant mean adds ``"mean"``; the SVGP adds ``"q"``, ``{"mu", "raw_L"}``
+for the full variational family and ``{"mu", "raw_L1", "raw_L2", …}`` for
+the Kronecker one. Across the boundary the leaves are numpy arrays
+(``numpy.asarray`` of a JAX tree gives them), so the port never imports JAX;
+feature objects are not part of the tree and are built on each side from
+the same numpy arguments.
 """
 
 from __future__ import annotations

@@ -1,11 +1,21 @@
-"""Inducing features of the port: the B0 cell-integral feature
-(``vggp_tpu/features.py:1128-1374``) for the Matérn-1/2, 3/2, 5/2 and RBF
-kernels on uniform and non-uniform meshes, with its cell/point (Kuf),
-cell/cell (Kuu, and Kvu against the cells of a serving grid) covariances and
-the cell/point derivative blocks of the gradient heads.
+"""Inducing features of the port (``vggp_tpu/features.py``), one family per
+input axis, each with its covariance blocks Kuu (m, m), Kuf (m, n) against
+f(x) and Kvu (g, m) against the B0 cell integrals of a serving grid:
 
-The Matérn-1/2 Kuf takes the ``cell_kuf`` kernels on any mesh; the other
-kinds are plain torch, as the JAX package computes them in jnp.
+- :class:`AxisFeature`, the base class: dense fallbacks, the forward-mode
+  ℓ- and x-tangents of Kuf, and ``None`` from the cell-only hooks of the
+  scalar-tangent whitening (``models.common``);
+- :class:`PointFeature`, free inducing points (the SVGP), z learnable;
+- :class:`FourierFeature`, variational Fourier features (VFF) on [a, b]
+  with a diagonal-plus-low-rank Kuu and the Markov continuation outside;
+- :class:`B1SplineFeature` and :class:`SplineRKHSFeature` (B2, B3), the
+  B-spline RKHS features of ASVGP;
+- :class:`CellIntegralFeature`, the B0 cell integrals of the GriddedGP, for
+  the Matérn-1/2, 3/2, 5/2 and RBF kernels on uniform and non-uniform
+  meshes, with the cell/point derivative blocks of the gradient heads.
+
+The Matérn-1/2 cell Kuf takes the ``cell_kuf`` kernels on any mesh;
+everything else is plain torch, as the JAX package computes it in jnp.
 """
 
 from __future__ import annotations
@@ -19,8 +29,8 @@ import torch
 
 from vggp_tpu_torch import config, kernels
 from vggp_tpu_torch.ops import cell_kuf as ck
-from vggp_tpu_torch.ops import toeplitz
-from vggp_tpu_torch.ops.stablemath import expm1mx, expm1s
+from vggp_tpu_torch.ops import diag_lowrank, toeplitz
+from vggp_tpu_torch.ops.stablemath import expm1mx, expm1s, gamma2_lower, gamma3_lower
 
 Params = Dict
 
@@ -336,19 +346,596 @@ def ell_tangent(fn, ell):
     """(fn(ℓ), ∂fn(ℓ)/∂ℓ) by forward-mode AD: one pass with a dual ℓ of unit
     tangent (``torch.autograd.forward_ad``). The tensors fn creates stay
     plain, unlike under ``torch.func.jvp``, which wraps them, so the device
-    caches it fills (``mesh_j``, the GL-24 constants) stay usable after it."""
+    caches it fills (``mesh_j``, the GL-24 constants) stay usable after it.
+    A function that does not read ℓ (a spline basis) has a zero tangent."""
     import torch.autograd.forward_ad as fwAD
 
     with fwAD.dual_level():
+        if not torch._C._is_fwd_grad_enabled():
+            raise RuntimeError("forward-mode AD is off here (as inside an "
+                               "autograd.Function's forward)")
         primal, tangent = fwAD.unpack_dual(fn(fwAD.make_dual(ell, torch.ones_like(ell))))
-    if tangent is None:
-        raise RuntimeError("forward-mode AD carried no tangent (is it off here, as inside "
-                           "an autograd.Function's forward?)")
-    return primal, tangent
+    return primal, torch.zeros_like(primal) if tangent is None else tangent
+
+
+def _cached(cache: dict, key, make):
+    """``cache[key]``, made by ``make()`` on first use. A tensor made under a
+    ``torch.func`` transform is a wrapper that does not outlive it, so it is
+    returned but not kept."""
+    t = cache.get(key)
+    if t is None:
+        t = make()
+        if not torch._C._functorch.is_functorch_wrapped_tensor(t):
+            cache[key] = t
+    return t
+
+
+def _x_tangent(fn, x):
+    """∂fn(x)/∂x column-wise, by forward mode with a unit tangent on every
+    input (exact where column n depends on x_n alone). ``torch.func.jvp``,
+    so that it nests (:meth:`AxisFeature.dKuf_dx2`)."""
+    return torch.func.jvp(fn, (x,), (torch.ones_like(x),))[1]
+
+
+class AxisFeature:
+    """Base class of the per-axis features (``features.py:432-512``):
+    concrete features implement ``Kuu``, ``Kuf`` and ``Kvu``. The hooks of
+    the scalar-tangent whitening that only the Matérn-1/2 cells have return
+    None here, so every other fixed basis takes the dense factor and the
+    forward-mode tangents there."""
+
+    m: int
+
+    def init_params(self, dtype=None, device=None) -> Dict:
+        """Feature-owned learnable parameters: none for a fixed basis."""
+        return {}
+
+    def _constant(self, name: str, array, like: torch.Tensor) -> torch.Tensor:
+        """The static numpy ``array`` as a tensor of ``like``'s dtype and
+        device, copied to the device once."""
+        return _cached(self._cache, (name, like.dtype, like.device),
+                       lambda: torch.as_tensor(array, dtype=like.dtype, device=like.device))
+
+    def kuu_matvec(self, kind: str, p: Params, v: torch.Tensor) -> torch.Tensor:
+        """Kuu @ v, dense; structured features override."""
+        return self.Kuu(kind, p) @ v
+
+    def kuu_diag(self, kind: str, p: Params) -> torch.Tensor:
+        """diag(Kuu), dense; structured features override (a row sum is no
+        proxy: the B1 Gram's negative off-diagonals cancel its rows)."""
+        return torch.diagonal(self.Kuu(kind, p))
+
+    def kuu_first_row_dl(self, kind: str, p: Params):
+        """∂(Toeplitz first row of Kuu)/∂ℓ in closed form, or None: the
+        caller takes a forward-mode tangent of Kuu."""
+        return None
+
+    def extra_f32_jitter(self, kind: str) -> float:
+        """Per-(feature, kind) float32 jitter floor on top of
+        ``common.KIND_JITTER_F32``: none by default."""
+        return 0.0
+
+    def inv_chol_kuu(self, kind: str, p: Params, rel_jitter: float):
+        """Closed-form F⁻¹ of the jittered Kuu, or None (the dense factor)."""
+        return None
+
+    def whiten_band_ratio(self, kind: str, p: Params, rel_jitter: float):
+        """Geometric decay ratio of a banded F⁻¹, or None."""
+        return None
+
+    def whitened_kuf_fused(self, kind: str, p: Params, finv, ratio, x):
+        """(F⁻¹Kuf, F⁻¹∂Kuf/∂ℓ) from one fused kernel, or None."""
+        return None
+
+    def Kuf_dl(self, kind: str, p: Params, x: torch.Tensor):
+        """∂Kuf/∂ℓ in closed form, or None: :meth:`Kuf_with_dl` then takes
+        the forward-mode tangent of :meth:`Kuf`."""
+        return None
+
+    def Kuf_with_dl(self, kind: str, p: Params, x: torch.Tensor):
+        """(Kuf, ∂Kuf/∂ℓ) as values for the scalar-tangent whitening: Kuf
+        with :meth:`Kuf_dl`, or both from one forward-mode pass in ℓ."""
+        dkuf = self.Kuf_dl(kind, p, x)
+        if dkuf is None:
+            return ell_tangent(lambda t: self.Kuf(kind, {**p, "lengthscale": t}, x),
+                               p["lengthscale"])
+        return self.Kuf(kind, p, x), dkuf
+
+    def dKuf_dx(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """Cov(u_i, ∂f(x_n)), (m, n): one forward-mode pass through Kuf
+        with a unit tangent on every input; closed forms override."""
+        return _x_tangent(lambda t: self.Kuf(kind, p, t), x.reshape(-1))
+
+    def dKuf_dx2(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """Cov(u_i, ∂²f(x_n)): forward mode through :meth:`dKuf_dx`."""
+        return _x_tangent(lambda t: self.dKuf_dx(kind, p, t), x.reshape(-1))
+
+    def kvu_quadrature(self, kind: str, p: Params, grid: "CellIntegralFeature",
+                       n_quad: int = 512) -> torch.Tensor:
+        """Kvu by the trapezoidal rule over each grid cell (a test oracle
+        for the closed forms)."""
+        ls = p["lengthscale"]
+        out = []
+        for lo, hi in zip(grid.mesh[:-1], grid.mesh[1:]):
+            ts = np.linspace(lo, hi, n_quad)
+            vals = self.Kuf(kind, p, torch.as_tensor(ts, dtype=ls.dtype, device=ls.device))
+            out.append(np.trapezoid(vals.detach().cpu().numpy(), ts, axis=1))
+        return torch.as_tensor(np.stack(out, axis=0))
 
 
 @dataclass(frozen=True)
-class CellIntegralFeature:
+class PointFeature(AxisFeature):
+    """Free inducing points u_i = f(z_i) along one axis (the SVGP). ``z``
+    is learnable and lives in the axis's parameter dict."""
+
+    m: int
+    z_init: np.ndarray = None  # (m,) initial locations
+
+    def init_params(self, dtype=torch.float32, device=None) -> Dict:
+        z = self.z_init if self.z_init is not None else np.linspace(0.0, 1.0, self.m)
+        return {"z": torch.as_tensor(z, dtype=dtype, device=device)}
+
+    def Kuu(self, kind: str, p: Params) -> torch.Tensor:
+        return kernels.gram_1d(kind, p["z"], p["z"], p["variance"], p["lengthscale"])
+
+    def Kuf(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+        return kernels.gram_1d(kind, p["z"], x, p["variance"], p["lengthscale"])
+
+    def Kvu(self, kind: str, p: Params, grid: "CellIntegralFeature") -> torch.Tensor:
+        return _cell_point_cov(kind, grid.mesh_j(p), p["z"], p["variance"], p["lengthscale"])
+
+    def dKuf_dx(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """Cov(f(z_i), ∂f(x_n)) = k′(x_n − z_i), in closed form."""
+        d = x.reshape(-1)[None, :] - p["z"].reshape(-1)[:, None]
+        return kernels.dk_dr(kind, d, p["variance"], p["lengthscale"])
+
+    def dKuf_dx2(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """Cov(f(z_i), ∂²f(x_n)) = k″(x_n − z_i), in closed form."""
+        d = x.reshape(-1)[None, :] - p["z"].reshape(-1)[:, None]
+        return -kernels.neg_d2k_dr2(kind, d, p["variance"], p["lengthscale"])
+
+
+@dataclass(frozen=True)
+class FourierFeature(AxisFeature):
+    """Variational Fourier features on [a, b] (VFF): ω_j = 2πj/(b − a),
+    features [cos_0 … cos_M, sin_1 … sin_M] (m = 2M + 1), Kuu the diagonal
+    plus low-rank form of :meth:`kuu_diag_lowrank`."""
+
+    n_frequencies: int
+    a: float
+    b: float
+    _cache: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+
+    @property
+    def m(self) -> int:
+        return 2 * self.n_frequencies + 1
+
+    def omegas(self, like: torch.Tensor) -> torch.Tensor:
+        """The M + 1 frequencies 2πj/(b − a), in ``like``'s dtype and on its
+        device."""
+        return self._constant("omegas", (2.0 * np.pi) * np.arange(self.n_frequencies + 1)
+                              / (self.b - self.a), like)
+
+    def kuu_diag_rank1(self, kind: str, p: Params):
+        """(α, β) of Kuu = diag(α) + ββᵀ, Matérn-1/2 only."""
+        if kind != "matern12":
+            raise NotImplementedError("rank-1 VFF Kuu only for matern12; use kuu_diag_lowrank")
+        alpha, W = self.kuu_diag_lowrank(kind, p)
+        return alpha, W[:, 0]
+
+    def kuu_diag_lowrank(self, kind: str, p: Params):
+        """(α, W) of Kuu = diag(α) + W Wᵀ for Matérn-1/2, 3/2 and 5/2, from
+        the Markov-state form of the interval RKHS inner product: the
+        integral term is diagonal over the harmonics, (T/2)/S(ω_j) with the
+        j = 0 cosine doubled; the boundary term is the low-rank part, with
+        x_j = (ω_j/λ)²:
+
+        - 1/2: rank 1, β = 1/σ on cos;
+        - 3/2: rank 2, β₁ = 1/σ on cos, β₂ = ω/(σλ) on sin;
+        - 5/2: rank 3, β₁ = (3 − x)/(√8σ) and β₂ = x/σ on cos,
+          β₃ = √3·ω/(σλ) on sin.
+        """
+        om = self.omegas(p["lengthscale"])
+        s_inv = 1.0 / kernels.spectral_density(kind, om, p["variance"], p["lengthscale"])
+        alpha = (self.b - self.a) / 2.0 * torch.cat([2.0 * s_inv[:1], s_inv[1:], s_inv[1:]])
+        sigma = torch.sqrt(p["variance"])
+        zc, zs = torch.zeros_like(om), torch.zeros_like(om[1:])
+        if kind == "matern12":
+            cols = [torch.cat([torch.ones_like(om) / sigma, zs])]
+        elif kind in ("matern32", "matern52"):
+            lmbda = kernels.lam(kind, p["lengthscale"])
+            b_sin = om[1:] / (sigma * lmbda)
+            if kind == "matern32":
+                cols = [torch.cat([torch.ones_like(om) / sigma, zs]), torch.cat([zc, b_sin])]
+            else:
+                x = (om / lmbda) ** 2
+                cols = [torch.cat([(3.0 - x) / (sigma * math.sqrt(8.0)), zs]),
+                        torch.cat([x / sigma, zs]),
+                        torch.cat([zc, math.sqrt(3.0) * b_sin])]
+        else:
+            raise NotImplementedError(f"VFF Kuu closed form for {kind}")
+        return alpha, torch.stack(cols, dim=1)
+
+    def Kuu(self, kind: str, p: Params) -> torch.Tensor:
+        return diag_lowrank.diag_lowrank_dense(*self.kuu_diag_lowrank(kind, p))
+
+    def Kuf(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """The basis Φ(x), (m, n): cos(ω(x − a)) and sin(ω(x − a)) inside
+        [a, b); outside, the Matérn-order Markov continuation, decaying with
+        r = min(|x − a|, |x − b|). The sin continuation carries +ωr e^{−λr}
+        past b and −ωr e^{−λr} before a (extrapolating backwards flips the
+        derivative term); the reference's ``fourier.py`` has the opposite
+        sign and, for 5/2, ½(λ² + ω²r²) in place of ½(λ² − ω²)r², both
+        discontinuous at the boundary and not copied."""
+        x = x.reshape(-1)
+        om = self.omegas(x)
+        inside = ((x >= self.a) & (x < self.b))[None, :]
+        xr = x - self.a
+        cos_in = torch.cos(om[:, None] * xr[None, :])
+        sin_in = torch.sin(om[1:, None] * xr[None, :])
+        r = torch.minimum(torch.abs(x - self.a), torch.abs(x - self.b))
+        s = torch.where(x < self.a, -1.0, 1.0)
+        lmbda = kernels.lam(kind, p["lengthscale"])
+        e = torch.exp(-lmbda * r)
+        if kind == "matern12":
+            cos_out = e[None, :]
+            sin_out = torch.zeros_like(sin_in)
+        elif kind == "matern32":
+            cos_out = ((1.0 + lmbda * r) * e)[None, :]
+            sin_out = (s * r * e)[None, :] * om[1:, None]
+        elif kind == "matern52":
+            # e^{Fr} of (d/dt + λ)³ on the edge state (1, 0 or ±ω, −ω² or 0)
+            cos_out = (1.0 + lmbda * r[None, :]
+                       + 0.5 * (lmbda ** 2 - om[:, None] ** 2) * r[None, :] ** 2) * e[None, :]
+            sin_out = (s * r * (1.0 + lmbda * r) * e)[None, :] * om[1:, None]
+        else:
+            raise NotImplementedError(f"Fourier basis continuation for {kind}")
+        return torch.cat([torch.where(inside, cos_in, cos_out),
+                          torch.where(inside, sin_in, sin_out)], dim=0)
+
+    def _tail_integrals(self, kind: str, lam, om, r0, h):
+        """∫ of the Markov continuation over r ∈ [r0, r0 + h] ((g, 1) each):
+        the cos block (g, M + 1), the ω = 0 constant as column 0, and the
+        unsigned sin block (g, M). The moments ∫ rⁿ e^{−λr} go through
+        γ(n + 1, ·) (``ops.stablemath``): the direct antiderivative
+        differences cancel like (λh)ⁿ⁺¹ on short cells."""
+        x = lam * h
+        e0 = torch.exp(-lam * r0)
+        i0 = e0 * (-expm1s(-x)) / lam                 # ∫ e^{−λr}
+        j1 = e0 * gamma2_lower(x) / (lam * lam)       # ∫ (r − r0) e^{−λr}
+        i1 = r0 * i0 + j1                             # ∫ r e^{−λr}
+        if kind == "matern12":
+            cos_t = i0.expand(-1, om.shape[0])
+            sin_t = torch.zeros((r0.shape[0], om.shape[0] - 1), dtype=r0.dtype,
+                                device=r0.device)
+        elif kind == "matern32":
+            cos_t = (i0 + lam * i1).expand(-1, om.shape[0])
+            sin_t = om[None, 1:] * i1
+        else:
+            k2 = e0 * gamma3_lower(x) / lam ** 3
+            i2 = r0 * r0 * i0 + 2.0 * r0 * j1 + k2    # ∫ r² e^{−λr}
+            cos_t = i0 + lam * i1 + 0.5 * (lam * lam - om[None, :] ** 2) * i2
+            sin_t = om[None, 1:] * (i1 + lam * i2)
+        return cos_t, sin_t
+
+    def Kvu(self, kind: str, p: Params, grid: "CellIntegralFeature") -> torch.Tensor:
+        """Cell integrals of the basis, (g, m), inside and outside [a, b]:
+        inside ∫1 = the overlap, ∫cos = (sin(ω(β − a)) − sin(ω(α − a)))/ω,
+        ∫sin = −(cos(ω(β − a)) − cos(ω(α − a)))/ω; a cell reaching past
+        [a, b] adds the integrals of the continuation (:meth:`Kuf`) over its
+        left and right tails. A grid inside [a, b] skips them (a static
+        check of its mesh)."""
+        mesh = grid.mesh_j(p)
+        om = self.omegas(mesh)
+        al, be = mesh[:-1, None], mesh[1:, None]
+        ai = torch.clamp(al, self.a, self.b) - self.a
+        bi = torch.clamp(be, self.a, self.b) - self.a
+        col0 = bi - ai
+        w = om[None, 1:]
+        cos_int = (torch.sin(w * bi) - torch.sin(w * ai)) / w
+        sin_int = -(torch.cos(w * bi) - torch.cos(w * ai)) / w
+        if grid.mesh[0] < self.a - 1e-12 or grid.mesh[-1] > self.b + 1e-12:
+            if kind not in ("matern12", "matern32", "matern52"):
+                raise NotImplementedError(
+                    f"FourierFeature.Kvu outside [a, b] needs the Markov continuation, "
+                    f"defined for Matérn kinds only (got {kind!r})")
+            lam = kernels.lam(kind, p["lengthscale"])
+            # right tail x = b + r; left tail x = a − r (dx = −dr, and s = −1 flips sin)
+            cos_r, sin_r = self._tail_integrals(
+                kind, lam, om, torch.clamp(al - self.b, min=0.0),
+                torch.clamp(be - torch.clamp(al, min=self.b), min=0.0))
+            cos_l, sin_l = self._tail_integrals(
+                kind, lam, om, torch.clamp(self.a - be, min=0.0),
+                torch.clamp(torch.clamp(be, max=self.a) - al, min=0.0))
+            col0 = col0 + cos_r[:, :1] + cos_l[:, :1]
+            cos_int = cos_int + cos_r[:, 1:] + cos_l[:, 1:]
+            sin_int = sin_int + sin_r - sin_l
+        return torch.cat([col0, cos_int, sin_int], dim=1)
+
+
+def _require_uniform_mesh(mesh: np.ndarray, who: str) -> None:
+    """Reject a non-uniform mesh where Kuu is built from the first spacing."""
+    if len(mesh) < 2:
+        raise ValueError(f"{who}: mesh needs at least 2 points, got {len(mesh)}")
+    d = np.diff(mesh)
+    if not np.all(d > 0):
+        raise ValueError(f"{who}: mesh must be strictly increasing")
+    if not np.allclose(d, d[0], rtol=1e-8, atol=1e-12 * abs(mesh[-1] - mesh[0])):
+        raise ValueError(
+            f"{who}: mesh must be uniformly spaced (Kuu is built from the first spacing "
+            f"only); got spacings in [{d.min():.3e}, {d.max():.3e}]")
+
+
+def _b1_segments(mesh: np.ndarray):
+    """Static (tl, tc, tr) of the B1 hats over ``mesh``: a left half-hat,
+    len(mesh) − 2 interior hats and a right half-hat (a degenerate segment,
+    tl == tc or tc == tr, encodes a half)."""
+    mesh = np.asarray(mesh, dtype=np.float64)
+    tl = np.concatenate([[mesh[0]], mesh[:-2], [mesh[-2]]])
+    tc = np.concatenate([[mesh[0]], mesh[1:-1], [mesh[-1]]])
+    tr = np.concatenate([[mesh[1]], mesh[2:], [mesh[-1]]])
+    return tl, tc, tr
+
+
+@dataclass(frozen=True)
+class B1SplineFeature(AxisFeature):
+    """B1 (hat) spline RKHS features on a uniform mesh (ASVGP). Kuu is the
+    tridiagonal Matérn-1/2 RKHS Gram (ℓ·B + A/ℓ + BC)/(2σ²) with the mass
+    matrix A (∫φφ), the stiffness B (∫φ′φ′) and the boundary diagonal BC;
+    the reference swaps ℓ and 1/ℓ, which is not copied."""
+
+    mesh: np.ndarray  # (n_knots,) uniform
+    _cache: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        mesh = np.asarray(self.mesh, dtype=np.float64)
+        _require_uniform_mesh(mesh, "B1SplineFeature")
+        object.__setattr__(self, "mesh", mesh)
+
+    @property
+    def m(self) -> int:
+        return len(self.mesh)
+
+    @property
+    def delta(self) -> float:
+        return float(self.mesh[1] - self.mesh[0])
+
+    def _ends(self) -> np.ndarray:
+        ends = np.zeros(self.m)
+        ends[[0, -1]] = 1.0
+        return ends
+
+    def _mass_stiff_bc(self):
+        """Static numpy A, B and BC: Toeplitz rows with boundary corrections."""
+        m, d = self.m, self.delta
+        k = np.abs(np.arange(m)[:, None] - np.arange(m)[None, :])
+        ends = self._ends()
+        mass = np.select([k == 0, k == 1], [2.0 * d / 3.0, d / 6.0], 0.0)
+        stiff = np.select([k == 0, k == 1], [2.0 / d, -1.0 / d], 0.0)
+        return (mass + np.diag(ends * (-d / 3.0)), stiff + np.diag(ends * (-1.0 / d)),
+                np.diag(ends))
+
+    def Kuu(self, kind: str, p: Params) -> torch.Tensor:
+        if kind != "matern12":
+            raise NotImplementedError("B1-spline RKHS Kuu implemented for matern12")
+        ls, var = p["lengthscale"], p["variance"]
+        A, B, BC = (self._constant(name, M, ls)
+                    for name, M in zip(("A", "B", "BC"), self._mass_stiff_bc()))
+        return (ls * B + A / ls + BC) / (2.0 * var)
+
+    def kuu_bands(self, kind: str, p: Params) -> torch.Tensor:
+        """(2, m) LAPACK-style bands of :meth:`Kuu`, for O(m) matvecs."""
+        if kind != "matern12":
+            raise NotImplementedError("B1-spline RKHS Kuu implemented for matern12")
+        ls, var = p["lengthscale"], p["variance"]
+        m, d = self.m, self.delta
+        diag = (ls * (2.0 / d) + (2.0 * d / 3.0) / ls) * self._constant("ones", np.ones(m), ls)
+        diag = diag + (ls * (-1.0 / d) + (-d / 3.0) / ls + 1.0) * self._constant(
+            "ends", self._ends(), ls)
+        off = (ls * (-1.0 / d) + (d / 6.0) / ls) * self._constant(
+            "off", 1.0 - np.eye(m)[-1], ls)
+        return torch.stack([diag, off]) / (2.0 * var)
+
+    def kuu_matvec(self, kind: str, p: Params, v: torch.Tensor) -> torch.Tensor:
+        """Kuu @ v by the banded matvec, O(m)."""
+        from vggp_tpu_torch.ops import banded
+
+        return banded.banded_matvec(self.kuu_bands(kind, p), v)
+
+    def kuu_diag(self, kind: str, p: Params) -> torch.Tensor:
+        return self.kuu_bands(kind, p)[0]
+
+    def Kuf(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """The hats Φ(x), (m, n); a half-hat's down-ramp includes its left end."""
+        x = x.reshape(-1)
+        tl_np, tc_np, tr_np = _b1_segments(self.mesh)
+        has_up_np, has_down_np = tc_np > tl_np, tr_np > tc_np
+        tl, tc, tr = (self._constant(n, t, x)[:, None]
+                      for n, t in (("tl", tl_np), ("tc", tc_np), ("tr", tr_np)))
+        up_den = self._constant("up_den", np.where(has_up_np, tc_np - tl_np, 1.0), x)[:, None]
+        down_den = self._constant("down_den", np.where(has_down_np, tr_np - tc_np, 1.0),
+                                  x)[:, None]
+        has_up = torch.as_tensor(has_up_np, device=x.device)[:, None]
+        has_down = torch.as_tensor(has_down_np, device=x.device)[:, None]
+        xt = x[None, :]
+        up = (xt - tl) / up_den
+        down = (tr - xt) / down_den
+        in_up = has_up & (xt >= tl) & (xt <= tc)
+        in_down = has_down & (xt > tc) & (xt <= tr)
+        in_down_l = has_down & ~has_up & (xt == tc)
+        return torch.where(in_up, up, 0.0) + torch.where(in_down | in_down_l, down, 0.0)
+
+    def Kvu(self, kind: str, p: Params, grid: "CellIntegralFeature") -> torch.Tensor:
+        """Exact integrals of each hat over each grid cell, (g, m), for any
+        alignment of the knots and the cells (closed-form ramp integrals)."""
+        mesh = grid.mesh_j(p)
+        tl, tc, tr = (self._constant(n, t, mesh)[None, :]
+                      for n, t in zip(("tl", "tc", "tr"), _b1_segments(self.mesh)))
+        a, b = mesh[:-1, None], mesh[1:, None]
+
+        def ramp(t0, t1, up):
+            # ∫ over [a, b] ∩ [t0, t1] of (x − t0)/(t1 − t0), or of (t1 − x)/(t1 − t0)
+            den = torch.where(t1 > t0, t1 - t0, 1.0)
+            lo = torch.minimum(torch.maximum(a, t0), t1)
+            hi = torch.minimum(torch.maximum(b, t0), t1)
+            val = (((hi - t0) ** 2 - (lo - t0) ** 2) if up
+                   else ((t1 - lo) ** 2 - (t1 - hi) ** 2)) / (2.0 * den)
+            return torch.where(t1 > t0, val, 0.0)
+
+        return ramp(tl, tc, True) + ramp(tc, tr, False)
+
+
+# Matérn order matched to spline smoothness: degree-p splines are C^{p−1},
+# in H_ν for ν = p − 1/2 (the ASVGP order prescription).
+_SPLINE_KIND_BY_DEGREE = {2: "matern32", 3: "matern52"}
+
+
+@dataclass(frozen=True)
+class SplineRKHSFeature(AxisFeature):
+    """B-spline RKHS features of degree 2 (Matérn-3/2) or 3 (Matérn-5/2),
+    ASVGP beyond the reference's B1 hats: open-clamped uniform knots on
+    [a, b] with K intervals, m = K + p functions.
+
+    Kuu is the Markov-state form of the interval RKHS inner product, with
+    L = (d/dt + λ)^p and c the white-noise intensity of S(ω) = c/(λ² + ω²)^p:
+    ⟨φᵢ, φⱼ⟩ = (1/c)·Σ_{r,s≤p} C(p,r)C(p,s) λ^{2p−r−s} ∫φᵢ^(r)φⱼ^(s)
+    + state_i(a)ᵀ P₀⁻¹ state_j(a). The ∫φ^(r)φ^(s) are static banded
+    integrals, exact by Gauss–Legendre at construction, so Kuu is a
+    polynomial in λ. Kuf evaluates the piecewise polynomials branch-free
+    from a static coefficient table; Kvu is a static table of exact spline
+    antiderivatives.
+    """
+
+    degree: int
+    n_intervals: int
+    a: float
+    b: float
+    _cache: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.degree not in _SPLINE_KIND_BY_DEGREE:
+            raise ValueError("SplineRKHSFeature supports degree 2 or 3")
+        if self.n_intervals < self.degree:
+            raise ValueError("need n_intervals >= degree")
+        from scipy.interpolate import BSpline
+
+        deg, K, a, b = self.degree, self.n_intervals, self.a, self.b
+        delta = (b - a) / K
+        interior = np.linspace(a, b, K + 1)
+        T = np.concatenate([[a] * deg, interior, [b] * deg])  # open-clamped
+        m = K + deg
+        splines = [BSpline(T, np.eye(m)[j], deg, extrapolate=False) for j in range(m)]
+        derivs = [[s.derivative(r) if r else s for r in range(deg + 1)] for s in splines]
+        # Gauss–Legendre with deg + 1 points per interval: exact to degree 2·deg + 1
+        gl_x, gl_w = np.polynomial.legendre.leggauss(deg + 1)
+        M = np.zeros((deg + 1, deg + 1, m, m))
+        for i in range(K):
+            lo, hi = interior[i], interior[i + 1]
+            xs = 0.5 * (hi - lo) * gl_x + 0.5 * (hi + lo)
+            ws = 0.5 * (hi - lo) * gl_w
+            act = range(i, min(m, i + deg + 1))  # the bases active on interval i
+            V = {(j, r): np.nan_to_num(derivs[j][r](xs)) for j in act for r in range(deg + 1)}
+            for j in act:
+                for k in act:
+                    for r in range(deg + 1):
+                        for s in range(deg + 1):
+                            M[r, s, j, k] += np.sum(ws * V[(j, r)] * V[(k, s)])
+        eps = 1e-12 * (b - a)
+        state = np.stack([np.array([float(np.nan_to_num(derivs[j][r](a + eps)))
+                                    for j in range(m)]) for r in range(deg)])  # φ^(r)(a)
+        # per-interval coefficients C[i, s, :] in u = (x − a)/δ − i ∈ [0, 1],
+        # recovered exactly by interpolation at deg + 1 nodes
+        C = np.zeros((K, deg + 1, deg + 1))
+        nodes = np.linspace(1e-9, 1 - 1e-9, deg + 1)
+        vander = np.vander(nodes, deg + 1, increasing=True)
+        for i in range(K):
+            pts = a + i * delta + delta * nodes
+            for s in range(deg + 1):
+                if i + s < m:
+                    vals = np.array([float(np.nan_to_num(splines[i + s](t))) for t in pts])
+                    C[i, s] = np.linalg.solve(vander, vals)
+        object.__setattr__(self, "_M", M)
+        object.__setattr__(self, "_state", state)
+        object.__setattr__(self, "_coeffs", C)
+        object.__setattr__(self, "_splines", tuple(splines))
+        object.__setattr__(self, "delta", delta)
+
+    @property
+    def m(self) -> int:
+        return self.n_intervals + self.degree
+
+    @property
+    def kind(self) -> str:
+        return _SPLINE_KIND_BY_DEGREE[self.degree]
+
+    def Kuu(self, kind: str, p: Params) -> torch.Tensor:
+        want = self.kind
+        if kind != want:
+            raise NotImplementedError(
+                f"degree-{self.degree} spline RKHS Kuu pairs with {want} "
+                f"(C^{self.degree - 1} splines live in H_{{{want[-2]}/{want[-1]}}})")
+        ls, var = p["lengthscale"], p["variance"]
+        lam = kernels.lam(kind, ls)
+        deg = self.degree
+        integral = torch.zeros((self.m, self.m), dtype=ls.dtype, device=ls.device)
+        for r in range(deg + 1):
+            for s in range(deg + 1):
+                w = math.comb(deg, r) * math.comb(deg, s)
+                integral = integral + (w * lam ** (2 * deg - r - s)) * self._constant(
+                    f"M{r}{s}", self._M[r, s], ls)
+        out = integral / kernels.white_noise_intensity(kind, var, ls)
+        pinv = kernels.p0_inv_rows(kind, var, ls)
+        for r in range(deg):
+            for s in range(deg):
+                if isinstance(pinv[r][s], float) and pinv[r][s] == 0.0:
+                    continue
+                out = out + pinv[r][s] * torch.outer(
+                    self._constant(f"state{r}", self._state[r], ls),
+                    self._constant(f"state{s}", self._state[s], ls))
+        return out
+
+    def Kuf(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """The piecewise polynomials Φ(x), (m, n), branch-free."""
+        x = x.reshape(-1)
+        K, deg = self.n_intervals, self.degree
+        t = (x - self.a) / self.delta
+        i = torch.clamp(torch.floor(t), 0, K - 1).to(torch.int64)
+        u = t - i
+        ci = self._constant("coeffs", self._coeffs, x)[i]           # (n, deg+1, deg+1)
+        upow = torch.stack([u ** k for k in range(deg + 1)], dim=1)  # (n, deg+1)
+        vals = torch.einsum("nsc,nc->ns", ci, upow)
+        rows = torch.arange(self.m, device=x.device)[:, None]
+        inside = ((x >= self.a) & (x <= self.b))[None, :]
+        out = torch.zeros((self.m, x.shape[0]), dtype=x.dtype, device=x.device)
+        for s in range(deg + 1):
+            out = out + torch.where((rows == (i + s)[None, :]) & inside, vals[:, s][None, :], 0.0)
+        return out
+
+    def Kvu(self, kind: str, p: Params, grid: "CellIntegralFeature") -> torch.Tensor:
+        """Exact integrals of each spline over each grid cell: a static table
+        of antiderivatives at the clipped cell edges."""
+        mesh = np.asarray(grid.mesh)
+        lo, hi = np.clip(mesh[:-1], self.a, self.b), np.clip(mesh[1:], self.a, self.b)
+        tbl = np.zeros((len(mesh) - 1, self.m))
+        for j, s in enumerate(self._splines):
+            A = s.antiderivative()
+            tbl[:, j] = np.nan_to_num(A(hi)) - np.nan_to_num(A(lo))
+        ls = p["lengthscale"]
+        return torch.as_tensor(tbl, dtype=ls.dtype, device=ls.device)
+
+
+def B2SplineFeature(n_intervals: int, a: float, b: float) -> SplineRKHSFeature:
+    """Quadratic-spline ASVGP features (Matérn-3/2)."""
+    return SplineRKHSFeature(2, n_intervals, a, b)
+
+
+def B3SplineFeature(n_intervals: int, a: float, b: float) -> SplineRKHSFeature:
+    """Cubic-spline ASVGP features (Matérn-5/2)."""
+    return SplineRKHSFeature(3, n_intervals, a, b)
+
+
+@dataclass(frozen=True)
+class CellIntegralFeature(AxisFeature):
     """B0 cell-integral features v_i = ∫_{[mesh_i, mesh_{i+1}]} f(t) dt."""
 
     mesh: np.ndarray  # (n_cells + 1,) strictly increasing cell edges
@@ -382,16 +969,10 @@ class CellIntegralFeature:
         """Cell width of a uniform mesh (read only where ``self.uniform``)."""
         return float(self.mesh[1] - self.mesh[0])
 
-    def init_params(self, dtype=None) -> Dict:
-        """Feature-owned learnable parameters: none for a fixed basis."""
-        return {}
-
     def mesh_j(self, p: Params) -> torch.Tensor:
         ell = p["lengthscale"]
-        key = (ell.dtype, ell.device)
-        if key not in self._meshes:
-            self._meshes[key] = torch.as_tensor(self.mesh, dtype=ell.dtype, device=ell.device)
-        return self._meshes[key]
+        return _cached(self._meshes, (ell.dtype, ell.device),
+                       lambda: torch.as_tensor(self.mesh, dtype=ell.dtype, device=ell.device))
 
     def Kuu(self, kind: str, p: Params) -> torch.Tensor:
         """(m, m): the Toeplitz matrix of :meth:`kuu_first_row` on a uniform
@@ -483,8 +1064,7 @@ class CellIntegralFeature:
         if kind == "matern12":
             return ck.cell_kuf_with_dl(self.mesh_j(p), x.contiguous(), p["variance"],
                                        p["lengthscale"])
-        return ell_tangent(lambda t: self.Kuf(kind, {**p, "lengthscale": t}, x),
-                           p["lengthscale"])
+        return super().Kuf_with_dl(kind, p, x)
 
     def whitened_kuf_fused(self, kind: str, p: Params, finv, ratio, x):
         """(a, t) = (F⁻¹Kuf, F⁻¹∂Kuf/∂ℓ) in one fused kernel pass, or None
@@ -534,3 +1114,13 @@ class CellIntegralFeature:
         da = kernels.dk_dr(kind, x - mesh[:-1, None], p["variance"], p["lengthscale"])
         db = kernels.dk_dr(kind, x - mesh[1:, None], p["variance"], p["lengthscale"])
         return da - db
+
+    def basis_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """The B0 indicator basis, (m, n): half-open cells [a_i, b_i) and
+        the last one closed, an exact partition of unity on the mesh (the
+        reference's closed cells count an interior edge twice)."""
+        x = x.reshape(-1)
+        mesh = torch.as_tensor(self.mesh, dtype=x.dtype, device=x.device)
+        a, b = mesh[:-1, None], mesh[1:, None]
+        last = (torch.arange(self.m, device=x.device)[:, None] == self.m - 1) & (x[None, :] == b)
+        return (((x[None, :] >= a) & (x[None, :] < b)) | last).to(x.dtype)

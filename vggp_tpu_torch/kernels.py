@@ -1,7 +1,8 @@
 """Kernel primitives of the port (the part of ``vggp_tpu/kernels.py`` the
 ported heads read): k(r), the Matérn decay rate, dense 1-D Grams, the
-per-axis Gram dispatch, the stable k(0) − k(r), and the derivative kernels
-of the gradient heads."""
+per-axis Gram dispatch, the stable k(0) − k(r), the derivative kernels of
+the gradient heads, and the spectral densities and Markov-state constants
+behind the VFF and spline-RKHS Kuu closed forms."""
 
 from __future__ import annotations
 
@@ -51,6 +52,52 @@ def lam(kind: str, lengthscale):
     if kind == "matern52":
         return SQRT5 / lengthscale
     raise ValueError(f"lambda undefined for {kind}")
+
+
+# Markov (state-space) order p of each Matérn kernel: S(ω) = c/(λ² + ω²)^p,
+# the state (f, f′, …, f^{(p−1)}).
+MARKOV_ORDER = {"matern12": 1, "matern32": 2, "matern52": 3}
+
+
+def white_noise_intensity(kind: str, variance, lengthscale):
+    """c of S(ω) = c/(λ² + ω²)^p, the driving white-noise intensity of the
+    Markov representation (the numerators of :func:`spectral_density`)."""
+    l_ = lam(kind, lengthscale)
+    p = MARKOV_ORDER[kind]
+    if p == 1:
+        return 2.0 * variance * l_
+    if p == 2:
+        return 4.0 * variance * l_ ** 3
+    return (16.0 / 3.0) * variance * l_ ** 5
+
+
+def p0_inv_rows(kind: str, variance, lengthscale):
+    """P₀⁻¹ of the stationary Markov state, as a (p, p) nested tuple; its
+    zeros stay Python floats so a consumer can skip them. P₀ is σ² for
+    p = 1, diag(σ², σ²λ²) for p = 2 and σ²·[[1, 0, −λ²/3], [0, λ²/3, 0],
+    [−λ²/3, 0, λ⁴]] for p = 3."""
+    var = variance
+    l_ = lam(kind, lengthscale)
+    p = MARKOV_ORDER[kind]
+    if p == 1:
+        return ((1.0 / var,),)
+    if p == 2:
+        return ((1.0 / var, 0.0), (0.0, 1.0 / (var * l_ ** 2)))
+    return ((9.0 / (8.0 * var), 0.0, 3.0 / (8.0 * var * l_ ** 2)),
+            (0.0, 3.0 / (var * l_ ** 2), 0.0),
+            (3.0 / (8.0 * var * l_ ** 2), 0.0, 9.0 / (8.0 * var * l_ ** 4)))
+
+
+def spectral_density(kind: str, omega: torch.Tensor, variance, lengthscale) -> torch.Tensor:
+    """Spectral density S(ω): 2σ²λ/(λ² + ω²) for Matérn-1/2, 4σ²λ³/(λ² + ω²)²
+    and (16/3)σ²λ⁵/(λ² + ω²)³ for 3/2 and 5/2, σ²ℓ√(2π)e^{−(ℓω)²/2} for
+    the RBF."""
+    if kind == "rbf":
+        return variance * lengthscale * math.sqrt(2.0 * math.pi) * torch.exp(
+            -0.5 * (lengthscale * omega) ** 2)
+    l_ = lam(kind, lengthscale)
+    return white_noise_intensity(kind, variance, lengthscale) / (
+        (l_ ** 2 + omega ** 2) ** MARKOV_ORDER[kind])
 
 
 def kdiff0(kind: str, r: torch.Tensor, variance, lengthscale) -> torch.Tensor:

@@ -10,6 +10,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -19,7 +20,7 @@ from vggp_tpu_torch.features import ell_tangent
 from vggp_tpu_torch.ops import toeplitz
 from vggp_tpu_torch.ops.chol import (F32_MIN_JITTER, PSDFactor, psd_factor, safe_cholesky,
                                     tri_solve)
-from vggp_tpu_torch.ops.kron import khatri_rao_rows, kron_dense
+from vggp_tpu_torch.ops.kron import khatri_rao_rows, kron_dense, kron_diag
 
 Params = Dict
 
@@ -64,12 +65,6 @@ def floor_var(var: torch.Tensor, ref_diag: torch.Tensor) -> torch.Tensor:
 KIND_JITTER_F32 = {"matern12": 1e-6, "matern32": 1e-4, "matern52": 1e-4, "rbf": 1e-4}
 
 
-def _feature_f32_jitter(feat, kind: str) -> float:
-    """Per-(feature, kind) float32 jitter floor on top of KIND_JITTER_F32
-    (``CellIntegralFeature.extra_f32_jitter``; 0 for a feature without one)."""
-    return getattr(feat, "extra_f32_jitter", lambda k: 0.0)(kind)
-
-
 def axis_rel_jitter(spec, kind: str, dtype, feat=None) -> float:
     """Effective relative Kuu jitter for one axis: ``spec.jitter`` in
     float64; in float32 floored at the per-kernel, the global and, given
@@ -78,7 +73,7 @@ def axis_rel_jitter(spec, kind: str, dtype, feat=None) -> float:
     if dtype != torch.float64:
         jitter = max(jitter, KIND_JITTER_F32.get(kind, 1e-4), F32_MIN_JITTER)
         if feat is not None:
-            jitter = max(jitter, _feature_f32_jitter(feat, kind))
+            jitter = max(jitter, feat.extra_f32_jitter(kind))
     return jitter
 
 
@@ -428,22 +423,41 @@ def grad_grid_kvv(spec, params: Params, grid_axes, axis: int, dense: bool = True
     return kron_dense(blocks) if dense else blocks
 
 
-def _require_no_learned_mean(params: Params) -> None:
-    if params.get("mean") is not None:
-        raise NotImplementedError(f"a learned mean is not ported yet {_NOT_PORTED}")
+def _scalar_mean(spec, params: Params):
+    """The learned constant mean ``params["mean"]``, or None. A vector is a
+    per-output mean, which needs a coregion axis (ValueError without one, as
+    in the JAX package) and is not ported yet (item 10f)."""
+    m = params.get("mean")
+    if m is not None and m.dim() != 0:
+        if "coregion" not in spec.kinds:
+            raise ValueError("vector params['mean'] is a per-output mean and requires a "
+                             "'coregion' axis to carry the output index")
+        raise NotImplementedError("the per-output mean is not ported yet "
+                                  "(ROADMAP queue 1, item 10f: the coregion axis)")
+    return m
 
 
 def mean_fn(spec, params: Params, X: torch.Tensor):
-    """Prior mean m(x): 0.0 (no learned mean) on the ported path."""
-    _require_no_learned_mean(params)
-    return 0.0
+    """Prior mean m(x): the learned constant ``params["mean"]``, or 0.0 when
+    the model learns none. The model is f = m + g with g the zero-mean GP of
+    the inducing machinery: every training head subtracts m from y, every
+    predictive head adds it back, and the gridded heads add its cell
+    integrals (:func:`grid_mean`); a constant has no gradient, so the
+    gradient heads see none."""
+    m = _scalar_mean(spec, params)
+    return 0.0 if m is None else m
 
 
 def grid_mean(spec, params: Params, grid_axes):
-    """Cell integrals of the prior mean over a product grid: 0.0 on the
-    ported path (no learned mean)."""
-    _require_no_learned_mean(params)
-    return 0.0
+    """Exact cell integrals of the constant mean over a product grid, a flat
+    (Π g_i,) vector in the ``numpy.kron`` order: m·Π|cell_i|; 0.0 when the
+    model learns no mean."""
+    m = _scalar_mean(spec, params)
+    if m is None:
+        return 0.0
+    widths = [torch.as_tensor(np.diff(np.asarray(g.mesh)), dtype=m.dtype, device=m.device)
+              for g in grid_axes]
+    return kron_diag(widths) * m
 
 
 def obs_noise(spec, params: Params, X: torch.Tensor):
@@ -540,11 +554,30 @@ def collapsed_posterior(spec, params: Params, state, xstar: torch.Tensor,
     return Gaussian(mean=mean, var=floor_var(var, kss) + noise)
 
 
+def module_params(module: nn.Module, raw: Params) -> None:
+    """Give ``module`` the raw tree's leaves as ``nn.Parameter``s in the
+    layout of the JAX parameter tree: ``axes`` → one ``ParameterDict`` per
+    axis, ``noise``, and the learned ``mean`` where the tree has one."""
+    module.axes = nn.ModuleList(
+        nn.ParameterDict({k: nn.Parameter(v.detach().clone()) for k, v in ax.items()})
+        for ax in raw["axes"])
+    module.noise = nn.Parameter(raw["noise"].detach().clone())
+    module.mean = (nn.Parameter(raw["mean"].detach().clone()) if "mean" in raw else None)
+
+
+def module_raw_params(module: nn.Module) -> Params:
+    """The nested raw tree of :func:`module_params`, its leaves the module's
+    parameters."""
+    out = {"axes": tuple(dict(ax.items()) for ax in module.axes), "noise": module.noise}
+    if module.mean is not None:
+        out["mean"] = module.mean
+    return out
+
+
 class HeldDataModule(nn.Module):
     """A full-batch model as a module (the collapsed and exact GPs): the
     training data as buffers, and the raw (unconstrained) parameters as
-    ``nn.Parameter``s in the layout of the JAX parameter tree (``axes`` →
-    one ``ParameterDict`` per axis, ``noise``). Built from ``params`` or the
+    ``nn.Parameter``s (:func:`module_params`). Built from ``params`` or the
     spec's initial parameters (on ``cuda`` unless ``device`` is given)."""
 
     def __init__(self, spec, X: torch.Tensor, y: torch.Tensor, params: Params = None,
@@ -557,16 +590,13 @@ class HeldDataModule(nn.Module):
         raw = train.unconstrain(params)
         like = raw["noise"]
         self.spec = spec
-        self.axes = nn.ModuleList(
-            nn.ParameterDict({k: nn.Parameter(v.detach().clone()) for k, v in ax.items()})
-            for ax in raw["axes"])
-        self.noise = nn.Parameter(like.detach().clone())
+        module_params(self, raw)
         self.register_buffer("X", X.to(dtype=like.dtype, device=like.device))
         self.register_buffer("y", y.reshape(-1).to(dtype=like.dtype, device=like.device))
 
     def raw_params(self) -> Params:
         """The nested raw tree, its leaves the module's parameters."""
-        return {"axes": tuple(dict(ax.items()) for ax in self.axes), "noise": self.noise}
+        return module_raw_params(self)
 
     def params(self) -> Params:
         """The constrained parameter tree the model functions take."""

@@ -32,12 +32,11 @@ class ExactGPSpec:
     n_outputs: int = 0               # the coregion axis: not ported
     coregion_rank: int = 1
     per_output_noise: bool = False   # not ported
-    learn_mean: bool = False         # not ported
+    learn_mean: bool = False         # a learned constant mean
 
     def __post_init__(self):
         for what, on in (("the coregion axis", "coregion" in self.kinds),
-                         ("per-output noise", self.per_output_noise),
-                         ("a learned mean", self.learn_mean)):
+                         ("per-output noise", self.per_output_noise)):
             if on:
                 raise NotImplementedError(f"{what} is not ported yet {_NOT_PORTED}")
 
@@ -46,16 +45,19 @@ class ExactGPSpec:
         return len(self.kinds)
 
     def init_params(self, dtype=torch.float32, device=None) -> Params:
-        """σ² = ℓ = 1 per axis and noise 0.1, on ``cuda`` unless ``device``
-        is given."""
+        """σ² = ℓ = 1 per axis, noise 0.1 and the mean 0 when it is learned,
+        on ``cuda`` unless ``device`` is given."""
         device = config.resolve_device(device)
 
         def scalar(v):
             return torch.tensor(v, dtype=dtype, device=device)
 
-        return {"axes": tuple({"variance": scalar(1.0), "lengthscale": scalar(1.0)}
-                              for _ in self.kinds),
-                "noise": scalar(0.1)}
+        out = {"axes": tuple({"variance": scalar(1.0), "lengthscale": scalar(1.0)}
+                             for _ in self.kinds),
+               "noise": scalar(0.1)}
+        if self.learn_mean:
+            out["mean"] = scalar(0.0)
+        return out
 
 
 def _chol_ky(spec: ExactGPSpec, params: Params, X: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Collapsed-bound sparse GP regression (Titsias) — port of
-``vggp_tpu/models/sgpr.py`` for the family the port has: cell features of
-every kernel kind on uniform or non-uniform meshes, in 1-D or Kronecker
-d-D, with a Gaussian likelihood. With cell features on the mesh of interest
-this is the paper's GriddedGP, whose optimal q(u) is the gridded product
-itself.
+``vggp_tpu/models/sgpr.py``: one model over every feature family (points,
+VFF, B1/B2/B3 splines, cells of every kernel kind on uniform or non-uniform
+meshes), which makes it the reference's SVGP / VFF / ASVGP / GriddedGP zoo
+by feature choice, in 1-D or Kronecker d-D, with a Gaussian likelihood and
+an optional learned constant mean. With cell features on the mesh of
+interest this is the paper's GriddedGP, whose optimal q(u) is the gridded
+product itself.
 
 Math (the stable factored form of ``models.common.factored_state``):
     A  = F⁻¹ Kuf / σ   (Khatri–Rao over the axes; Kuu = F Fᵀ per axis)
@@ -44,14 +46,13 @@ class SGPRSpec:
     jitter: float = 1e-6
     factor_method: str = "chol"     # Kuu factorization; only "chol" is ported
     per_output_noise: bool = False  # not ported (needs the coregion axis)
-    learn_mean: bool = False        # not ported
+    learn_mean: bool = False        # a learned constant mean
 
     def __post_init__(self):
         if self.factor_method not in ("chol", "eigh"):
             raise ValueError(f"unknown factor method {self.factor_method!r}")
         for what, on in (("the clamped-eigh Kuu factor", self.factor_method == "eigh"),
                          ("per-output noise", self.per_output_noise),
-                         ("a learned mean", self.learn_mean),
                          ("the coregion axis", "coregion" in self.kinds)):
             if on:
                 raise NotImplementedError(f"{what} is not ported yet {_NOT_PORTED}")
@@ -65,16 +66,20 @@ class SGPRSpec:
         return math.prod(f.m for f in self.features)
 
     def init_params(self, dtype=torch.float32, device=None) -> Params:
-        """σ² = ℓ = 1 per axis and noise 0.1, on ``cuda`` unless ``device``
-        is given."""
+        """σ² = ℓ = 1 per axis (and the feature's own, as a point feature's
+        z), noise 0.1 and the mean 0 when it is learned, on ``cuda`` unless
+        ``device`` is given."""
         device = config.resolve_device(device)
 
         def scalar(v):
             return torch.tensor(v, dtype=dtype, device=device)
 
-        axes = tuple({"variance": scalar(1.0), "lengthscale": scalar(1.0), **f.init_params(dtype)}
-                     for f in self.features)
-        return {"axes": axes, "noise": scalar(0.1)}
+        axes = tuple({"variance": scalar(1.0), "lengthscale": scalar(1.0),
+                      **f.init_params(dtype, device)} for f in self.features)
+        out = {"axes": axes, "noise": scalar(0.1)}
+        if self.learn_mean:
+            out["mean"] = scalar(0.0)
+        return out
 
 
 @highest_precision

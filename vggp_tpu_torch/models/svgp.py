@@ -1,15 +1,21 @@
-"""Whitened, minibatchable SVGP with the Kronecker variational family —
-port of the Kronecker branch of ``vggp_tpu/models/svgp.py``: training, and
+"""Whitened, minibatchable SVGP — port of ``vggp_tpu/models/svgp.py``:
+training (the ELBO, and ``elbo_muS`` over an explicit q(w) = N(μ, S)), and
 the serving heads (posteriors with full covariance, q(u), p(v | u), the
 gridded product q(v), its gradient field q(∂v), the pointwise-gradient
-posteriors and the warm ``precompute`` state).
+posteriors and the warm ``precompute`` state), with an optional learned
+constant mean.
 
-With per-axis whitened features a_i = F_i⁻¹ Kuf_i (m_i, n) and
-S = S₁ ⊗ S₂, every ELBO term is computed from per-axis (m_i, m_i) and
-(m_i, n) matrices: the m = m₁·m₂ inducing grid is never materialized.
-``mu`` has shape (m₁, m₂); flattening follows the ``numpy.kron`` row-major
-order, as in the JAX package. Only the heads whose output is dense by nature
-(``full_cov=True``, ``q_u``, ``p_v_u``) build m- or grid-sized matrices.
+Two variational families over the whitened u = F w, q(w) = N(μ, S):
+
+- ``variational="full"`` (the default, any ndim, small m): a dense
+  lower-triangular factor of S and μ of shape (m,); the per-axis whitened
+  features a_i = F_i⁻¹ Kuf_i are joined into the (m, n) Khatri–Rao block;
+- ``variational="kron"`` (ndim ≥ 2, huge m): S = S₁ ⊗ S₂ ⊗ …, every ELBO
+  term from per-axis (m_i, m_i) and (m_i, n) matrices, the m = Π m_i
+  inducing grid never materialized. ``mu`` has shape (m₁, m₂, …);
+  flattening follows the ``numpy.kron`` row-major order, as in the JAX
+  package. Only the heads whose output is dense by nature (``full_cov=True``,
+  ``q_u``, ``p_v_u``) build m- or grid-sized matrices.
 """
 
 from __future__ import annotations
@@ -47,11 +53,12 @@ class SVGPSpec:
     kinds: Tuple[str, ...]
     features: Tuple
     num_data: int                     # n_total, for minibatch scaling
-    variational: str = "full"         # "full" | "kron"; only "kron" is ported
+    variational: str = "full"         # "full" | "kron"
     jitter: float = 1e-6
     factor_method: str = "chol"       # Kuu factorization; only "chol" is ported
     likelihood: str = "gaussian"      # see vggp_tpu_torch.likelihoods
     likelihood_opts: Tuple[Tuple[str, float], ...] = ()  # static, e.g. (("df", 4.0),)
+    learn_mean: bool = False          # a learned constant mean
 
     def __post_init__(self):
         if self.variational not in ("full", "kron"):
@@ -62,11 +69,7 @@ class SVGPSpec:
             raise NotImplementedError(
                 "the clamped-eigh Kuu factor is not ported yet "
                 "(ROADMAP queue 1, item 10: the other features and model families)")
-        if self.variational != "kron":
-            raise NotImplementedError(
-                "the full variational family is not ported yet "
-                "(ROADMAP queue 1, item 10: the other features and model families)")
-        if len(self.features) < 2:
+        if self.variational == "kron" and len(self.features) < 2:
             raise ValueError("kron variational family requires ndim >= 2")
         likelihoods.check_likelihood(self.likelihood)
 
@@ -83,19 +86,31 @@ class SVGPSpec:
         return math.prod(self.axis_m)
 
     def init_params(self, dtype=torch.float32, device=None) -> Params:
-        """Initial constrained parameters: σ² = ℓ = 1 per axis, noise 0.1,
-        μ = 0 and S_i = I. Runs on ``cuda`` unless ``device`` is given."""
+        """Initial constrained parameters: σ² = ℓ = 1 per axis (and the
+        feature's own, as a point feature's z), noise 0.1, μ = 0 and S = I
+        (S_i = I for the Kronecker family), the mean 0 when it is learned.
+        Runs on ``cuda`` unless ``device`` is given."""
         device = config.resolve_device(device)
 
         def scalar(v):
             return torch.tensor(v, dtype=dtype, device=device)
 
+        def eye_raw(m):
+            return raw_from_chol(torch.eye(m, dtype=dtype, device=device))
+
         axes = tuple({"variance": scalar(1.0), "lengthscale": scalar(1.0),
-                      **f.init_params(dtype)} for f in self.features)
-        q = {"mu": torch.zeros(self.axis_m, dtype=dtype, device=device)}
-        for i, mi in enumerate(self.axis_m):
-            q[f"raw_L{i + 1}"] = raw_from_chol(torch.eye(mi, dtype=dtype, device=device))
-        return {"axes": axes, "noise": scalar(0.1), "q": q}
+                      **f.init_params(dtype, device)} for f in self.features)
+        if self.variational == "full":
+            q = {"mu": torch.zeros((self.num_inducing,), dtype=dtype, device=device),
+                 "raw_L": eye_raw(self.num_inducing)}
+        else:
+            q = {"mu": torch.zeros(self.axis_m, dtype=dtype, device=device)}
+            for i, mi in enumerate(self.axis_m):
+                q[f"raw_L{i + 1}"] = eye_raw(mi)
+        out = {"axes": axes, "noise": scalar(0.1), "q": q}
+        if self.learn_mean:
+            out["mean"] = scalar(0.0)
+        return out
 
 
 def _whitened_blocks(spec: SVGPSpec, params: Params, x: torch.Tensor):
@@ -113,6 +128,22 @@ _AXIS_LETTERS = "abcdefgh"
 
 def _kron_chols(spec: SVGPSpec, q: Params) -> Tuple[torch.Tensor, ...]:
     return tuple(chol_from_raw(q[f"raw_L{i + 1}"]) for i in range(spec.ndim))
+
+
+def _var_chols(spec: SVGPSpec, q: Params):
+    """The variational factor(s): one (m, m) matrix for the full family, the
+    per-axis tuple for the Kronecker one."""
+    if spec.variational == "full":
+        return chol_from_raw(q["raw_L"])
+    return _kron_chols(spec, q)
+
+
+def _cov_half(spec: SVGPSpec, Ls, blocks) -> torch.Tensor:
+    """L_Sᵀ a at the points of the whitened ``blocks``, (m, n):
+    Lᵀ·(Khatri–Rao of the blocks), or the Khatri–Rao of the L_iᵀ a_i."""
+    if spec.variational == "full":
+        return Ls.T @ common.khatri_rao_all(blocks)
+    return common.khatri_rao_all(tuple(Ls[i].T @ blocks[i] for i in range(spec.ndim)))
 
 
 def _kron_contract(mu: torch.Tensor, mats: Sequence[torch.Tensor], out: str = "n") -> torch.Tensor:
@@ -162,7 +193,8 @@ def _moments_math(mu, Ls, blocks):
 class KronMoments(torch.autograd.Function):
     """(mean, var_red, var_add) of the Kronecker family with the hand-written
     backward of ``svgp.py:213-242``, whose matmuls ride
-    ``config.MATMUL_PRECISION``. Called as ``apply(mu, *Ls, *blocks)``."""
+    ``config.MATMUL_PRECISION``. Called as ``apply(mu, *Ls, *blocks)``; the
+    full family is its one-axis case, L and the Khatri–Rao block."""
 
     @staticmethod
     def forward(ctx, mu, *mats):
@@ -187,7 +219,8 @@ class KronMoments(torch.autograd.Function):
                 others = [k for k in range(d) if k != i]
                 r_oth = math.prod(rs[k] for k in others)
                 v_oth = math.prod(vs[k] for k in others)
-                da = torch.einsum(da_strs[i], mu, *[blocks[k] for k in others]) * gm[None, :]
+                da = (torch.einsum(da_strs[i], mu, *[blocks[k] for k in others]) if others
+                      else mu[:, None]) * gm[None, :]
                 da = da + 2.0 * blocks[i] * (gr * r_oth)[None, :]
                 dt = 2.0 * ts[i] * (gv * v_oth)[None, :]
                 da = da + Ls[i] @ dt
@@ -199,10 +232,14 @@ class KronMoments(torch.autograd.Function):
 def _qf_mean_var(spec: SVGPSpec, params: Params, blocks,
                  Ls=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Marginal q(f) mean and the two variance terms at the points whose
-    whitened features are ``blocks`` (per-axis (m_i, n))."""
+    whitened features are ``blocks`` (per-axis (m_i, n)); ``Ls`` the
+    variational factor(s) of a warm state. The full family is the
+    one-factor case: L against the (m, n) Khatri–Rao block."""
     q = params["q"]
     if Ls is None:
-        Ls = _kron_chols(spec, q)
+        Ls = _var_chols(spec, q)
+    if spec.variational == "full":
+        Ls, blocks = (Ls,), (common.khatri_rao_all(blocks),)
     if config.FAST_MOMENTS_BWD:
         return KronMoments.apply(q["mu"], *Ls, *blocks)
     mean, var_red, var_add, *_ = _moments_math(q["mu"], Ls, blocks)
@@ -211,8 +248,12 @@ def _qf_mean_var(spec: SVGPSpec, params: Params, blocks,
 
 @highest_precision
 def kl(spec: SVGPSpec, params: Params) -> torch.Tensor:
-    """KL[q(w) ‖ N(0, I)] in whitened coordinates (Kronecker family)."""
+    """KL[q(w) ‖ N(0, I)] in whitened coordinates."""
     q = params["q"]
+    if spec.variational == "full":
+        L = chol_from_raw(q["raw_L"])
+        return 0.5 * (torch.sum(q["mu"] ** 2) + torch.sum(L * L) - L.shape[0]
+                      - 2.0 * torch.sum(torch.log(torch.diagonal(L))))
     Ls = _kron_chols(spec, q)
     ms = [L.shape[0] for L in Ls]
     m_total = math.prod(ms)
@@ -251,6 +292,35 @@ def loss(spec: SVGPSpec, params: Params, xb: torch.Tensor, yb: torch.Tensor) -> 
     return -elbo(spec, params, xb, yb)
 
 
+@highest_precision
+def elbo_muS(spec: SVGPSpec, params: Params, mu: torch.Tensor, S: torch.Tensor,
+             xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
+    """The ELBO with the variational distribution given as q(w) = N(μ, S)
+    (``params["q"]`` is ignored): what natural-gradient updates
+    differentiate, in μ and S. Full family only; any likelihood."""
+    if spec.variational != "full":
+        raise ValueError("elbo_muS supports the full variational family")
+    yb = yb.reshape(-1)
+    nb = yb.shape[0]
+    _, blocks = _whitened_blocks(spec, params, xb)
+    a = common.khatri_rao_all(blocks)             # (m, n)
+    mean = a.T @ mu + common.mean_fn(spec, params, xb)
+    var_red = torch.sum(a * a, dim=0)
+    var_add = torch.sum(a * (S @ a), dim=0)
+    var_f = torch.clamp(common.kdiag(spec, params, xb) - var_red, min=0.0) + var_add
+    noise = common.obs_noise(spec, params, xb)
+    if spec.likelihood == "gaussian":
+        ell_i = (-0.5 * torch.log(2.0 * math.pi * noise)
+                 - ((yb - mean) ** 2 + var_f) / (2.0 * noise))
+    else:
+        ell_i = likelihoods.expected_log_lik(spec.likelihood, yb, mean, var_f,
+                                             {**params, "noise": noise}, spec.likelihood_opts)
+    L = torch.linalg.cholesky(S)
+    kl_val = 0.5 * (torch.sum(mu * mu) + torch.trace(S) - S.shape[0]
+                    - 2.0 * torch.sum(torch.log(torch.diagonal(L))))
+    return (spec.num_data / nb) * torch.sum(ell_i) - kl_val
+
+
 def _posterior_from_blocks(spec: SVGPSpec, params: Params, blocks, Ls, xstar,
                           full_cov: bool, predictive: bool) -> Gaussian:
     """q(f*) from the whitened blocks at ``xstar`` and the variational
@@ -264,7 +334,7 @@ def _posterior_from_blocks(spec: SVGPSpec, params: Params, blocks, Ls, xstar,
         var = torch.clamp(kss - var_red, min=0.0) + var_add + noise
         return Gaussian(mean=mean, var=var)
     a = common.khatri_rao_all(blocks)
-    sa = common.khatri_rao_all(tuple(Ls[i].T @ blocks[i] for i in range(spec.ndim)))
+    sa = _cov_half(spec, Ls, blocks)
     cov = common.gram_full(spec, params, xstar, xstar) - a.T @ a + sa.T @ sa
     if predictive:
         cov = cov + noise * torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
@@ -273,7 +343,7 @@ def _posterior_from_blocks(spec: SVGPSpec, params: Params, blocks, Ls, xstar,
 
 def _wants_grad(params: Params) -> bool:
     leaves = [*(v for ax in params["axes"] for v in ax.values()), params["noise"],
-              *params["q"].values()]
+              *params["q"].values(), *([params["mean"]] if "mean" in params else [])]
     return torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
 
 
@@ -293,7 +363,7 @@ def posterior(spec: SVGPSpec, params: Params, xstar: torch.Tensor,
         return posterior_from_state(spec, params, precompute(spec, params), xstar,
                                     full_cov=full_cov, predictive=predictive)
     _, blocks = _whitened_blocks(spec, params, xstar)
-    return _posterior_from_blocks(spec, params, blocks, _kron_chols(spec, params["q"]), xstar,
+    return _posterior_from_blocks(spec, params, blocks, _var_chols(spec, params["q"]), xstar,
                                   full_cov, predictive)
 
 
@@ -330,6 +400,10 @@ def q_u(spec: SVGPSpec, params: Params) -> Gaussian:
     """q(u) = N(F μ, F S Fᵀ): the variational distribution unwhitened, with a
     dense (m, m) covariance (small m only)."""
     Fs = [c.F for c in common.axis_chol_kuu(spec, params)]
+    if spec.variational == "full":
+        F = kron_dense(Fs)
+        half = F @ chol_from_raw(params["q"]["raw_L"])
+        return Gaussian(mean=F @ params["q"]["mu"], cov=half @ half.T)
     Lk = _kron_chols(spec, params["q"])
     halves = [Fs[i] @ Lk[i] for i in range(spec.ndim)]
     return Gaussian(mean=_kron_contract(params["q"]["mu"], Fs, out="grid"),
@@ -347,9 +421,13 @@ def p_v_u(spec: SVGPSpec, params: Params, grid_axes: Sequence) -> Gaussian:
     inducing state, with a dense (g, g) covariance (small grids only)."""
     chols = common.axis_chol_kuu(spec, params)
     r_blocks = _grid_r_blocks(chols, common.grid_kvu(spec, params, grid_axes))
-    mean = _kron_contract(params["q"]["mu"], r_blocks, out="grid")
-    cov = (common.grid_kvv(spec, params, grid_axes, dense=True)
-           - kron_dense([R @ R.T for R in r_blocks]))
+    if spec.variational == "full":
+        R = kron_dense(r_blocks)
+        mean, RR = R @ params["q"]["mu"], R @ R.T
+    else:
+        mean = _kron_contract(params["q"]["mu"], r_blocks, out="grid")
+        RR = kron_dense([R @ R.T for R in r_blocks])
+    cov = common.grid_kvv(spec, params, grid_axes, dense=True) - RR
     return common.shift_mean(Gaussian(mean=mean, cov=cov),
                              common.grid_mean(spec, params, grid_axes))
 
@@ -360,7 +438,16 @@ def _grid_gaussian(spec: SVGPSpec, params: Params, r_blocks, kvv_blocks, Ls,
     the prior blocks Kvv_i and the variational factors ``Ls``:
     mean = (⊗R_i) μ and cov = Kvv − R Rᵀ + (R L_S)(R L_S)ᵀ; for
     ``full_cov=False`` only the per-cell variances, as Kronecker diagonals
-    (O(g) memory)."""
+    (O(g) memory). The full family takes the dense R = ⊗R_i (g, m)."""
+    if spec.variational == "full":
+        R = kron_dense(r_blocks)
+        mean = R @ params["q"]["mu"]
+        RS = R @ Ls
+        if full_cov:
+            return Gaussian(mean=mean, cov=kron_dense(kvv_blocks) - R @ R.T + RS @ RS.T)
+        kvv_diag = kron_diag([torch.diagonal(b) for b in kvv_blocks])
+        var = kvv_diag - torch.sum(R * R, dim=1) + torch.sum(RS * RS, dim=1)
+        return Gaussian(mean=mean, var=common.floor_var(var, kvv_diag))
     mean = _kron_contract(params["q"]["mu"], r_blocks, out="grid")
     rs_blocks = [r_blocks[i] @ Ls[i] for i in range(spec.ndim)]
     if full_cov:
@@ -397,8 +484,8 @@ def q_dv(spec: SVGPSpec, params: Params, grid_axes: Sequence, axis: int,
 
 
 def precompute(spec: SVGPSpec, params: Params):
-    """(per-axis Kuu factors, per-axis variational Cholesky factors)."""
-    return common.axis_chol_kuu(spec, params), _kron_chols(spec, params["q"])
+    """(per-axis Kuu factors, the variational Cholesky factor(s))."""
+    return common.axis_chol_kuu(spec, params), _var_chols(spec, params["q"])
 
 
 @highest_precision
@@ -443,7 +530,7 @@ def _grad_from_blocks(spec: SVGPSpec, params: Params, blocks, Ls, xstar, axis: i
         var = torch.clamp(kdd - var_red, min=0.0) + var_add
         return Gaussian(mean=mean, var=common.floor_var(var, kdd))
     a = common.khatri_rao_all(blocks)
-    sa = common.khatri_rao_all(tuple(Ls[i].T @ blocks[i] for i in range(spec.ndim)))
+    sa = _cov_half(spec, Ls, blocks)
     cov = common.grad_gram_full(spec, params, xstar, xstar, axis) - a.T @ a + sa.T @ sa
     return Gaussian(mean=mean, cov=cov)
 
@@ -465,14 +552,15 @@ def posterior_grad(spec: SVGPSpec, params: Params, xstar: torch.Tensor, axis: in
     a once-differentiable kind on ``axis`` (Matérn-1/2 raises ValueError)."""
     chols = common.axis_chol_kuu(spec, params)
     blocks = common.axis_whitened_dkuf(spec, params, chols, xstar, axis)
-    return _grad_from_blocks(spec, params, blocks, _kron_chols(spec, params["q"]), xstar,
+    return _grad_from_blocks(spec, params, blocks, _var_chols(spec, params["q"]), xstar,
                              axis, full_cov)
 
 
 class SVGP(nn.Module):
-    """The Kronecker SVGP as a module: holds the raw (unconstrained)
-    parameters as ``nn.Parameter``s, in the layout of the JAX parameter tree
-    (``axes`` → one ``ParameterDict`` per axis, ``noise``, ``q``)."""
+    """The SVGP as a module: holds the raw (unconstrained) parameters as
+    ``nn.Parameter``s, in the layout of the JAX parameter tree (``axes`` →
+    one ``ParameterDict`` per axis, ``noise``, ``q``, and ``mean`` when it
+    is learned)."""
 
     def __init__(self, spec: SVGPSpec, params: Params = None, dtype=torch.float32,
                  device=None):
@@ -483,17 +571,13 @@ class SVGP(nn.Module):
             params = spec.init_params(dtype, device)
         raw = train.unconstrain(params)
         self.spec = spec
-        self.axes = nn.ModuleList(
-            nn.ParameterDict({k: nn.Parameter(v.detach().clone()) for k, v in ax.items()})
-            for ax in raw["axes"])
-        self.noise = nn.Parameter(raw["noise"].detach().clone())
+        common.module_params(self, raw)
         self.q = nn.ParameterDict({k: nn.Parameter(v.detach().clone())
                                    for k, v in raw["q"].items()})
 
     def raw_params(self) -> Params:
         """The nested raw tree, its leaves the module's parameters."""
-        return {"axes": tuple(dict(ax.items()) for ax in self.axes),
-                "noise": self.noise, "q": dict(self.q.items())}
+        return {**common.module_raw_params(self), "q": dict(self.q.items())}
 
     def params(self) -> Params:
         """The constrained parameter tree the model functions take."""

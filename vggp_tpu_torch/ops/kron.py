@@ -16,7 +16,9 @@ def kron_dense(mats: Sequence[torch.Tensor]) -> torch.Tensor:
     """Materialized Kronecker product of a list of matrices (tests / small m)."""
     out = mats[0]
     for m in mats[1:]:
-        out = torch.kron(out, m)
+        # contiguous operands: a Cholesky factor from LAPACK is column-major,
+        # which torch.kron's autograd path cannot view
+        out = torch.kron(out.contiguous(), m.contiguous())
     return out
 
 

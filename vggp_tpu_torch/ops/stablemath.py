@@ -5,10 +5,14 @@ The small-|x| regime is evaluated with explicit Horner series so that the
 cancellation-sensitive closed forms of the cell features (e^x − 1 − x,
 sinh x − x) keep their relative accuracy in float32 on every device. The
 series coefficients and the float32 term cut-offs are those of the JAX
-package; ``csrc/cell_kuf.cu`` carries the same series for ``expm1s``.
+package; ``csrc/cell_kuf.cu`` carries the same series for ``expm1s``. The
+lower incomplete gammas γ(2, ·) and γ(3, ·) integrate the Markov
+continuation of the Fourier features over short cells.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -88,3 +92,43 @@ def sinhmx(x: torch.Tensor) -> torch.Tensor:
     series = acc * x2 * xs
     xl = torch.where(small, 1.0, x)
     return torch.where(small, series, 0.5 * (expm1mx(xl) - expm1mx(-xl)))
+
+
+# Series coefficients (k−1)/k! for k = 2..19 and (k−1)(k−2)/k! for k = 3..19
+# (Python's int/int division rounds each exact rational once), behind the
+# lower incomplete gammas γ(2, x) and γ(3, x) below.
+_G2_COEFF = [(k - 1) / math.factorial(k) for k in range(2, 20)]
+_G3_COEFF = [(k - 1) * (k - 2) / math.factorial(k) for k in range(3, 20)]
+# float32: the next term falls below f32 eps relative to γ(2, 1) ≈ 0.264 and
+# γ(3, 1) ≈ 0.160.
+_N_G_TERMS_F32 = 11
+
+
+def _gamma_series(x: torch.Tensor, coeffs, lead: int, sign: float) -> torch.Tensor:
+    cs = coeffs[:_N_G_TERMS_F32] if x.dtype == torch.float32 else coeffs
+    t = -x
+    acc = torch.zeros_like(x) + cs[-1]
+    for c in reversed(cs[:-1]):
+        acc = acc * t + c
+    return sign * acc * t ** lead
+
+
+def gamma2_lower(x: torch.Tensor) -> torch.Tensor:
+    """γ(2, x) = 1 − (1 + x)e^{−x} for x ≥ 0, by its series for |x| < 1:
+    ∫₀ʰ t·e^{−λt} dt = γ(2, λh)/λ², where the direct form cancels like x²/2."""
+    small = torch.abs(x) < 1.0
+    xs = torch.where(small, x, 0.0)
+    xl = torch.where(small, 1.0, x)
+    return torch.where(small, _gamma_series(xs, _G2_COEFF, 2, 1.0),
+                       1.0 - (1.0 + xl) * torch.exp(-xl))
+
+
+def gamma3_lower(x: torch.Tensor) -> torch.Tensor:
+    """γ(3, x) = 2 − (2 + 2x + x²)e^{−x} for x ≥ 0, by its series for
+    |x| < 1: ∫₀ʰ t²·e^{−λt} dt = γ(3, λh)/λ³ (the direct form cancels like
+    x³/3)."""
+    small = torch.abs(x) < 1.0
+    xs = torch.where(small, x, 0.0)
+    xl = torch.where(small, 1.0, x)
+    return torch.where(small, _gamma_series(xs, _G3_COEFF, 3, -1.0),
+                       2.0 - (2.0 + (2.0 + xl) * xl) * torch.exp(-xl))

@@ -85,10 +85,14 @@ def _init_axes(params: Dict, X: torch.Tensor, variance, lmbda: float) -> tuple:
 
 def non_informative_init(params: Dict, X: torch.Tensor, y: torch.Tensor,
                          lmbda: float = 1.0, kappa: float = 2.0) -> Dict:
-    """variance ← var(y); noise ← variance/κ²; lengthscale_i ← std(x_i)/λ."""
+    """variance ← var(y); noise ← variance/κ²; lengthscale_i ← std(x_i)/λ;
+    a learned constant mean ← the sample mean of y."""
     yvar = torch.var(y.reshape(-1), correction=0)
-    return {**params, "axes": _init_axes(params, X, yvar, lmbda),
-            "noise": (yvar / kappa ** 2).to(params["noise"])}
+    out = {**params, "axes": _init_axes(params, X, yvar, lmbda),
+           "noise": (yvar / kappa ** 2).to(params["noise"])}
+    if "mean" in params:
+        out["mean"] = torch.mean(y.reshape(-1)).to(params["mean"]).expand_as(params["mean"])
+    return out
 
 
 def informative_init(params: Dict, X: torch.Tensor, y: torch.Tensor,
