@@ -93,9 +93,29 @@ Phases (each asserts; any failure exits non-zero before the result line):
    20 ``train.fit`` steps each and q_v on the 15×15 cells, the GriddedGP
    through both cell kernels; each against the CPU's float64; and the
    float32 λ_min readings of the VFF and spline Grams;
-12. profile three steps at each batch (device busy share, the ops with the
+12. the multi-output ICM models, the sum, additive and free-point families
+   and the clamped-eigh factor: both cell kernels against their plain
+   versions at (512, 16 384), (32, 65 536), (16, 65 536), (60, 65 536) and
+   (512, 65 536), the fused kernel at (512, 65 536), CellKufOp's backward at
+   (512, 4096); (a) the ICM SVGP of ``api.SVGP.multioutput`` at the main
+   path's width (512×512 Matérn-1/2 cells × 2 outputs, a noise level and a
+   mean per output) on two-output data (output 1 = 0.7·f + 0.2 with its own
+   noise), 8 steps of ``train.fit_minibatch`` at 4096 and 4 at 16 384
+   (``cell_kuf`` twice a step through CellKufOp: the coregion axis sends
+   every axis through the dense Kuu factor), profiled steps, the ``SVGP``
+   module's posterior cold and warm, q_v on the 512²×2 cells and the learned
+   B, against the CPU's float64; (b) on 65 536 points, 10 ``train.fit``
+   steps then heads of the ICM collapsed GP (32×32 cells × 2 outputs),
+   the multi-scale sum (16×16 and 60×60 cells, the coarse lengthscale
+   frozen), the additive model (512 cells per axis, the fused kernel where
+   its gate admits ℓ) and 500 free points, each against the CPU's float64;
+   (c) phase 7's trained model with the clamped-eigh factor, its posterior
+   and q_v against the Cholesky heads and the CPU's float64; (d) the family
+   cases of ``smoke_cases`` in float32 against ``bench.py``'s float64
+   goldens;
+13. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
-13. time each kernel and its plain version (device time from the profiler's
+14. time each kernel and its plain version (device time from the profiler's
    CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
    serving grid's (512, 65 536) beside one warm cold ``posterior`` and one
    ``posterior_from_state`` on that grid and at the face difference's
@@ -879,15 +899,22 @@ def host_ms(fn) -> float:
 
 def value_and_grads(loss_fn, params):
     """(loss, {name: gradient}) at constrained ``params``: ``d<key>_<axis>``
-    for the axes, ``dnoise``, ``d<key>`` for the variational leaves,
-    ``dmean`` for a learned mean; a leaf the loss does not reach has none."""
+    for the axes (``d<key>_c<q>_<axis>`` for component q of a sum of
+    kernels), ``dnoise``, ``d<key>`` for the variational leaves, ``dmean``
+    for a learned mean and ``dz`` for free points; a leaf the loss does not
+    reach has none."""
     from vggp_tpu_torch import train
 
     pg = train.tree_map(lambda v: v.detach().clone().requires_grad_(), params)
     val = loss_fn(pg)
     val.backward()
-    grads = {f"d{k}_{i}": v.grad for i, ax in enumerate(pg["axes"]) for k, v in ax.items()}
+    axes = ([(f"c{q}_", cp["axes"]) for q, cp in enumerate(pg["components"])]
+            if "components" in pg else [("", pg["axes"])])
+    grads = {f"d{k}_{tag}{i}": v.grad for tag, ax_tuple in axes
+             for i, ax in enumerate(ax_tuple) for k, v in ax.items()}
     grads["dnoise"] = pg["noise"].grad
+    if "z" in pg:
+        grads["dz"] = pg["z"].grad
     grads.update({f"d{k}": v.grad for k, v in pg.get("q", {}).items()})
     if "mean" in pg:
         grads["dmean"] = pg["mean"].grad
@@ -920,11 +947,15 @@ def finite(g) -> bool:
     return bool(torch.isfinite(g).all())
 
 
-def quantity_tol(name: str, e32: float, grad_floor: float,
+def quantity_tol(name: str, e32: float, grad_floor,
                  head_floor: float = TOL_E2E_POST) -> float:
     """The bound of :func:`check_quantities` on the quantity ``name`` whose
     CPU float32 error is ``e32``: the larger of its floor and
-    CPU_ERR_RATIO × ``e32``."""
+    CPU_ERR_RATIO × ``e32``. ``grad_floor`` is one floor for every gradient
+    leaf, or a dict from a leaf's name prefix to its floor, the first
+    matching key taken ("d" matches every leaf)."""
+    if isinstance(grad_floor, dict) and name.startswith("d"):
+        grad_floor = next(v for k, v in grad_floor.items() if name.startswith(k))
     floor = (grad_floor if name.startswith("d") else
              TOL_E2E_LOSS if name in ("elbo", "loss", "mll", "elbo_muS") else head_floor)
     return max(floor, CPU_ERR_RATIO * e32)
@@ -981,10 +1012,10 @@ def add_launches(total: dict, got: dict) -> dict:
     return {k: total[k] + got[k] for k in total}
 
 
-def fit_counted(what, loss_fn, params, n_steps):
-    """``train.fit`` for ``n_steps`` at FIT_LR, its launches counted (reset
-    just before, read just after); returns (params, ms per step over the
-    fit, launches). The loss must be finite and fall."""
+def fit_counted(what, loss_fn, params, n_steps, trainable=None):
+    """``train.fit`` for ``n_steps`` at FIT_LR (``trainable`` as there), its
+    launches counted (reset just before, read just after); returns (params,
+    ms per step over the fit, launches). The loss must be finite and fall."""
     import torch
 
     from vggp_tpu_torch import train
@@ -993,7 +1024,7 @@ def fit_counted(what, loss_fn, params, n_steps):
     ck.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, hist = train.fit(loss_fn, params, n_steps, FIT_LR)
+    params, hist = train.fit(loss_fn, params, n_steps, FIT_LR, trainable=trainable)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n_steps
     got = dict(ck.LAUNCHES)
@@ -1110,7 +1141,8 @@ def fit_collapsed(X, y) -> tuple:
 def collapsed_phase(device, X, y, Xs) -> tuple:
     """Phase 7: the collapsed GriddedGP (m = 4096) on SGPR_N points, trained
     and served on the card and held against float64. Returns (launches,
-    timings, the launches at (64, 65 536) by kernel)."""
+    timings, the launches at (64, 65 536) by kernel, (spec, the trained
+    params) for phase 12c)."""
     import torch
 
     from vggp_tpu_torch import CellIntegralFeature, sgpr, train
@@ -1189,7 +1221,7 @@ def collapsed_phase(device, X, y, Xs) -> tuple:
             got.update(cold)
         check_quantities(what, got, ref, f32, floor)
         timings[f"check {what} s"] = time.perf_counter() - t0
-    return launches, timings, at_n
+    return launches, timings, at_n, (spec, params)
 
 
 # phase 8's heads and their cell_kuf launches a call: q_v's cell/point
@@ -1852,14 +1884,13 @@ def make_data_1d(device):
     return as_t(x), as_t(y), as_t(xs)
 
 
-def check_full_kernels(device, X, x1) -> dict:
-    """11: both cell kernels against their plain versions at phase 11's
-    shapes on its own data: (64, 4096) on the 2-D data's first axis,
-    (512, 4096) on the 1-D data and (15, 20 000), an odd cell count, and the
-    fused kernel at (512, 16 384) on one axis of the 1-D data (its F⁻¹ the
-    closed form at ℓ = 0.27), in float64 (TOL_F64) and float32 (TOL_F32, the
-    fused t at TOL_F32_T). Returns the float32 max |kernel − plain| by
-    (kernel, m, n), each shape's own."""
+def check_kernels_at(device, cases, phase: str) -> dict:
+    """Both cell kernels against their plain versions at each (m, x, xf) of
+    ``cases`` (m uniform cells on [0, 1], the points x) and, where xf is
+    given, the fused kernel at (m, len(xf)) (its F⁻¹ the closed form at
+    ℓ = 0.27), in float64 (TOL_F64) and float32 (TOL_F32, the fused t at
+    TOL_F32_T). Returns the float32 max |kernel − plain| by (kernel, m, n),
+    each shape's own."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
@@ -1870,8 +1901,7 @@ def check_full_kernels(device, X, x1) -> dict:
         tag = "f64" if dtype == torch.float64 else "f32"
         v = torch.tensor(1.3, dtype=dtype, device=device)
         ell = torch.tensor(0.27, dtype=dtype, device=device)
-        for m, x in ((FULL_CELLS, X[:TRAIN_BATCH, 0]), (FULL1D_CELLS, x1[:TRAIN_BATCH]),
-                     (ZOO_CELLS, X[:ZOO_N, 0])):
+        for m, x, xf in cases:
             mesh = torch.linspace(0.0, 1.0, m + 1, dtype=torch.float64).to(dtype).to(device)
             x = x.to(dtype).contiguous()     # a column of the 2-D data is a strided view
             pairs = [("cell_kuf", "Kuf", ck.cell_kuf(mesh, x, v, ell),
@@ -1879,8 +1909,8 @@ def check_full_kernels(device, X, x1) -> dict:
             pairs += [("cell_kuf_with_dl", name, g, w) for name, g, w in zip(
                 ("Kuf", "dKuf"), ck.cell_kuf_with_dl(mesh, x, v, ell),
                 ck.cell_kuf_with_dl_plain(mesh, x, v, ell))]
-            if m == FULL1D_CELLS:
-                xf = x1[:FUSED_BATCH].to(dtype)
+            if xf is not None:
+                xf = xf.to(dtype).contiguous()
                 finv = kms.m12_cell_inv_chol(m, 1.0 / m, v, ell, 1e-6)
                 a, t = ck.fused_banded_whiten_kuf(finv, mesh, xf, v, ell, *MAIN_PRECISIONS)
                 a_p, t_p = ck.fused_banded_whiten_kuf_plain(finv, mesh, xf, v, ell,
@@ -1891,13 +1921,25 @@ def check_full_kernels(device, X, x1) -> dict:
                 n = got.shape[1]
                 e = rel_err(got, want)
                 bound = TOL_F32_T if tag == "f32" and name == "t" else tol
-                print(f"check {kernel} {name} {tag} ({m}, {n}) on phase 11's data: rel {e:.3e}")
+                print(f"check {kernel} {name} {tag} ({m}, {n}) on phase {phase}'s data: "
+                      f"rel {e:.3e}")
                 check(e < bound, f"{kernel} {name} {tag} ({m}, {n}) rel {e}")
                 if tag == "f32":
                     key = (kernel, m, n)
                     errs[key] = max(errs.get(key, 0.0), float((got - want).abs().max()))
+            del pairs
     torch.cuda.synchronize()
     return errs
+
+
+def check_full_kernels(device, X, x1) -> dict:
+    """11: :func:`check_kernels_at` phase 11's shapes on its own data:
+    (64, 4096) on the 2-D data's first axis, (512, 4096) on the 1-D data and
+    (15, 20 000), an odd cell count, and the fused kernel at (512, 16 384) on
+    one axis of the 1-D data."""
+    return check_kernels_at(device, ((FULL_CELLS, X[:TRAIN_BATCH, 0], None),
+                                     (FULL1D_CELLS, x1[:TRAIN_BATCH], x1[:FUSED_BATCH]),
+                                     (ZOO_CELLS, X[:ZOO_N, 0], None)), "11")
 
 
 def svgp_cut_quantities(spec, params, xb, yb, heads, cast, mu_s=None) -> dict:
@@ -2001,7 +2043,7 @@ def full_2d_part(device, X, y, Xs, timings) -> dict:
         lambda c: svgp_cut_quantities(spec, params, xb, yb, heads, c, mu_s), device,
         TOL_GRAD_FULL["svgp"])
     # where the step's time goes: three more steps under the profiler (their
-    # launches are not the path's, as phase 12's)
+    # launches are not the path's, as phase 13's)
     step = train.make_step_fn(lambda p, xb, yb: svgp.loss(spec, p, xb, yb), model.raw_params(),
                               torch.optim.Adam(model.parameters(), lr=1e-2))
     gen = torch.Generator(device=device)
@@ -2289,11 +2331,586 @@ def full_phase(device, X, y, Xs) -> tuple:
     return launches, timings, (errs, readings)
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the multi-output ICM models, the sum, additive and free-point
+# families and the clamped-eigh Kuu factor
+# --------------------------------------------------------------------------- #
+
+ICM_STEPS = 8            # 12a at batch 4096 (the first WARM_STEPS untimed by the profile)
+ICM_FUSED_STEPS = 4      # 12a at batch 16 384: cell_kuf as at 4096 (the dense route)
+ICM_CELLS = 32           # 12b: api.GP.multioutput's 32×32 cells × 2 outputs (m = 2048)
+SUM_CELLS = (16, 60)     # 12b: the coarse and the fine component (m = 256 + 3600)
+SUM_ELL = (0.5, 0.1)     # their initial lengthscales; the coarse one frozen
+ADD_CELLS = 512          # 12b: the additive model's cells per axis (m = 1024)
+ADD_GRID = 64            # its q_v and q_dv grid
+FREE_M = 500             # 12b: free points, the top of the reference's nb61 Z sweep
+FREE_GRID = 16
+FAMILY_STEPS = 10
+# the CPU references of 12b take the first FAMILY_CUT_N points (the sum's
+# (3856, n) Gram and its gradient in float64 and float32 on the host: the
+# card's side of the comparison takes the same points)
+FAMILY_CUT_N = 2048
+OUTPUT1_NOISE = 0.2      # output 1 = 0.7·f + 0.2 + this × N(0, 1), output 0 phase 1's y
+# gradient floors of phase 12's comparisons, as phase 11's: the ICM SVGP as
+# the cell SVGPs' (whose float32 whitening it shares, densely); the collapsed
+# families as the zoo's, but the additive model's σ² leaves. Its dσ² is the
+# difference of n/σ²_noise and Σ a²/σ²_d, each about 2e5 at 2048 points,
+# against a net of about 25, so a relative error of 1e-6 in the float32
+# whitened blocks a (the closed-form F⁻¹ alone carries a few: TOL_FINV)
+# moves it by about 1e-2: float32 put it 1.4e-3 off float64 on an H100, and
+# on the CPU 2.7e-4 at the card's fit but 1.3e-2 at the CPU's own fit of the
+# same data (tools/torch_family_precision.py --cpu). The 2× rule cannot bind
+# a reading that moves 50× with the fit; 5e-2 is about 4× the largest sound
+# one, and every model product in TF32 puts it far past that (the same
+# tool, on the card). Its dℓ leaves read ≤ 1.5e-4 and keep the zoo's floor.
+TOL_GRAD_FAMILY = {"svgp": 2e-3, "collapsed": 1.5e-3,
+                   "additive": {"dvariance": 5e-2, "d": 1.5e-3}}
+
+# the float64 and JAX float32 goldens of bench.py:100-127 for the family
+# cases of vggp_tpu/utils/smoke_cases.py (copied: the port imports nothing of
+# the JAX package); the streaming and CG rows wait for their modules
+_GOLD_FAMILIES_F32 = {
+    "coregion_elbo": -47.59423828125,
+    "coregion_qv_mean_sum": 0.427493691444397,
+    "coregion_qv_var_sum": 0.0009293855400756001,
+    "sum_elbo": -72.27989196777344,
+    "sum_post_mean_sum": 3.5802884101867676,
+    "sum_post_var_sum": 1.1309404373168945,
+    "additive_elbo": 6.7396087646484375,
+    "additive_qv_mean_sum": 0.22462376952171326,
+    "additive_qv_var_sum": 7.233110954985023e-05,
+}
+_GOLD_FAMILIES_F64 = {
+    "coregion_elbo": -47.485966495554294,
+    "coregion_qv_mean_sum": 0.42749339860245494,
+    "coregion_qv_var_sum": 0.0009221060452785777,
+    "sum_elbo": -71.9237328187921,
+    "sum_post_mean_sum": 3.5802466770672665,
+    "sum_post_var_sum": 1.1262581291762208,
+    "additive_elbo": 7.18648170901443,
+    "additive_qv_mean_sum": 0.22462068888565817,
+    "additive_qv_var_sum": 6.899560071360089e-05,
+}
+
+
+def family_inputs(dtype, device):
+    """The inputs of ``smoke_cases.family_inputs`` (``vggp_tpu/utils/
+    smoke_cases.py:24-36``), from the same numpy generator: (X_mo, y_mo) of
+    the coregion case, (X2, y2) of the sum and additive cases."""
+    import numpy as np
+    import torch
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    rng = np.random.default_rng(42)
+    n = 96
+    x = np.sort(rng.uniform(0.0, 1.0, n))
+    task = rng.integers(0, 2, n)
+    f0 = np.sin(5.0 * x)
+    y = np.where(task == 0, f0, 0.7 * f0 + 0.2) + 0.05 * rng.standard_normal(n)
+    X2 = rng.random((80, 2)).astype(np_dtype)
+    y2 = np.sin(4 * X2[:, 0]) * X2[:, 1] + 0.05 * rng.standard_normal(80)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, dtype=np_dtype), device=device)
+    return as_t(np.stack([x, task.astype(np.float64)], 1)), as_t(y), as_t(X2), as_t(y2)
+
+
+def family_specs():
+    """``smoke_cases.family_specs`` (``:39-57``): the ICM collapsed GP on 12
+    Matérn-1/2 cells × 2 outputs, the sum of a Matérn-3/2 and a Matérn-1/2
+    component on 10×9 cells, the additive Matérn-3/2 model on them."""
+    from vggp_tpu_torch import (AdditiveSGPRSpec, CellIntegralFeature, OutputFeature,
+                                SGPRSpec, SumSGPRSpec)
+
+    feat, out = CellIntegralFeature.from_lims(12, 0.0, 1.0), OutputFeature(n_outputs=2)
+    feats2 = (CellIntegralFeature.from_lims(10, 0.0, 1.0),
+              CellIntegralFeature.from_lims(9, 0.0, 1.0))
+    spec_mo = SGPRSpec(kinds=("matern12", "coregion"), features=(feat, out))
+    spec_sum = SumSGPRSpec(components=(SGPRSpec(kinds=("matern32",) * 2, features=feats2),
+                                       SGPRSpec(kinds=("matern12",) * 2, features=feats2)))
+    spec_add = AdditiveSGPRSpec(kinds=("matern32",) * 2, features=feats2)
+    return spec_mo, spec_sum, spec_add, (feat, out), feats2
+
+
+def family_params(spec_mo, dtype, device):
+    """``smoke_cases.family_params`` (``:60-80``) of the three cases."""
+    import torch
+
+    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    p_mo = spec_mo.init_params(dtype, device)
+    p_mo = {**p_mo, "axes": ({"variance": t(0.9), "lengthscale": t(0.22)}, p_mo["axes"][1]),
+            "noise": t(0.02)}
+    hyp = lambda v, ell: {"variance": t(v), "lengthscale": t(ell)}
+    p_sum = {"components": ({"axes": (hyp(0.8, 0.35), hyp(0.8, 0.35))},
+                            {"axes": (hyp(0.4, 0.12), hyp(0.4, 0.12))}),
+             "noise": t(0.03)}
+    p_add = {"axes": (hyp(0.8, 0.35), hyp(0.8, 0.35)), "noise": t(0.03)}
+    return p_mo, p_sum, p_add
+
+
+def family_values(dtype, device) -> dict:
+    """The rows of ``smoke_cases.family_values`` (``:167-194``) that the port
+    serves, in ``dtype`` on ``device``: each case's ELBO, and the sums of the
+    mean and variance of the coregion q_v, the sum's posterior at 16 points
+    and the additive q_v."""
+    import torch
+
+    from vggp_tpu_torch import additive, sgpr, sum as msum
+
+    X_mo, y_mo, X2, y2 = family_inputs(dtype, device)
+    spec_mo, spec_sum, spec_add, grid_mo, feats2 = family_specs()
+    p_mo, p_sum, p_add = family_params(spec_mo, dtype, device)
+    with torch.no_grad():
+        qv_mo = sgpr.q_v(spec_mo, p_mo, X_mo, y_mo, grid_mo, full_cov=False)
+        g_sum = msum.posterior(spec_sum, p_sum, X2, y2, X2[:16], full_cov=False)
+        qv_ad = additive.q_v(spec_add, p_add, X2, y2, feats2, full_cov=False)
+        vals = {"coregion_elbo": sgpr.elbo(spec_mo, p_mo, X_mo, y_mo),
+                "coregion_qv_mean_sum": qv_mo.mean.sum(), "coregion_qv_var_sum": qv_mo.var.sum(),
+                "sum_elbo": msum.elbo(spec_sum, p_sum, X2, y2),
+                "sum_post_mean_sum": g_sum.mean.sum(), "sum_post_var_sum": g_sum.var.sum(),
+                "additive_elbo": additive.elbo(spec_add, p_add, X2, y2),
+                "additive_qv_mean_sum": qv_ad.mean.sum(), "additive_qv_var_sum": qv_ad.var.sum()}
+    return {k: float(v) for k, v in vals.items()}
+
+
+def family_goldens_part(device, timings) -> None:
+    """12d: the family cases in float32 on the card against the float64
+    goldens, each within the larger of its floor (TOL_E2E_LOSS for an ELBO,
+    TOL_E2E_POST for a sum) and CPU_ERR_RATIO × the port's own float32 error
+    on the CPU; the distance from JAX's CPU float32 golden is printed beside
+    it (the port accumulates the collapsed Gram in float64, so its float32
+    need not sit on JAX's)."""
+    import torch
+
+    t0 = time.perf_counter()
+    card = family_values(torch.float32, device)
+    cpu = family_values(torch.float32, torch.device("cpu"))
+    for name, gold in _GOLD_FAMILIES_F64.items():
+        e = abs(card[name] - gold) / abs(gold)
+        e32 = abs(cpu[name] - gold) / abs(gold)
+        tol = max(TOL_E2E_LOSS if name.endswith("elbo") else TOL_E2E_POST, CPU_ERR_RATIO * e32)
+        jax32 = abs(card[name] - _GOLD_FAMILIES_F32[name]) / abs(_GOLD_FAMILIES_F32[name])
+        print(f"check 12d {name}: card f32 {card[name]:.9g}, rel {e:.3e} from the f64 golden "
+              f"(cpu f32 {e32:.3e}, tol {tol:.3e}); {jax32:.3e} from JAX's cpu f32 golden")
+        check(e <= tol, f"12d {name}: card f32 {e} > {tol}")
+    timings["family_goldens_s"] = time.perf_counter() - t0
+
+
+def make_data_multioutput(device):
+    """12's two-output data: phase 1's points and field (the same numpy
+    generator as :func:`make_data`), each point given an output index from a
+    second generator; output 0 is phase 1's y, output 1 is 0.7·f + 0.2 with
+    its own noise level (OUTPUT1_NOISE), as ``smoke_cases.family_inputs``
+    and ``experiments/multioutput.py`` build it. The output index is X's
+    last column; the query points get indices too."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    X = rng.random((NUM_DATA, 2))
+    f = np.sin(6 * X[:, 0]) * np.cos(5 * X[:, 1])
+    y0 = f + 0.1 * rng.standard_normal(NUM_DATA)
+    Xs = rng.random((SERVE_POINTS, 2))
+    rng2 = np.random.default_rng(12)
+    task = rng2.integers(0, 2, NUM_DATA)
+    y = np.where(task == 0, y0, 0.7 * f + 0.2 + OUTPUT1_NOISE * rng2.standard_normal(NUM_DATA))
+    ts = rng2.integers(0, 2, SERVE_POINTS)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return (as_t(np.column_stack([X, task])), as_t(y), as_t(np.column_stack([Xs, ts])))
+
+
+def check_family_kernels(device, X) -> dict:
+    """12: :func:`check_kernels_at` phase 12's shapes on its data: (512,
+    16 384), the ICM SVGP's steps at 16 384, the collapsed families'
+    (32, 65 536), (16, 65 536), (60, 65 536) and the additive model's
+    (512, 65 536), the fused kernel there too; and CellKufOp's backward (dσ²,
+    dℓ, the first training of a cell model through it) at (512, 4096)
+    against the plain version's autograd on the card (TOL_F32) and CellKufOp
+    on the CPU in float64 (TOL_E2E_POST). Returns the float32 max
+    |kernel − plain| by (kernel, m, n)."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    shapes = ((M_AXIS, FUSED_BATCH), (ICM_CELLS, SGPR_N), (SUM_CELLS[0], SGPR_N),
+              (SUM_CELLS[1], SGPR_N), (ADD_CELLS, SGPR_N))
+    errs = check_kernels_at(device, [(m, X[:n, 0], X[:n, 0] if m == ADD_CELLS else None)
+                                     for m, n in shapes], "12")
+
+    # CellKufOp's backward: the cotangent a random (m, n) field
+    def backward(op, dev, dtype):
+        mesh = torch.linspace(0.0, 1.0, M_AXIS + 1, dtype=torch.float64).to(dtype).to(dev)
+        x = X[:TRAIN_BATCH, 0].to(dtype).to(dev).contiguous()
+        v = torch.tensor(1.3, dtype=dtype, device=dev, requires_grad=True)
+        ell = torch.tensor(0.27, dtype=dtype, device=dev, requires_grad=True)
+        gen = torch.Generator().manual_seed(5)
+        g = torch.randn((M_AXIS, TRAIN_BATCH), generator=gen, dtype=torch.float64).to(dtype).to(dev)
+        torch.autograd.backward(op(mesh, x, v, ell), g)
+        return torch.stack([v.grad, ell.grad]).double().cpu()
+
+    ck.reset_launch_counts()
+    got = backward(ck.cell_kuf_op, device, torch.float32)
+    check(dict(ck.LAUNCHES) == {**NO_LAUNCHES, "cell_kuf": 1},
+          f"CellKufOp forward launches {dict(ck.LAUNCHES)}")
+    plain = backward(ck.cell_kuf_plain, device, torch.float32)
+    ref = backward(ck.cell_kuf_op, torch.device("cpu"), torch.float64)
+    for what, want, bound in (("plain autograd f32 on the card", plain, TOL_F32),
+                              ("CellKufOp f64 on the cpu", ref, TOL_E2E_POST)):
+        e = float(((got - want).abs() / want.abs()).max())
+        print(f"check CellKufOp backward (dσ², dℓ) f32 ({M_AXIS}, {TRAIN_BATCH}) vs {what}: "
+              f"rel {e:.3e}")
+        check(e < bound, f"CellKufOp backward vs {what}: rel {e}")
+    errs[("cell_kuf_op_backward", M_AXIS, TRAIN_BATCH)] = float((got - ref).abs().max())
+    torch.cuda.synchronize()
+    return errs
+
+
+def icm_svgp_spec():
+    """12a: what ``api.SVGP.multioutput`` builds at the main path's width:
+    512×512 Matérn-1/2 cells on the bench's square and 2 outputs, the
+    Kronecker family, a noise level and a mean per output."""
+    from vggp_tpu_torch import CellIntegralFeature, OutputFeature, SVGPSpec
+
+    return SVGPSpec(kinds=("matern12", "matern12", "coregion"),
+                    features=(CellIntegralFeature.from_lims(M_AXIS, 0.0, 1.0),
+                              CellIntegralFeature.from_lims(M_AXIS, 0.0, 1.0),
+                              OutputFeature(n_outputs=2)),
+                    num_data=NUM_DATA, variational="kron", per_output_noise=True,
+                    learn_mean=True)
+
+
+def icm_svgp_part(device, Xm, ym, Xsm, timings) -> dict:
+    """12a: the ICM SVGP: ICM_STEPS steps of ``train.fit_minibatch`` at
+    batch 4096, then ICM_FUSED_STEPS at 16 384 from where they ended (each
+    call its own Adam, lr 1e-2; the coregion axis's W and κ send every axis
+    through the dense Kuu factor: ``cell_kuf`` through CellKufOp, twice a
+    step, its backward plain torch; no other kernel), three profiled steps
+    at 4096 (the step time and the device's busy share), the ``SVGP`` module
+    of the trained parameters, its posterior at the 4096 points cold and
+    from ``precompute`` (cell_kuf twice each), q_v marginal on the 512²×2
+    cells (no launch), the learned B; ``posterior_grad`` raises as the JAX
+    package's does. Then the loss, its gradient leaves (W, κ and the
+    per-output noise and mean among them) and the heads against the CPU's
+    float64 at 4096 points. Returns the launches."""
+    import torch
+
+    from vggp_tpu_torch import SVGP, kernels, svgp, train
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    spec = icm_svgp_spec()
+    loss = lambda p, xb, yb: svgp.loss(spec, p, xb, yb)
+    params = spec.init_params()
+    launches = dict(NO_LAUNCHES)
+    for k, (batch, n_steps) in enumerate(((TRAIN_BATCH, ICM_STEPS),
+                                          (FUSED_BATCH, ICM_FUSED_STEPS))):
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, hist = train.fit_minibatch(loss, params, Xm, ym, n_steps, batch,
+                                           learning_rate=1e-2, seed=61 + k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        got = dict(ck.LAUNCHES)
+        losses = [float(v) for v in hist["loss"]]
+        print(f"12a ICM SVGP: {n_steps} steps at batch {batch}, loss {losses[0]:.6g} -> "
+              f"{losses[-1]:.6g}, {ms:.3f} ms a step, launches {got}")
+        check(all(v == v and abs(v) != float("inf") for v in losses), f"12a loss {losses}")
+        check(got == {**NO_LAUNCHES, "cell_kuf": 2 * n_steps},
+              f"12a launches at batch {batch}: {got}")
+        if batch == TRAIN_BATCH:
+            check(sum(losses[-3:]) < sum(losses[:3]), f"12a: the loss did not fall: {losses}")
+        timings.setdefault("family_fit_launches", {})[f"icm_svgp_{batch}"] = got
+        timings[f"icm_svgp_fit_ms_per_step_batch{batch}"] = ms
+        launches = add_launches(launches, got)
+
+    raw = train.raw_leaves_from(params)
+    step = train.make_step_fn(loss, raw, torch.optim.Adam(train.tree_leaves(raw), lr=1e-2))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(63)
+    for k, v in profile_steps(step, Xm, ym, TRAIN_BATCH, gen).items():
+        timings[f"icm_svgp_{k}"] = v
+
+    model = SVGP(spec, params)
+    check(set(model.axes[2].keys()) == {"w", "kappa"} and model.noise.shape == (2,)
+          and model.mean.shape == (2,), "12a: the module's coregion, noise and mean leaves")
+    post, ms, got = run_counted("12a posterior", lambda: model.posterior(Xsm), 2)
+    timings["icm_svgp_posterior_ms_4096"] = ms
+    launches = add_launches(launches, got)
+    with torch.no_grad():
+        state = svgp.precompute(spec, params)
+    _, ms, got = run_counted("12a posterior_from_state",
+                             lambda: svgp.posterior_from_state(spec, params, state, Xsm), 2)
+    timings["icm_svgp_posterior_from_state_ms_4096"] = ms
+    launches = add_launches(launches, got)
+    qv, ms, got = run_counted("12a q_v", lambda: model.q_v(), 0)
+    timings["icm_svgp_q_v_ms"] = ms
+    check(qv.mean.shape == (2 * M_AXIS ** 2,), f"12a q_v shape {tuple(qv.mean.shape)}")
+    B = kernels.coregion_b(params["axes"][2]).double().cpu()
+    corr = float(B[0, 1] / (B[0, 0] * B[1, 1]).sqrt())
+    print(f"12a posterior {SERVE_POINTS} points {timings['icm_svgp_posterior_ms_4096']:.3f} ms, "
+          f"warm {timings['icm_svgp_posterior_from_state_ms_4096']:.3f} ms, q_v on "
+          f"{M_AXIS}²×2 cells {timings['icm_svgp_q_v_ms']:.3f} ms; learned B = "
+          f"{B.numpy().round(5).tolist()} (correlation {corr:.4f}), noise "
+          f"{params['noise'].cpu().numpy().round(5).tolist()}, mean "
+          f"{params['mean'].cpu().numpy().round(5).tolist()}")
+    try:
+        svgp.posterior_grad(spec, params, Xsm[:8], 2)
+    except ValueError as err:
+        print(f"12a posterior_grad on the coregion axis raises ValueError, as JAX's: {err}")
+    else:
+        check(False, "12a posterior_grad on the coregion axis did not raise")
+    heads = [("posterior", lambda s, p, st, c: svgp.posterior(s, p, c(Xsm))),
+             ("q_v", lambda s, p, st, c: svgp.q_v_from_state(s, p, st, s.features))]
+    timings["check 12a s"] = hold_against_cpu(
+        "12a ICM SVGP vs cpu f64",
+        lambda c: svgp_slice_quantities(spec, params, Xm[:TRAIN_BATCH], ym[:TRAIN_BATCH], heads,
+                                        c), device, TOL_GRAD_FAMILY["svgp"])
+    return launches
+
+
+def collapsed_family_specs():
+    """12b's models: (name, spec, module of the model functions, the
+    launches of one training step, its trainable mask or None)."""
+    from vggp_tpu_torch import (AdditiveSGPRSpec, CellIntegralFeature, FreeSVGPSpec,
+                                OutputFeature, SGPRSpec, SumSGPRSpec, additive, freesvgp,
+                                sgpr, sum as msum)
+
+    cells = lambda m: tuple(CellIntegralFeature.from_lims(m, 0.0, 1.0) for _ in range(2))
+    icm = SGPRSpec(kinds=("matern12", "matern12", "coregion"),
+                   features=cells(ICM_CELLS) + (OutputFeature(n_outputs=2),), learn_mean=True)
+    ssum = SumSGPRSpec(components=tuple(SGPRSpec(kinds=("matern12",) * 2, features=cells(m))
+                                        for m in SUM_CELLS))
+    add = AdditiveSGPRSpec(kinds=("matern12",) * 2, features=cells(ADD_CELLS))
+    free = FreeSVGPSpec(kinds=("matern12",) * 2, m=FREE_M)
+    return (("icm", icm, sgpr), ("sum", ssum, msum), ("additive", add, additive),
+            ("free", free, freesvgp))
+
+
+def family_init(name, spec, X, y):
+    """``non_informative_init`` of each model; the sum's components start at
+    SUM_ELL (the fine one at a tenth of the variance) and the coarse
+    lengthscale is frozen (``train.fit(trainable=…)``, as
+    ``experiments/multiscale.py``): free lengthscales on both leave the split
+    of the signal between the scales unidentifiable. Returns (params,
+    trainable or None)."""
+    import torch
+
+    from vggp_tpu_torch import train
+
+    params = train.non_informative_init(spec.init_params(torch.float32), X, y)
+    if name != "sum":
+        return params, None
+    comps = []
+    for q, (cp, ell) in enumerate(zip(params["components"], SUM_ELL)):
+        scale = 1.0 if q == 0 else 0.1
+        comps.append({"axes": tuple({"variance": ax["variance"] * scale,
+                                     "lengthscale": torch.full_like(ax["lengthscale"], ell)}
+                                    for ax in cp["axes"])})
+    params = {**params, "components": tuple(comps)}
+    mask = train.tree_map(lambda _: True, params)
+    mask["components"] = ({"axes": tuple({"variance": True, "lengthscale": False}
+                                         for _ in comps[0]["axes"])},) + mask["components"][1:]
+    return params, lambda _: mask
+
+
+def family_heads(name, spec, mod, Xs, Xsm):
+    """12b's heads of each model: (name, fn(params, X, y, cast), cell_kuf
+    launches of one call on the card)."""
+    from vggp_tpu_torch import CellIntegralFeature, OutputFeature
+
+    if name == "icm":
+        grid = spec.features
+        return (("posterior", lambda p, X, y, c: mod.posterior(spec, p, X, y, c(Xsm),
+                                                               full_cov=False), 4),
+                ("q_v", lambda p, X, y, c: mod.q_v(spec, p, X, y, grid, full_cov=False), 2))
+    if name == "sum":
+        def comp(q):
+            return lambda p, X, y, c: mod.component_posterior(
+                spec, p, mod.precompute(spec, p, X, y), c(Xs), q)
+        return (("posterior", lambda p, X, y, c: mod.posterior(spec, p, X, y, c(Xs)), 8),
+                ("component_posterior 0", comp(0), 6), ("component_posterior 1", comp(1), 6))
+    if name == "additive":
+        grid = tuple(CellIntegralFeature.from_lims(ADD_GRID, 0.0, 1.0) for _ in range(2))
+        return (("q_v", lambda p, X, y, c: mod.q_v(spec, p, X, y, grid), 2),
+                ("q_dv axis 0", lambda p, X, y, c: mod.q_dv(spec, p, X, y, grid, 0), 3))
+    grid = tuple(CellIntegralFeature.from_lims(FREE_GRID, 0.0, 1.0) for _ in range(2))
+    return (("posterior", lambda p, X, y, c: mod.posterior(spec, p, X, y, c(Xs)), 0),
+            ("q_v", lambda p, X, y, c: mod.q_v(spec, p, X, y, grid), 0))
+
+
+def additive_gate(spec, params) -> list:
+    """The band-ratio gate's reading (fuse while q < 0.7) on each axis of
+    the additive model at ``params``."""
+    import torch
+
+    from vggp_tpu_torch.models import common
+
+    with torch.no_grad():
+        return [float(f.whiten_band_ratio(k, p, common.axis_rel_jitter(spec, k, torch.float32, f)))
+                for k, f, p in zip(spec.kinds, spec.features, params["axes"])]
+
+
+def collapsed_families_part(device, X, y, Xs, Xm, ym, Xsm, timings) -> dict:
+    """12b: the ICM collapsed GP (cells × 2 outputs, a mean per output), the
+    multi-scale sum, the additive model and the free-point model on the first
+    SGPR_N points: ``non_informative_init`` and FAMILY_STEPS ``train.fit``
+    steps each, launches counted exactly (cell_kuf twice a step in the ICM
+    GP and four times in the sum, through CellKufOp; the additive model's
+    two axes through the fused kernel where the band-ratio gate admits ℓ,
+    ``cell_kuf_with_dl`` where it declines, its readings printed; nothing
+    for the free points); each model's heads (:func:`family_heads`) with
+    their launches; then the ELBO, its gradient leaves and the heads on
+    FAMILY_CUT_N points against the CPU's float64. Returns the launches."""
+    import torch
+
+    from vggp_tpu_torch import train
+
+    launches = dict(NO_LAUNCHES)
+    for name, spec, mod in collapsed_family_specs():
+        Xd, yd = (Xm, ym) if name == "icm" else (X, y)
+        Xn, yn = Xd[:SGPR_N], yd[:SGPR_N]
+        params0, trainable = family_init(name, spec, Xn, yn)
+        if name == "additive":
+            gate0 = additive_gate(spec, params0)
+        params, ms, got = fit_counted(f"12b {name} m={spec.num_inducing} n={SGPR_N}",
+                                      lambda p, spec=spec, mod=mod: mod.loss(spec, p, Xn, yn),
+                                      params0, FAMILY_STEPS, trainable)
+        n = FAMILY_STEPS
+        if name == "icm":
+            want = {**NO_LAUNCHES, "cell_kuf": 2 * n}
+        elif name == "sum":
+            want = {**NO_LAUNCHES, "cell_kuf": 4 * n}
+            start = train.constrain(train.unconstrain(params0))["components"][0]["axes"]
+            frozen = [float(ax["lengthscale"]) for ax in params["components"][0]["axes"]]
+            check(frozen == [float(ax["lengthscale"]) for ax in start],
+                  f"12b sum: the frozen lengthscales moved: {frozen}")
+        elif name == "free":
+            want = dict(NO_LAUNCHES)
+        else:
+            gate1 = additive_gate(spec, params)
+            print(f"12b additive: the band-ratio gate (fuse while q < 0.7) per axis: "
+                  f"{gate0} before the fit, {gate1} after")
+            timings["additive_gate_ratio"] = [gate0, gate1]
+            if max(gate0 + gate1) < 0.7:
+                want = {**NO_LAUNCHES, "fused_banded_whiten_kuf": 2 * n}
+            elif min(gate0 + gate1) >= 0.7:
+                want = {**NO_LAUNCHES, "cell_kuf_with_dl": 2 * n}
+            else:
+                want = {**NO_LAUNCHES, "cell_kuf_with_dl": got["cell_kuf_with_dl"],
+                        "fused_banded_whiten_kuf": 2 * n - got["cell_kuf_with_dl"]}
+        check(got == want, f"12b {name} fit launches {got}, expected {want}")
+        timings.setdefault("family_fit_launches", {})[name] = got
+        launches = add_launches(launches, got)
+        timings[f"family_{name}_fit_ms_per_step"] = ms
+        if name == "sum":
+            hist_p = params["components"][1]["axes"]
+            print(f"12b sum: the fine component's lengthscales "
+                  f"{[round(float(ax['lengthscale']), 5) for ax in hist_p]}")
+        if name == "additive":
+            try:
+                mod.posterior_grad(spec, params, Xn, yn, Xs[:8], 0)
+            except ValueError as err:
+                print(f"12b additive posterior_grad on Matérn-1/2 raises ValueError, as JAX's: "
+                      f"{err}")
+            else:
+                check(False, "12b additive posterior_grad on Matérn-1/2 did not raise")
+        heads = family_heads(name, spec, mod, Xs, Xsm)
+        ident = cast_to(device, torch.float32)
+        for hname, fn, n_launch in heads:
+            out, ms, got = run_counted(f"12b {name} {hname}",
+                                       lambda fn=fn: fn(params, Xn, yn, ident), n_launch)
+            launches = add_launches(launches, got)
+            timings[f"family_{name}_{hname.replace(' ', '_')}_ms"] = ms
+            print(f"12b {name} {hname}: {ms:.3f} ms, cell_kuf {n_launch} a call")
+
+        def quantities(cast, spec=spec, mod=mod, params=params, heads=heads, Xd=Xd, yd=yd):
+            p, Xc, yc = cast(params), cast(Xd[:FAMILY_CUT_N]), cast(yd[:FAMILY_CUT_N])
+            val, leaves = value_and_grads(lambda q: mod.loss(spec, q, Xc, yc), p)
+            with torch.no_grad():
+                return {"elbo": -val, **leaves,
+                        **{h: fn(p, Xc, yc, cast) for h, fn, _ in heads}}
+
+        timings[f"check 12b {name} s"] = hold_against_cpu(
+            f"12b {name} n={FAMILY_CUT_N} vs cpu f64", quantities, device,
+            TOL_GRAD_FAMILY.get(name, TOL_GRAD_FAMILY["collapsed"]))
+    return launches
+
+
+def eigh_part(device, X, y, Xs, collapsed, timings) -> dict:
+    """12c: phase 7's trained collapsed GriddedGP (64×64 cells, SGPR_N points)
+    with ``factor_method="eigh"``: the posterior at the 4096 points (cell_kuf
+    four times: the state at (64, 65 536), the query at (64, 4096)) and q_v
+    on the 64×64 cells (twice), each held against the Cholesky heads of the
+    same model on the card (TOL_E2E_POST, beside the CPU float32's distance
+    between the two at SGPR_CUT_N points) and, at SGPR_CUT_N points, against
+    the CPU's float64 eigh heads by the phases' rule. Returns the
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from vggp_tpu_torch import sgpr
+
+    spec, params = collapsed
+    espec = dataclasses.replace(spec, factor_method="eigh")
+    Xn, yn = X[:SGPR_N], y[:SGPR_N]
+    heads = (("posterior", lambda s, p, X, y, c: sgpr.posterior(s, p, X, y, c(Xs), full_cov=False),
+              4),
+             ("q_v", lambda s, p, X, y, c: sgpr.q_v(s, p, X, y, s.features, full_cov=False), 2))
+    launches = dict(NO_LAUNCHES)
+    ident = cast_to(device, torch.float32)
+    cpu32 = cast_to(torch.device("cpu"), torch.float32)
+    for name, fn, n_launch in heads:
+        got_e, ms, got = run_counted(f"12c eigh {name}", lambda fn=fn: fn(espec, params, Xn, yn,
+                                                                          ident), n_launch)
+        launches = add_launches(launches, got)
+        timings[f"eigh_{name}_ms"] = ms
+        with torch.no_grad():
+            got_c = fn(spec, params, Xn, yn, ident)
+            Xc, yc = cpu32(X[:SGPR_CUT_N]), cpu32(y[:SGPR_CUT_N])
+            e32 = quantity_err(fn(espec, cpu32(params), Xc, yc, cpu32),
+                               fn(spec, cpu32(params), Xc, yc, cpu32))
+        e = quantity_err(got_e, got_c)
+        tol = max(TOL_E2E_POST, CPU_ERR_RATIO * e32)
+        print(f"check 12c eigh {name} vs the Cholesky head on the card (n = {SGPR_N}): {e:.3e} "
+              f"(cpu f32 at n = {SGPR_CUT_N}: {e32:.3e}), tol {tol:.3e}; {ms:.3f} ms")
+        check(e <= tol, f"12c eigh {name} vs Cholesky: {e} > {tol}")
+
+    def quantities(cast):
+        p, Xc, yc = cast(params), cast(X[:SGPR_CUT_N]), cast(y[:SGPR_CUT_N])
+        with torch.no_grad():
+            return {name: fn(espec, p, Xc, yc, cast) for name, fn, _ in heads}
+
+    timings["check 12c s"] = hold_against_cpu(f"12c eigh n={SGPR_CUT_N} vs cpu f64", quantities,
+                                              device, TOL_GRAD["collapsed cut n"])
+    return launches
+
+
+def families_phase(device, X, y, Xs, collapsed) -> tuple:
+    """Phase 12: the multi-output ICM models, the sum, additive and
+    free-point families and the clamped-eigh factor (12a–12d), with the cell
+    kernels held against their plain versions at the phase's shapes first.
+    Returns (launches, timings, the kernels' float32 errors)."""
+    timings = {}
+    errs = check_family_kernels(device, X)
+    Xm, ym, Xsm = make_data_multioutput(device)
+    launches = dict(NO_LAUNCHES)
+    for name, part in (
+            ("icm_svgp_part", lambda: icm_svgp_part(device, Xm, ym, Xsm, timings)),
+            ("collapsed_families_part", lambda: collapsed_families_part(
+                device, X, y, Xs, Xm, ym, Xsm, timings)),
+            ("eigh_part", lambda: eigh_part(device, X, y, Xs, collapsed, timings)),
+            ("family_goldens_part", lambda: family_goldens_part(device, timings) or NO_LAUNCHES)):
+        t0 = time.perf_counter()
+        launches = add_launches(launches, part())
+        timings[f"{name}_s"] = time.perf_counter() - t0
+        print(f"{name}: {timings[f'{name}_s']:.1f} s")
+    return launches, timings, errs
+
+
 PROFILE_STEPS = 3
 
 
 def profile_steps(step, X, y, batch, gen) -> dict:
-    """Phase 12: where a training step's time goes. Three steps under
+    """Phase 13: where a training step's time goes. Three steps under
     torch.profiler: the device's busy share of the window (kernel time over
     wall time) and the ops with the most host and device time."""
     import torch
@@ -2429,8 +3046,30 @@ def time_kuf_shape(device, m, n, x_is_mesh=False, name="cell_kuf", edges=None) -
     return out
 
 
+def time_fused_shape(device, m, n) -> dict:
+    """fused_banded_whiten_kuf at (m, n) in f32 at MAIN_PRECISIONS, kernel
+    in turns with its plain version: device ms from the profiler's trace,
+    and the bound."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    mesh, x, v, ell, finv = kernel_inputs(m, n, torch.float32, device, seed=8)
+    kern = lambda: ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell, *MAIN_PRECISIONS)
+    plain = lambda: ck.fused_banded_whiten_kuf_plain(finv, mesh, x, v, ell, *MAIN_PRECISIONS)
+    p1, _ = time_ms(plain, iters=5)
+    k1, _ = time_ms(kern, iters=10, kernel=_DEVICE_KERNELS["fused_banded_whiten_kuf"])
+    k2, _ = time_ms(kern, iters=10, kernel=_DEVICE_KERNELS["fused_banded_whiten_kuf"])
+    p2, _ = time_ms(plain, iters=5)
+    out = {"shape": [m, n], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           **fused_bounds(m, n, MAIN_PRECISIONS)}
+    print(f"time fused_banded_whiten_kuf at ({m}, {n}): device ms kernel {k1:.5f}/{k2:.5f}, "
+          f"plain {p1:.5f}/{p2:.5f}; bound {out['bound_ms']:.5f} ms ({out['bound_by']})")
+    return out
+
+
 def time_serving_grid(device, spec, model, state) -> dict:
-    """Phase 13b: cell_kuf at the serving grid's (512, 65 536), and the cold
+    """Phase 14b: cell_kuf at the serving grid's (512, 65 536), and the cold
     ``posterior`` (``precompute`` and the warm head) and the warm
     ``posterior_from_state`` on the 256×256 grid in turns (cold, warm, warm,
     cold; one call each after a warm one, host clock around a call that ends
@@ -2463,10 +3102,10 @@ def time_serving_grid(device, spec, model, state) -> dict:
 
 
 def measure_kernels(device, errs, launches, shapes) -> list:
-    """Phase 13: kernel and plain times at the main path's f32 shapes, and the
+    """Phase 14: kernel and plain times at the main path's f32 shapes, and the
     fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
     kms.banded_whiten_apply for a and t at MAIN_PRECISIONS); ``shapes``
-    (by kernel, then by key: the timings of phases 13b–13e at the other
+    (by kernel, then by key: the timings of phases 14b–14e at the other
     shapes of the main path) go into the kernels' rows."""
     import torch
 
@@ -2535,7 +3174,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     card = card_line()
-    name = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     device = torch.device("cuda")
 
@@ -2567,8 +3205,16 @@ def main() -> int:
             at_n = more[0]   # the launches at (64, 65 536) by kernel
         if phase is slice_phase:
             stretched, timings["lambda_min"] = more[0]
+        if phase is collapsed_phase:
+            collapsed = more[1]   # phase 7's spec and trained params, for 12c
         if phase is full_phase:
             full_errs, timings["lambda_min_new_features"] = more[0]
+    t0 = time.perf_counter()
+    got, phase_times, family_errs = families_phase(device, X, y, Xs, collapsed)
+    timings["families_phase_s"] = time.perf_counter() - t0
+    print(f"families_phase: {timings['families_phase_s']:.1f} s")
+    launches = add_launches(launches, got)
+    timings.update(phase_times)
     for batch in (TRAIN_BATCH, FUSED_BATCH):
         timings.update(profile_steps(step, X, y, batch, gen))
     serving_grid = time_serving_grid(device, spec, model, state)
@@ -2613,12 +3259,35 @@ def main() -> int:
             "at_one_axis_16384": {"max_abs_err": full_errs[
                 ("fused_banded_whiten_kuf", FULL1D_CELLS, FUSED_BATCH)]}},
     }
+    # phase 12's shapes: the times, the float32 errors against the plain
+    # version and the launches of the training steps there
+    fits = timings["family_fit_launches"]
+    for kernel, m, n, steps in (("cell_kuf", M_AXIS, FUSED_BATCH, fits["icm_svgp_16384"]),
+                              ("cell_kuf", ICM_CELLS, SGPR_N, fits["icm"]),
+                              ("cell_kuf", SUM_CELLS[0], SGPR_N, fits["sum"]),
+                              ("cell_kuf", SUM_CELLS[1], SGPR_N, fits["sum"]),
+                              ("cell_kuf", ADD_CELLS, SGPR_N, None),
+                              ("cell_kuf_with_dl", ADD_CELLS, SGPR_N, fits["additive"])):
+        entry = {**time_kuf_shape(device, m, n, name=kernel),
+                 "max_abs_err": family_errs[(kernel, m, n)]}
+        if steps is not None:
+            # the sum's two components share the four launches a step
+            entry["launches_in_training"] = (steps[kernel] // 2 if m in SUM_CELLS
+                                             else steps[kernel])
+        shapes[kernel][f"at_{m}_cells_{n}"] = entry
+    shapes["fused_banded_whiten_kuf"][f"at_{ADD_CELLS}_cells_{SGPR_N}"] = {
+        **time_fused_shape(device, ADD_CELLS, SGPR_N),
+        "max_abs_err": family_errs[("fused_banded_whiten_kuf", ADD_CELLS, SGPR_N)],
+        "launches_in_training": fits["additive"]["fused_banded_whiten_kuf"]}
+    shapes["cell_kuf"]["cell_kuf_op_backward_at_512_cells_4096"] = {
+        "max_abs_err_vs_cpu_f64": family_errs[("cell_kuf_op_backward", M_AXIS, TRAIN_BATCH)]}
     rows = measure_kernels(device, errs, launches, shapes)
     timings["card"] = card
     print(json.dumps({"steps": timings}))
     print(json.dumps({"kernels": rows, "card": card}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
 

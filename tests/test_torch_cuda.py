@@ -432,3 +432,138 @@ def test_cuda_full_family_matches_cpu_f64(cuda, feature):
     torch.cuda.synchronize()
     assert ck.LAUNCHES["cell_kuf_with_dl"] == (1 if feature == "cells" else 0)
     np.testing.assert_allclose(float(got.detach()), want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("m,n", [(512, 16384), (32, 65536), (16, 65536), (60, 65536),
+                                 (512, 65536)])
+def test_cuda_cell_kernels_at_the_family_shapes(cuda, dtype, rtol, m, n):
+    """Both cell kernels at the shapes of the ICM SVGP's steps at 16 384,
+    the collapsed ICM GP's, the sum's two components' and the additive
+    model's, the fused kernel there too (a at 1e-12 / 2e-5, t at 1e-12 /
+    1e-3, the main path's precisions); one launch each."""
+    rng = np.random.default_rng(m + n)
+    mesh = torch.linspace(0.0, 1.0, m + 1, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    x = torch.as_tensor(rng.random(n), dtype=dtype, device=cuda)
+    v = torch.tensor(1.3, dtype=dtype, device=cuda)
+    ell = torch.tensor(0.27, dtype=dtype, device=cuda)
+    ck.reset_launch_counts()
+    pairs = [(ck.cell_kuf(mesh, x, v, ell), ck.cell_kuf_plain(mesh, x, v, ell), rtol)]
+    pairs += [(g, w, rtol) for g, w in zip(ck.cell_kuf_with_dl(mesh, x, v, ell),
+                                           ck.cell_kuf_with_dl_plain(mesh, x, v, ell))]
+    fused = m == 512 and n == 65536
+    if fused:
+        finv = kms.m12_cell_inv_chol(m, 1.0 / m, v, ell, 1e-6)
+        got = ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell, "highest", "high")
+        want = ck.fused_banded_whiten_kuf_plain(finv, mesh, x, v, ell, "highest", "high")
+        pairs += list(zip(got, want, (rtol, 1e-12 if dtype == torch.float64 else 1e-3)))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1,
+                           "fused_banded_whiten_kuf": int(fused)}
+    for got, want, tol in pairs:
+        assert got.shape == want.shape == (m, n)
+        assert float((got - want).abs().max() / want.abs().max()) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_cell_kuf_op_backward_matches_plain_and_cpu(cuda):
+    """CellKufOp's backward (dσ², dℓ: the training of a cell model on the
+    dense route) in f32 at (512, 4096): 1e-5 of the plain version's
+    autograd on the card and 1e-4 of CellKufOp in f64 on the CPU; the
+    forward one cell_kuf launch."""
+    rng = np.random.default_rng(4)
+    x64 = rng.random(4096)
+    g64 = rng.standard_normal((512, 4096))
+
+    def grads(op, device, dtype):
+        mesh = torch.linspace(0.0, 1.0, 513, dtype=torch.float64).to(dtype=dtype, device=device)
+        v = torch.tensor(1.3, dtype=dtype, device=device, requires_grad=True)
+        ell = torch.tensor(0.27, dtype=dtype, device=device, requires_grad=True)
+        x = torch.as_tensor(x64, dtype=dtype, device=device)
+        torch.autograd.backward(op(mesh, x, v, ell), torch.as_tensor(g64, dtype=dtype,
+                                                                     device=device))
+        return torch.stack([v.grad, ell.grad]).double().cpu()
+
+    ck.reset_launch_counts()
+    got = grads(ck.cell_kuf_op, cuda, torch.float32)
+    assert ck.LAUNCHES["cell_kuf"] == 1
+    for want, tol in ((grads(ck.cell_kuf_plain, cuda, torch.float32), 1e-5),
+                      (grads(ck.cell_kuf_op, torch.device("cpu"), torch.float64), 1e-4)):
+        assert float(((got - want).abs() / want.abs()).max()) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_icm_svgp_matches_cpu_f64(cuda):
+    """The ICM SVGP (32×32 Matérn-1/2 cells × 2 outputs, a noise level and
+    a mean per output): its loss on the card in f32 against the CPU in f64
+    (rtol 1e-4, as the f32 CPU check), cell_kuf twice (the dense route, W
+    and κ trained), and its posterior at 256 points (rtol 1e-3)."""
+    from vggp_tpu_torch import OutputFeature
+
+    rng = np.random.default_rng(5)
+    spec = SVGPSpec(kinds=("matern12", "matern12", "coregion"),
+                    features=(CellIntegralFeature.from_lims(32, 0.0, 1.0),
+                              CellIntegralFeature.from_lims(32, 0.0, 1.0), OutputFeature(2)),
+                    num_data=10_000, variational="kron", per_output_noise=True,
+                    learn_mean=True)
+    p_np = convert.params_to_numpy(spec.init_params(torch.float64, "cpu"))
+    p_np["q"]["mu"] = 0.3 * rng.standard_normal((32, 32, 2))
+    p_np["mean"] = np.array([0.2, -0.1])
+    X = np.column_stack([rng.random((1024, 2)), rng.integers(0, 2, 1024)])
+    y = np.sin(6 * X[:, 0]) * np.cos(5 * X[:, 1]) + 0.1 * rng.standard_normal(1024)
+    xs = np.column_stack([rng.random((256, 2)), rng.integers(0, 2, 256)])
+    cpu = convert.params_from_jax(p_np, "cpu", torch.float64)
+    want = float(svgp.loss(spec, cpu, torch.tensor(X), torch.tensor(y)))
+    with torch.no_grad():
+        post = svgp.posterior(spec, cpu, torch.tensor(xs))
+    ck.reset_launch_counts()
+    p = train.tree_map(lambda t: t.requires_grad_(), convert.params_from_jax(p_np, cuda,
+                                                                             torch.float32))
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    got = svgp.loss(spec, p, f32(X), f32(y))
+    got.backward()
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"cell_kuf": 2, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+    np.testing.assert_allclose(float(got.detach()), want, rtol=1e-4)
+    with torch.no_grad():
+        served = svgp.posterior(spec, train.tree_map(lambda t: t.detach(), p), f32(xs))
+    assert gauss_err(served, post) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sum", "additive", "free"])
+def test_cuda_collapsed_families_match_cpu_f64(cuda, family):
+    """The sum (two Matérn-1/2 cell components), the additive model and the
+    free points on 2048 points: the ELBO on the card in f32 against the CPU
+    in f64 (rtol 1e-4), with the launches of each route: cell_kuf four
+    times (CellKufOp), cell_kuf_with_dl twice (the scalar tangent below the
+    fused kernel's batch), none."""
+    from vggp_tpu_torch import (AdditiveSGPRSpec, FreeSVGPSpec, SGPRSpec, SumSGPRSpec,
+                                additive, freesvgp)
+    from vggp_tpu_torch import sum as msum
+
+    rng = np.random.default_rng(6)
+    cells = lambda m: tuple(CellIntegralFeature.from_lims(m, 0.0, 1.0) for _ in range(2))
+    spec, mod, want_launches = {
+        "sum": (SumSGPRSpec(components=tuple(SGPRSpec(kinds=("matern12",) * 2,
+                                                      features=cells(m)) for m in (8, 20))),
+                msum, {"cell_kuf": 4, "cell_kuf_with_dl": 0}),
+        "additive": (AdditiveSGPRSpec(kinds=("matern12",) * 2, features=cells(256)), additive,
+                     {"cell_kuf": 0, "cell_kuf_with_dl": 2}),
+        "free": (FreeSVGPSpec(kinds=("matern12",) * 2, m=64), freesvgp,
+                 {"cell_kuf": 0, "cell_kuf_with_dl": 0})}[family]
+    p_np = convert.params_to_numpy(spec.init_params(torch.float64, "cpu"))
+    X = rng.random((2048, 2))
+    y = np.sin(6 * X[:, 0]) * np.cos(5 * X[:, 1]) + 0.1 * rng.standard_normal(2048)
+    want = float(mod.loss(spec, convert.params_from_jax(p_np, "cpu", torch.float64),
+                          torch.tensor(X), torch.tensor(y)))
+    ck.reset_launch_counts()
+    p = train.tree_map(lambda t: t.requires_grad_(), convert.params_from_jax(p_np, cuda,
+                                                                             torch.float32))
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    got = mod.loss(spec, p, f32(X), f32(y))
+    got.backward()
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {**want_launches, "fused_banded_whiten_kuf": 0}
+    np.testing.assert_allclose(float(got.detach()), want, rtol=1e-4)

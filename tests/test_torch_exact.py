@@ -195,8 +195,19 @@ def test_unported_options_raise(what):
             with pytest.raises(ValueError, match="per-output mean"):
                 mod.loss(spec, {**p_of(spec), "mean": vec}, X, y)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        if what == "coregion":
-            exact.ExactGPSpec(("matern12", "coregion"), n_outputs=2)
-        else:
-            exact.ExactGPSpec(_KINDS, per_output_noise=True)
+    # ported since: the coregion axis, with and without per-output noise,
+    # gives JAX's initial parameters and mll (rtol 1e-10)
+    rng = np.random.default_rng(3)
+    X = np.stack([rng.random(10), rng.integers(0, 2, 10).astype(np.float64)], 1)
+    y = rng.random(10)
+    kw = dict(kinds=("matern12", "coregion"), n_outputs=2,
+              per_output_noise=what == "per_output_noise")
+    jspec, tspec = jexact.ExactGPSpec(**kw), exact.ExactGPSpec(**kw)
+    p_np = jax.tree.map(np.asarray, jspec.init_params(jnp.float64))
+    tp = tspec.init_params(torch.float64, "cpu")
+    for g, w in zip(jax.tree.leaves(convert.params_to_numpy(tp)), jax.tree.leaves(p_np),
+                    strict=True):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_allclose(float(exact.mll(tspec, tp, torch.tensor(X), torch.tensor(y))),
+                               float(jexact.mll(jspec, jax.tree.map(jnp.asarray, p_np),
+                                                jnp.asarray(X), jnp.asarray(y))), rtol=1e-10)

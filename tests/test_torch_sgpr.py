@@ -423,7 +423,7 @@ def test_sgpr_module_and_convert_round_trip():
 
 # Cases ported since they were written: each now checks that the port raises
 # what the JAX package raises for the same call (a Matérn-1/2 axis in a
-# gradient head: ValueError).
+# gradient head: ValueError), or gives the value JAX gives.
 _RAISES_AS_JAX = ("posterior_grad", "posterior_grad_from_state")
 
 
@@ -461,14 +461,49 @@ def test_unported_options_raise(what):
             with pytest.raises(ValueError, match="per-output mean"):
                 mod.loss(spec, {**p_of(spec), "mean": vec}, X, y)
         return
-    feats = tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        if what == "eigh_factor":
-            sgpr.SGPRSpec(kinds=kinds, features=feats, factor_method="eigh")
-        elif what == "per_output_noise":
-            sgpr.SGPRSpec(kinds=kinds, features=feats, per_output_noise=True)
-        elif what == "coregion":
-            sgpr.SGPRSpec(kinds=("matern12", "coregion"), features=feats)
-        else:
-            train.non_informative_init({"components": (), "noise": torch.tensor(0.1)},
-                                       torch.rand(4, 2), torch.rand(4))
+    # ported since: per-output noise without a coregion axis raises what the
+    # JAX package raises; the clamped-eigh factor, the coregion axis and the
+    # init of a sum's component tree give JAX's values
+    rng = np.random.default_rng(2)
+    X, y = rng.random((12, 2)), rng.random(12)
+    jX, jy, tX, ty = jnp.asarray(X), jnp.asarray(y), torch.tensor(X), torch.tensor(y)
+    if what == "per_output_noise":
+        for mod, cell, p_of in ((jsgpr, JaxCellFeature, lambda spec: spec.init_params()),
+                                (sgpr, CellIntegralFeature,
+                                 lambda spec: spec.init_params(device="cpu"))):
+            spec = mod.SGPRSpec(kinds=kinds, features=tuple(cell.from_lims(8, 0.0, 1.0)
+                                                            for _ in range(2)),
+                                per_output_noise=True)
+            with pytest.raises(ValueError):
+                p_of(spec)
+        return
+    if what == "components_init":
+        tree = {"components": tuple({"axes": tuple({"variance": np.asarray(1.0),
+                                                     "lengthscale": np.asarray(1.0)}
+                                                    for _ in range(2))} for _ in range(2)),
+                "noise": np.asarray(0.1), "mean": np.asarray(0.0)}
+        want = jtrain.non_informative_init(jax.tree.map(jnp.asarray, tree), jX, jy)
+        got = train.non_informative_init(convert.params_from_jax(tree, "cpu"), tX, ty)
+        for g, w in zip(jax.tree.leaves(convert.params_to_numpy(got)), jax.tree.leaves(want),
+                        strict=True):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=1e-12)
+        return
+    from vggp_tpu.features import OutputFeature as JaxOutputFeature
+
+    from vggp_tpu_torch.features import OutputFeature
+
+    if what == "coregion":
+        X[:, 1] = rng.integers(0, 2, 12)
+        jX, tX = jnp.asarray(X), torch.tensor(X)
+        jfeats = (JaxCellFeature.from_lims(8, 0.0, 1.0), JaxOutputFeature(2))
+        tfeats = (CellIntegralFeature.from_lims(8, 0.0, 1.0), OutputFeature(2))
+        kw = dict(kinds=("matern12", "coregion"))
+    else:
+        jfeats = tuple(JaxCellFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
+        tfeats = tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
+        kw = dict(kinds=kinds, factor_method="eigh")
+    jspec, tspec = jsgpr.SGPRSpec(features=jfeats, **kw), sgpr.SGPRSpec(features=tfeats, **kw)
+    p_np = jax.tree.map(np.asarray, jspec.init_params(jnp.float64))
+    np.testing.assert_allclose(
+        float(sgpr.elbo(tspec, convert.params_from_jax(p_np, "cpu"), tX, ty)),
+        float(jsgpr.elbo(jspec, jax.tree.map(jnp.asarray, p_np), jX, jy)), rtol=1e-10)

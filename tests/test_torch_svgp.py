@@ -416,55 +416,86 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 # what the JAX package raises for the same call (an unknown kind in Kuf, a
 # Matérn-1/2 axis in a gradient head, the Kronecker family on one axis now
 # that the full family is ported, a per-output mean vector without a
-# coregion axis now that the constant mean is).
+# coregion axis now that the constant mean is, per-output noise without one
+# under a non-Gaussian likelihood now that the noise vector is), or gives the
+# value JAX gives (the coregion Gram, the clamped-eigh factor).
 _RAISES_AS_JAX = {"kind": KeyError, "posterior_grad": ValueError, "full_family": ValueError,
-                  "learned_mean": ValueError}
+                  "learned_mean": ValueError, "likelihood": ValueError}
+
+
+def _ported_values_match_jax(what):
+    """The coregion Gram of ``axis_gram`` at integer indices (rtol 1e-12),
+    and the loss and the posterior of the 8×8-cell Kronecker SVGP under
+    ``factor_method="eigh"`` at its initial parameters (μ = 0, S = I: the
+    whitened coordinates' signs do not enter; rtol 1e-10 and 1e-9)."""
+    rng = np.random.default_rng(1)
+    if what == "coregion_gram":
+        p_np = {"w": rng.standard_normal((3, 2)), "kappa": rng.uniform(0.1, 1.0, 3)}
+        x1, x2 = np.array([0.0, 2.0, 1.0]), np.array([1.0, 0.0])
+        got = vggp_tpu_torch.kernels.axis_gram("coregion", convert.params_from_jax(p_np, "cpu"),
+                                               torch.tensor(x1), torch.tensor(x2))
+        from vggp_tpu import kernels as jkernels
+
+        want = jkernels.axis_gram("coregion", _jax_tree(p_np), jnp.asarray(x1), jnp.asarray(x2))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
+        return
+    kw = dict(kinds=("matern12",) * 2, num_data=10, variational="kron", factor_method="eigh")
+    jspec = jsvgp.SVGPSpec(features=tuple(JaxCellFeature.from_lims(8, 0.0, 1.0)
+                                          for _ in range(2)), **kw)
+    tspec = svgp.SVGPSpec(features=tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0)
+                                         for _ in range(2)), **kw)
+    p_np = jax.tree.map(np.asarray, jspec.init_params(jnp.float64))
+    jp, tp = _jax_tree(p_np), convert.params_from_jax(p_np, "cpu")
+    X, y, xs = rng.random((6, 2)), rng.random(6), rng.random((4, 2))
+    np.testing.assert_allclose(float(svgp.loss(tspec, tp, torch.tensor(X), torch.tensor(y))),
+                               float(jsvgp.loss(jspec, jp, jnp.asarray(X), jnp.asarray(y))),
+                               rtol=1e-10)
+    with torch.no_grad():
+        got = svgp.posterior(tspec, tp, torch.tensor(xs))
+    want = jsvgp.posterior(jspec, jp, jnp.asarray(xs))
+    for g, w in ((got.mean, want.mean), (got.var, want.var)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-9,
+                                   atol=1e-9 * float(np.abs(np.asarray(w)).max()))
 
 
 @pytest.mark.parametrize("what", ["full_family", "likelihood", "kind", "learned_mean",
                                   "posterior_grad", "coregion_gram", "eigh_factor"])
 def test_unported_options_raise(what):
-    feats = tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
-    if what in _RAISES_AS_JAX:
-        jfeats = tuple(JaxCellFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
-        for pkg, fs in (("jax", jfeats), ("port", feats)):
-            with pytest.raises(_RAISES_AS_JAX[what]):
-                if what == "full_family":
-                    (jsvgp if pkg == "jax" else svgp).SVGPSpec(
-                        kinds=("matern12",), features=fs[:1], num_data=10, variational="kron")
-                elif what == "learned_mean":
-                    mod = jsvgp if pkg == "jax" else svgp
-                    spec = mod.SVGPSpec(kinds=("matern12",) * 2, features=fs, num_data=10,
-                                        variational="kron")
-                    p0 = spec.init_params() if pkg == "jax" else spec.init_params(device="cpu")
-                    vec, X, y = ((jnp.zeros(2), jnp.ones((4, 2)) * 0.5, jnp.ones(4))
-                                 if pkg == "jax" else
-                                 (torch.zeros(2), torch.rand(4, 2), torch.rand(4)))
-                    mod.loss(spec, {**p0, "mean": vec}, X, y)
-                elif what == "kind":
-                    p = ({"variance": jnp.asarray(1.0), "lengthscale": jnp.asarray(0.3)}
-                         if pkg == "jax" else
-                         {"variance": torch.tensor(1.0), "lengthscale": torch.tensor(0.3)})
-                    fs[0].Kuf("matern33", p, jnp.linspace(0, 1, 5) if pkg == "jax"
-                              else torch.linspace(0, 1, 5))
-                elif pkg == "jax":
-                    spec = jsvgp.SVGPSpec(kinds=("matern12",) * 2, features=fs, num_data=10,
-                                          variational="kron")
-                    jsvgp.posterior_grad(spec, spec.init_params(), jnp.ones((4, 2)) * 0.5, 0)
-                else:
-                    spec = svgp.SVGPSpec(kinds=("matern12",) * 2, features=fs, num_data=10,
-                                         variational="kron")
-                    svgp.posterior_grad(spec, spec.init_params(device="cpu"), torch.rand(4, 2),
-                                        axis=0)
+    if what in ("coregion_gram", "eigh_factor"):
+        _ported_values_match_jax(what)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        if what == "likelihood":    # per-output noise under a non-Gaussian likelihood
-            spec = svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
-                                 variational="kron", likelihood="student_t")
-            params = {**spec.init_params(device="cpu"), "noise": torch.full((2,), 0.1)}
-            svgp.loss(spec, params, torch.rand(4, 2), torch.rand(4))
-        elif what == "coregion_gram":
-            vggp_tpu_torch.kernels.axis_gram("coregion", {}, torch.zeros(3), torch.zeros(3))
-        else:
-            svgp.SVGPSpec(kinds=("matern12",) * 2, features=feats, num_data=10,
-                          variational="kron", factor_method="eigh")
+    feats = tuple(CellIntegralFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
+    jfeats = tuple(JaxCellFeature.from_lims(8, 0.0, 1.0) for _ in range(2))
+    for pkg, fs in (("jax", jfeats), ("port", feats)):
+        with pytest.raises(_RAISES_AS_JAX[what]):
+            if what == "full_family":
+                (jsvgp if pkg == "jax" else svgp).SVGPSpec(
+                    kinds=("matern12",), features=fs[:1], num_data=10, variational="kron")
+            elif what in ("learned_mean", "likelihood"):
+                # a vector mean, or per-output noise under Student-t, on a
+                # model without a coregion axis
+                mod = jsvgp if pkg == "jax" else svgp
+                lik = "student_t" if what == "likelihood" else "gaussian"
+                spec = mod.SVGPSpec(kinds=("matern12",) * 2, features=fs, num_data=10,
+                                    variational="kron", likelihood=lik)
+                p0 = spec.init_params() if pkg == "jax" else spec.init_params(device="cpu")
+                key = "mean" if what == "learned_mean" else "noise"
+                vec, X, y = ((jnp.full(2, 0.1), jnp.ones((4, 2)) * 0.5, jnp.ones(4))
+                             if pkg == "jax" else
+                             (torch.full((2,), 0.1), torch.rand(4, 2), torch.rand(4)))
+                mod.loss(spec, {**p0, key: vec}, X, y)
+            elif what == "kind":
+                p = ({"variance": jnp.asarray(1.0), "lengthscale": jnp.asarray(0.3)}
+                     if pkg == "jax" else
+                     {"variance": torch.tensor(1.0), "lengthscale": torch.tensor(0.3)})
+                fs[0].Kuf("matern33", p, jnp.linspace(0, 1, 5) if pkg == "jax"
+                          else torch.linspace(0, 1, 5))
+            elif pkg == "jax":
+                spec = jsvgp.SVGPSpec(kinds=("matern12",) * 2, features=fs, num_data=10,
+                                      variational="kron")
+                jsvgp.posterior_grad(spec, spec.init_params(), jnp.ones((4, 2)) * 0.5, 0)
+            else:
+                spec = svgp.SVGPSpec(kinds=("matern12",) * 2, features=fs, num_data=10,
+                                     variational="kron")
+                svgp.posterior_grad(spec, spec.init_params(device="cpu"), torch.rand(4, 2),
+                                    axis=0)

@@ -8,9 +8,12 @@ caller passes another device, and raise when no card is present.
 from vggp_tpu_torch import basis, config, convert, features, kernels, likelihoods, train  # noqa: F401
 from vggp_tpu_torch.features import (  # noqa: F401
     AxisFeature, B1SplineFeature, B2SplineFeature, B3SplineFeature, CellIntegralFeature,
-    FourierFeature, PointFeature, SplineRKHSFeature)
-from vggp_tpu_torch.models import common, exact, sgpr, svgp  # noqa: F401
+    FourierFeature, OutputFeature, PointFeature, SplineRKHSFeature)
+from vggp_tpu_torch.models import additive, common, exact, freesvgp, sgpr, sum, svgp  # noqa: F401,A004
+from vggp_tpu_torch.models.additive import AdditiveSGPR, AdditiveSGPRSpec  # noqa: F401
 from vggp_tpu_torch.models.common import Gaussian  # noqa: F401
 from vggp_tpu_torch.models.exact import ExactGP, ExactGPSpec  # noqa: F401
+from vggp_tpu_torch.models.freesvgp import FreeSVGP, FreeSVGPSpec  # noqa: F401
 from vggp_tpu_torch.models.sgpr import SGPR, SGPRSpec  # noqa: F401
+from vggp_tpu_torch.models.sum import SumSGPR, SumSGPRSpec  # noqa: F401
 from vggp_tpu_torch.models.svgp import SVGP, SVGPSpec  # noqa: F401

@@ -2,13 +2,16 @@
 
 Both packages use the same trees: ``{"axes": ({"variance", "lengthscale"},
 …), "noise"}``, which the collapsed and exact GPs take as they are. A point
-feature's axis adds its inducing locations ``"z"``; a model with a learned
-constant mean adds ``"mean"``; the SVGP adds ``"q"``, ``{"mu", "raw_L"}``
-for the full variational family and ``{"mu", "raw_L1", "raw_L2", …}`` for
-the Kronecker one. Across the boundary the leaves are numpy arrays
-(``numpy.asarray`` of a JAX tree gives them), so the port never imports JAX;
-feature objects are not part of the tree and are built on each side from
-the same numpy arguments.
+feature's axis adds its inducing locations ``"z"``; a coregion axis holds
+``{"w", "kappa"}`` in place of σ² and ℓ; ``"noise"`` and a learned
+``"mean"`` are scalars or, per output, (P,) vectors; a sum of kernels holds
+``{"components": ({"axes": …}, …), "noise"[, "mean"]}``; the free-point
+model adds its (m, d) points ``"z"`` at the top level; the SVGP adds
+``"q"``, ``{"mu", "raw_L"}`` for the full variational family and
+``{"mu", "raw_L1", "raw_L2", …}`` for the Kronecker one. Across the
+boundary the leaves are numpy arrays (``numpy.asarray`` of a JAX tree gives
+them), so the port never imports JAX; feature objects are not part of the
+tree and are built on each side from the same numpy arguments.
 """
 
 from __future__ import annotations

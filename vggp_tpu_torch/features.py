@@ -12,7 +12,9 @@ f(x) and Kvu (g, m) against the B0 cell integrals of a serving grid:
   B-spline RKHS features of ASVGP;
 - :class:`CellIntegralFeature`, the B0 cell integrals of the GriddedGP, for
   the Matérn-1/2, 3/2, 5/2 and RBF kernels on uniform and non-uniform
-  meshes, with the cell/point derivative blocks of the gradient heads.
+  meshes, with the cell/point derivative blocks of the gradient heads;
+- :class:`OutputFeature`, the discrete output axis of the multi-output (ICM)
+  models, paired with the ``"coregion"`` kind.
 
 The Matérn-1/2 cell Kuf takes the ``cell_kuf`` kernels on any mesh;
 everything else is plain torch, as the JAX package computes it in jnp.
@@ -1124,3 +1126,67 @@ class CellIntegralFeature(AxisFeature):
         a, b = mesh[:-1, None], mesh[1:, None]
         last = (torch.arange(self.m, device=x.device)[:, None] == self.m - 1) & (x[None, :] == b)
         return (((x[None, :] >= a) & (x[None, :] < b)) | last).to(x.dtype)
+
+
+@dataclass(frozen=True)
+class OutputFeature(AxisFeature):
+    """The discrete output axis of a multi-output (ICM) model
+    (``features.py:1393-1462``), paired with ``kind == "coregion"``. The axis
+    coordinate is the output index p ∈ {0, …, P − 1}, carried as a float
+    column of X; one inducing feature per output, so Kuu = B = W Wᵀ + diag(κ)
+    (``kernels.coregion_b``), Kuf gathers B's columns and the joint prior is
+    B ⊗ (⊗ K_axis). The gradient heads reject the axis through their
+    differentiability checks.
+
+    W starts from a fixed host generator (``default_rng(20260818)``, as in
+    the JAX package, so both start from the same W); κ is positive under
+    the softplus floor.
+    """
+
+    n_outputs: int
+    rank: int = 1
+
+    def __post_init__(self):
+        if self.n_outputs < 1 or not 1 <= self.rank <= self.n_outputs:
+            raise ValueError(
+                f"OutputFeature: need n_outputs ≥ 1 and 1 ≤ rank ≤ n_outputs, "
+                f"got ({self.n_outputs}, {self.rank})")
+
+    @property
+    def m(self) -> int:
+        return self.n_outputs
+
+    def init_params(self, dtype=torch.float32, device=None) -> Dict:
+        """W ~ 0.5·N(0, 1) + 0.5 from the fixed generator, κ = 0.5, on
+        ``cuda`` unless ``device`` is given."""
+        device = config.resolve_device(device)
+        w = 0.5 * np.random.default_rng(20260818).standard_normal((self.n_outputs, self.rank)) + 0.5
+        return {"w": torch.as_tensor(w, dtype=dtype, device=device),
+                "kappa": torch.full((self.n_outputs,), 0.5, dtype=dtype, device=device)}
+
+    def _check_kind(self, kind: str) -> None:
+        if kind != kernels.COREGION_KIND:
+            raise ValueError(f"OutputFeature pairs with kind='coregion', got {kind!r}")
+
+    def Kuu(self, kind: str, p: Params) -> torch.Tensor:
+        self._check_kind(kind)
+        return kernels.coregion_b(p)
+
+    def Kuf(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """(P, n): B's columns at the output indices, a column NaN where its
+        index is not an integer in [0, P) (the index clipped before the
+        gather: see ``kernels.clip_index``)."""
+        self._check_kind(kind)
+        idx, valid = kernels._as_index(x, self.n_outputs)
+        B = kernels.coregion_b(p)
+        return kernels._poison(B[:, kernels.clip_index(idx, self.n_outputs)], valid[None, :])
+
+    def Kvu(self, kind: str, p: Params, grid: "OutputFeature") -> torch.Tensor:
+        """B itself: the grid of an output axis is the outputs themselves
+        (one product slice per output). Any other grid axis raises."""
+        self._check_kind(kind)
+        if not isinstance(grid, OutputFeature) or grid.n_outputs != self.n_outputs:
+            raise ValueError(
+                "OutputFeature.Kvu: the grid axis for an output axis must be "
+                f"the same outputs (OutputFeature(n_outputs={self.n_outputs}))")
+        return kernels.coregion_b(p)

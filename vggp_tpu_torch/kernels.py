@@ -2,7 +2,8 @@
 ported heads read): k(r), the Matérn decay rate, dense 1-D Grams, the
 per-axis Gram dispatch, the stable k(0) − k(r), the derivative kernels of
 the gradient heads, and the spectral densities and Markov-state constants
-behind the VFF and spline-RKHS Kuu closed forms."""
+behind the VFF and spline-RKHS Kuu closed forms, and the coregion axis of
+the multi-output (ICM) models."""
 
 from __future__ import annotations
 
@@ -17,9 +18,6 @@ STATIONARY_KINDS = ("matern12", "matern32", "matern52", "rbf")
 
 SQRT3 = math.sqrt(3.0)
 SQRT5 = math.sqrt(5.0)
-
-_NOT_PORTED = "(ROADMAP queue 1, item 10: the other features and model families)"
-
 
 def validate_kind(kind: str) -> str:
     if kind not in STATIONARY_KINDS:
@@ -125,20 +123,72 @@ def gram_1d(kind: str, x1: torch.Tensor, x2: torch.Tensor, variance,
     return k_r(kind, r, variance, lengthscale)
 
 
-def _require_stationary(kind: str, what: str) -> None:
-    if kind not in STATIONARY_KINDS:
-        raise NotImplementedError(f"{what} for kind {kind!r} is not ported yet {_NOT_PORTED}")
+# The multi-output (ICM) coregion axis (``kernels.py:291-366``): a discrete
+# output axis whose Gram over the output indices is B = W Wᵀ + diag(κ), so
+# K((x, p), (x', p')) = k(x, x')·B[p, p'] is one more Kronecker axis.
+
+COREGION_KIND = "coregion"
+
+
+def coregion_b(p: Dict) -> torch.Tensor:
+    """B = W Wᵀ + diag(κ), the (P, P) ICM coregionalization matrix."""
+    W = p["w"]
+    return W @ W.T + torch.diag(p["kappa"])
+
+
+def coregion_b_diag(p: Dict) -> torch.Tensor:
+    """diag(B) = Σ_r W[:, r]² + κ without forming B."""
+    return torch.sum(p["w"] ** 2, dim=1) + p["kappa"]
+
+
+def _as_index(x: torch.Tensor, n_outputs=None):
+    """The output index of each coordinate of the axis column: the nearest
+    integer, ties to even (as ``jnp.round``). With ``n_outputs`` also the
+    validity mask: a coordinate that is not within 1e-6 of an integer in
+    [0, P) is invalid, and the callers poison what it gathers with NaN."""
+    flat = x.reshape(-1)
+    r = torch.round(flat)
+    idx = r.to(torch.int64)
+    if n_outputs is None:
+        return idx
+    valid = (torch.abs(flat - r) <= 1e-6) & (idx >= 0) & (idx < n_outputs)
+    return idx, valid
+
+
+def clip_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """An index that is safe to gather with from a length-``n`` axis, as
+    XLA's gather reads it: a negative index wraps once, then every index is
+    clipped into [0, n). Out of range it is an error on the CPU and a device
+    assert on the card, which ends every later launch."""
+    return torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
+
+
+def _poison(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """NaN where the output index was invalid (the NaN branch is a
+    constant, so the gradient stays finite)."""
+    return torch.where(valid, values, torch.full_like(values, float("nan")))
 
 
 def axis_gram(kind: str, p: Dict, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Per-axis dense Gram. The coregion axis raises (not ported)."""
-    _require_stationary(kind, "axis_gram")
+    """Per-axis dense Gram: :func:`gram_1d` for the stationary kinds, the
+    gather B[p, p'] at the output indices for ``"coregion"``."""
+    if kind == COREGION_KIND:
+        B = coregion_b(p)
+        P = B.shape[0]
+        i1, v1 = _as_index(x1, P)
+        i2, v2 = _as_index(x2, P)
+        g = B[clip_index(i1, P)[:, None], clip_index(i2, P)[None, :]]
+        return _poison(g, v1[:, None] & v2[None, :])
     return gram_1d(kind, x1, x2, p["variance"], p["lengthscale"])
 
 
 def axis_kdiag(kind: str, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Per-axis diag K(x, x): the stationary variance (length-n vector)."""
-    _require_stationary(kind, "axis_kdiag")
+    """Per-axis diag K(x, x) (length-n vector): the stationary variance, or
+    B[p, p] gathered at the output indices for ``"coregion"``."""
+    if kind == COREGION_KIND:
+        d = coregion_b_diag(p)
+        idx, valid = _as_index(x, d.shape[0])
+        return _poison(d[clip_index(idx, d.shape[0])], valid)
     n = x.reshape(-1).shape[0]
     v = p["variance"]
     return torch.ones((n,), dtype=v.dtype, device=v.device) * v

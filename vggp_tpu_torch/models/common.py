@@ -25,9 +25,6 @@ from vggp_tpu_torch.ops.kron import khatri_rao_rows, kron_dense, kron_diag
 Params = Dict
 
 
-_NOT_PORTED = "(ROADMAP queue 1, item 10: the other features and model families)"
-
-
 @dataclass
 class Gaussian:
     """A multivariate normal result: mean, and either the (n, n) covariance
@@ -77,20 +74,28 @@ def axis_rel_jitter(spec, kind: str, dtype, feat=None) -> float:
     return jitter
 
 
-def axis_chol_kuu(spec, params: Params) -> Tuple[PSDFactor, ...]:
-    """Per-axis jittered-Cholesky factors of Kuu, with the f32 jitter floors
-    of :func:`axis_rel_jitter` (``common.py:101-119``)."""
+def axis_chol_kuu(spec, params: Params, method: str = None) -> Tuple[PSDFactor, ...]:
+    """Per-axis PSD factors of Kuu (``common.py:101-119``): the jittered
+    Cholesky with the f32 jitter floors of :func:`axis_rel_jitter`, or,
+    with ``method`` (default: the spec's ``factor_method``) ``"eigh"``, the
+    clamped-eigh factor of the serving heads."""
+    if method is None:
+        method = getattr(spec, "factor_method", "chol")
     out = []
     for i, (kind, feat) in enumerate(zip(spec.kinds, spec.features)):
         kuu = feat.Kuu(kind, axis_params(params, i))
-        out.append(psd_factor(kuu, jitter=axis_rel_jitter(spec, kind, kuu.dtype, feat)))
+        out.append(psd_factor(kuu, method=method,
+                              jitter=axis_rel_jitter(spec, kind, kuu.dtype, feat)))
     return tuple(out)
 
 
 def scalar_whiten_eligible(spec, params: Params) -> bool:
-    """True when the scalar-tangent whitening applies: every axis trained
-    through exactly (variance, lengthscale), i.e. fixed bases."""
+    """True when the scalar-tangent whitening applies: Cholesky factors, and
+    every axis trained through exactly (variance, lengthscale), i.e. fixed
+    bases (a coregion axis has (w, κ) and takes the dense factor)."""
     if not config.SCALAR_WHITEN_VJP:
+        return False
+    if getattr(spec, "factor_method", "chol") != "chol":
         return False
     return all(set(ax) <= {"variance", "lengthscale"} for ax in params["axes"])
 
@@ -253,7 +258,8 @@ def khatri_rao_all(blocks: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def kdiag(spec, params: Params, X: torch.Tensor) -> torch.Tensor:
-    """diag K_ff — product of per-axis stationary variances."""
+    """diag K_ff — the product of the per-axis Gram diagonals (the
+    stationary variance, or B[p, p] on a coregion axis)."""
     if X.dim() == 1:
         X = X[:, None]
     v = torch.ones((X.shape[0],), dtype=X.dtype, device=X.device)
@@ -263,7 +269,8 @@ def kdiag(spec, params: Params, X: torch.Tensor) -> torch.Tensor:
 
 
 def gram_full(spec, params: Params, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Dense K(x1, x2): the product over axes of the 1-D Grams."""
+    """Dense K(x1, x2): the product over axes of the 1-D Grams (the
+    coregion axis's gather of B included)."""
     if x1.dim() == 1:
         x1 = x1[:, None]
     if x2.dim() == 1:
@@ -423,58 +430,85 @@ def grad_grid_kvv(spec, params: Params, grid_axes, axis: int, dense: bool = True
     return kron_dense(blocks) if dense else blocks
 
 
-def _scalar_mean(spec, params: Params):
-    """The learned constant mean ``params["mean"]``, or None. A vector is a
-    per-output mean, which needs a coregion axis (ValueError without one, as
-    in the JAX package) and is not ported yet (item 10f)."""
-    m = params.get("mean")
-    if m is not None and m.dim() != 0:
-        if "coregion" not in spec.kinds:
-            raise ValueError("vector params['mean'] is a per-output mean and requires a "
-                             "'coregion' axis to carry the output index")
-        raise NotImplementedError("the per-output mean is not ported yet "
-                                  "(ROADMAP queue 1, item 10f: the coregion axis)")
-    return m
+def _per_output(spec, leaf: torch.Tensor, X: torch.Tensor, what: str):
+    """A scalar leaf as it is; a vector leaf (P,) gathered at each row's
+    output index, read from the coregion axis's column and clipped into
+    range as the JAX package's gather clips it (``kernels.clip_index``).
+    Without a coregion axis a vector is a ValueError, worded as in the JAX
+    package (``what`` names the leaf)."""
+    if leaf.dim() == 0:
+        return leaf
+    try:
+        i = spec.kinds.index(kernels.COREGION_KIND)
+    except ValueError:
+        raise ValueError(f"vector params['{what}'] is {'a ' if what == 'mean' else ''}"
+                         f"per-output {what} and requires a 'coregion' axis to carry the "
+                         f"output index") from None
+    if X.dim() == 1:
+        X = X[:, None]
+    return leaf[kernels.clip_index(kernels._as_index(X[:, i]), leaf.shape[0])]
 
 
 def mean_fn(spec, params: Params, X: torch.Tensor):
-    """Prior mean m(x): the learned constant ``params["mean"]``, or 0.0 when
-    the model learns none. The model is f = m + g with g the zero-mean GP of
-    the inducing machinery: every training head subtracts m from y, every
-    predictive head adds it back, and the gridded heads add its cell
+    """Prior mean m(x): the learned ``params["mean"]``, a constant or a
+    per-output vector gathered by the coregion axis's index column, or 0.0
+    when the model learns none. The model is f = m + g with g the zero-mean
+    GP of the inducing machinery: every training head subtracts m from y,
+    every predictive head adds it back, and the gridded heads add its cell
     integrals (:func:`grid_mean`); a constant has no gradient, so the
     gradient heads see none."""
-    m = _scalar_mean(spec, params)
-    return 0.0 if m is None else m
+    m = params.get("mean")
+    return 0.0 if m is None else _per_output(spec, m, X, "mean")
 
 
 def grid_mean(spec, params: Params, grid_axes):
-    """Exact cell integrals of the constant mean over a product grid, a flat
-    (Π g_i,) vector in the ``numpy.kron`` order: m·Π|cell_i|; 0.0 when the
+    """Exact cell integrals of the mean over a product grid, a flat
+    (Π g_i,) vector in the ``numpy.kron`` order: the Kronecker product of
+    the cell widths of each integral axis and, on the coregion axis, the
+    per-output mean (or ones, with the constant as a factor); 0.0 when the
     model learns no mean."""
-    m = _scalar_mean(spec, params)
+    m = params.get("mean")
     if m is None:
         return 0.0
-    widths = [torch.as_tensor(np.diff(np.asarray(g.mesh)), dtype=m.dtype, device=m.device)
-              for g in grid_axes]
-    return kron_diag(widths) * m
+    vecs = []
+    for kind, g in zip(spec.kinds, grid_axes):
+        if kind == kernels.COREGION_KIND:
+            ones = torch.ones((g.n_outputs,), dtype=m.dtype, device=m.device)
+            vecs.append(ones * m if m.dim() == 1 else ones)
+        else:
+            vecs.append(torch.as_tensor(np.diff(np.asarray(g.mesh)), dtype=m.dtype,
+                                        device=m.device))
+    out = kron_diag(vecs)
+    return out * m if m.dim() == 0 else out
 
 
 def obs_noise(spec, params: Params, X: torch.Tensor):
-    """Observation noise variance: the scalar (homoscedastic) case."""
-    noise = params["noise"]
-    if noise.dim() != 0:
-        raise NotImplementedError(f"per-output noise is not ported yet {_NOT_PORTED}")
-    return noise
+    """Observation noise variance: the scalar (homoscedastic) ``noise``, or
+    a per-output vector (P,) gathered by the coregion axis's index column
+    (an (n,) vector; every consumer broadcasts either)."""
+    return _per_output(spec, params["noise"], X, "noise")
 
 
 # The collapsed bound (``common.py:607-690``), in the stable factored form
-#   A = F⁻¹Kuf/σ (Khatri–Rao over the axes), B = I + AAᵀ, L_B = chol(B),
-#   c = L_B⁻¹A y/σ.
+#   A = F⁻¹Kuf/σ (the axis blocks joined by ``combine``: Khatri–Rao for the
+#   Kronecker models, a concatenation for the additive one), B = I + AAᵀ,
+#   L_B = chol(B), c = L_B⁻¹A y/σ; σ² per observation under per-output noise.
+
+
+def gram_accumulated(A: torch.Tensor, y: torch.Tensor):
+    """(B, b) = (I + A·Aᵀ, A·y) with the n-term sums accumulated in float64
+    and returned in A's dtype: on an H100, cuBLAS's float32 Gram over
+    n = 65 536 points is 4e-5 off float64, which the Cholesky of B
+    (condition ~1e7) carried into the heads 27× further than the CPU's
+    float32 did (tools/torch_collapsed_precision.py, ROADMAP queue 3). There
+    the float64 tensor-core rate equals the float32 CUDA-core one."""
+    A64 = A.double()
+    B = torch.eye(A.shape[0], dtype=torch.float64, device=A.device) + A64 @ A64.T
+    return B.to(A.dtype), (A64 @ y.double()).to(A.dtype)
 
 
 def factored_state(spec, params: Params, X: torch.Tensor, y: torch.Tensor,
-                   with_chols: bool = True):
+                   with_chols: bool = True, combine=khatri_rao_all):
     """(chols, A, L_B, c, y) of the collapsed bound, y the residual.
 
     ``chols`` are the per-axis dense Kuu factors the heads whiten with. The
@@ -492,19 +526,10 @@ def factored_state(spec, params: Params, X: torch.Tensor, y: torch.Tensor,
     else:
         chols = axis_chol_kuu(spec, params)
         blocks = axis_whitened_kuf(spec, params, chols, X)
-    A = khatri_rao_all(blocks) / sigma          # (m, n)
-    m = A.shape[0]
-    # The n-term sums AAᵀ and Ay accumulate in float64 (a float32 state
-    # keeps float32 otherwise): on an H100, cuBLAS's float32 Gram over
-    # n = 65 536 points is 4e-5 off float64, which the Cholesky of B
-    # (condition ~1e7) carried into the heads 27× further than the CPU's
-    # float32 did (tools/torch_collapsed_precision.py, ROADMAP queue 3).
-    # There the float64 tensor-core rate equals the float32 CUDA-core one.
-    A64 = A.double()
-    B = (torch.eye(m, dtype=torch.float64, device=A.device) + A64 @ A64.T).to(A.dtype)
+    A = combine(blocks) / sigma                 # (m, n); an (n,) σ scales the columns
+    B, Ay = gram_accumulated(A, y / sigma)      # the n-term sums in float64
     LB = safe_cholesky(B, 1e-12)                # float32: the 1e-6 floor, relative to mean diag(B)
-    c = tri_solve(LB, (A64 @ (y / sigma).double()).to(A.dtype))
-    return chols, A, LB, c, y
+    return chols, A, LB, tri_solve(LB, Ay), y
 
 
 def nonneg(x: torch.Tensor) -> torch.Tensor:
@@ -513,12 +538,15 @@ def nonneg(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(x, torch.zeros_like(x))
 
 
-def collapsed_elbo(spec, params: Params, X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def collapsed_elbo(spec, params: Params, X: torch.Tensor, y: torch.Tensor,
+                   combine=khatri_rao_all, kdiag_fn=kdiag) -> torch.Tensor:
     """The collapsed (Titsias) evidence lower bound, a scalar; diag K_ff is
-    :func:`kdiag`."""
-    _, A, LB, c, y = factored_state(spec, params, X, y, with_chols=False)
+    ``kdiag_fn`` (the product of the axis variances for a separable kernel,
+    their sum for an additive one). Per-output noise D = diag(σ²_i) enters
+    exactly: every σ² is the observation's own."""
+    _, A, LB, c, y = factored_state(spec, params, X, y, with_chols=False, combine=combine)
     noise = obs_noise(spec, params, X).expand(y.shape[0])
-    kff = kdiag(spec, params, X)
+    kff = kdiag_fn(spec, params, X)
     bound = -0.5 * torch.sum(torch.log(2.0 * math.pi * noise))
     bound = bound - torch.sum(torch.log(torch.diagonal(LB)))
     bound = bound - 0.5 * torch.sum(y * y / noise)
@@ -528,9 +556,27 @@ def collapsed_elbo(spec, params: Params, X: torch.Tensor, y: torch.Tensor) -> to
     return bound - 0.5 * nonneg(torch.sum(kff / noise) - torch.sum(A * A))
 
 
+def conditional(w: torch.Tensor, LB: torch.Tensor, c: torch.Tensor, kss_fn, kdiag_fn,
+                full_cov: bool, noise=0.0) -> Gaussian:
+    """The collapsed conditional from the whitened cross block w (m, n*) of
+    a factored state: mean (L_B⁻¹w)ᵀc, cov K** − wᵀw + (L_B⁻¹w)ᵀ(L_B⁻¹w)
+    with ``kss_fn()`` the prior K**, or for ``full_cov=False`` the floored
+    diagonal from ``kdiag_fn()``; ``noise`` (a scalar or per point) added."""
+    tmp = tri_solve(LB, w)
+    mean = tmp.T @ c
+    if full_cov:
+        cov = kss_fn() - w.T @ w + tmp.T @ tmp
+        return Gaussian(mean=mean, cov=cov + noise * torch.eye(cov.shape[0], dtype=cov.dtype,
+                                                               device=cov.device))
+    kss = kdiag_fn()
+    var = kss - torch.sum(w * w, dim=0) + torch.sum(tmp * tmp, dim=0)
+    return Gaussian(mean=mean, var=floor_var(var, kss) + noise)
+
+
 def collapsed_posterior(spec, params: Params, state, xstar: torch.Tensor,
                         full_cov: bool = False, predictive: bool = False,
-                        kdiag_fn=kdiag, gram_fn=gram_full, blocks_fn=None) -> Gaussian:
+                        kdiag_fn=kdiag, gram_fn=gram_full, blocks_fn=None,
+                        combine=khatri_rao_all) -> Gaussian:
     """q(f*) from a factored state: w = F⁻¹Kuf* through the state's dense
     factors, mean = (L_B⁻¹w)ᵀc, cov = K** − wᵀw + (L_B⁻¹w)ᵀ(L_B⁻¹w).
 
@@ -538,39 +584,70 @@ def collapsed_posterior(spec, params: Params, state, xstar: torch.Tensor,
     the prior's ``kdiag_fn`` / ``gram_fn`` of ∂f, and reuse the same algebra;
     they see no prior mean (∂m = 0)."""
     chols, A, LB, c = state[:4]
-    w = khatri_rao_all((blocks_fn or axis_whitened_kuf)(spec, params, chols, xstar))
-    tmp = tri_solve(LB, w)
-    mean = tmp.T @ c
-    if blocks_fn is None:
-        mean = mean + mean_fn(spec, params, xstar)
-    noise = obs_noise(spec, params, xstar) if predictive else 0.0
-    if full_cov:
-        cov = gram_fn(spec, params, xstar, xstar) - w.T @ w + tmp.T @ tmp
-        if predictive:
-            cov = cov + noise * torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
-        return Gaussian(mean=mean, cov=cov)
-    kss = kdiag_fn(spec, params, xstar)
-    var = kss - torch.sum(w * w, dim=0) + torch.sum(tmp * tmp, dim=0)
-    return Gaussian(mean=mean, var=floor_var(var, kss) + noise)
+    w = combine((blocks_fn or axis_whitened_kuf)(spec, params, chols, xstar))
+    g = conditional(w, LB, c, lambda: gram_fn(spec, params, xstar, xstar),
+                    lambda: kdiag_fn(spec, params, xstar), full_cov,
+                    obs_noise(spec, params, xstar) if predictive else 0.0)
+    return g if blocks_fn is not None else shift_mean(g, mean_fn(spec, params, xstar))
+
+
+def init_tree(kinds, features, per_output_noise: bool, learn_mean: bool, dtype,
+              device, n_outputs: int = None) -> Params:
+    """The initial ``{"axes", "noise"[, "mean"]}`` of a per-axis spec, on
+    ``device`` (resolved by the caller): σ² = ℓ = 1 on each continuous axis
+    and the feature's own parameters (a point feature's z; a coregion axis's
+    W and κ, and no σ² or ℓ); noise 0.1, a (P,) vector with
+    ``per_output_noise`` (which needs a coregion axis of P outputs: a
+    ValueError without one, as in the JAX package); the mean 0, a (P,)
+    vector on a model with a coregion axis. ``n_outputs`` given, P is that
+    (the exact GP's spec field) and nothing raises."""
+    def full(shape, v):
+        return torch.full(shape, v, dtype=dtype, device=device)
+
+    axes = tuple(({} if kind == kernels.COREGION_KIND else
+                  {"variance": full((), 1.0), "lengthscale": full((), 1.0)})
+                 | f.init_params(dtype, device) for kind, f in zip(kinds, features))
+    outputs = lambda: ((features[kinds.index(kernels.COREGION_KIND)].n_outputs,)
+                       if n_outputs is None else (n_outputs,))
+    out = {"axes": axes, "noise": full(outputs() if per_output_noise else (), 0.1)}
+    if learn_mean:
+        out["mean"] = full(outputs() if kernels.COREGION_KIND in kinds else (), 0.0)
+    return out
+
+
+def _parameter_dicts(axes) -> nn.ModuleList:
+    return nn.ModuleList(
+        nn.ParameterDict({k: nn.Parameter(v.detach().clone()) for k, v in ax.items()})
+        for ax in axes)
 
 
 def module_params(module: nn.Module, raw: Params) -> None:
     """Give ``module`` the raw tree's leaves as ``nn.Parameter``s in the
     layout of the JAX parameter tree: ``axes`` → one ``ParameterDict`` per
-    axis, ``noise``, and the learned ``mean`` where the tree has one."""
-    module.axes = nn.ModuleList(
-        nn.ParameterDict({k: nn.Parameter(v.detach().clone()) for k, v in ax.items()})
-        for ax in raw["axes"])
-    module.noise = nn.Parameter(raw["noise"].detach().clone())
-    module.mean = (nn.Parameter(raw["mean"].detach().clone()) if "mean" in raw else None)
+    axis (a sum of kernels: ``components``, one such list per component),
+    ``noise`` (a scalar or a per-output vector), and the learned ``mean``
+    and a free-point model's points ``z`` where the tree has them."""
+    if "components" in raw:
+        module.components = nn.ModuleList(_parameter_dicts(cp["axes"])
+                                          for cp in raw["components"])
+    else:
+        module.axes = _parameter_dicts(raw["axes"])
+    for key in ("noise", "mean", "z"):
+        setattr(module, key, nn.Parameter(raw[key].detach().clone()) if key in raw else None)
 
 
 def module_raw_params(module: nn.Module) -> Params:
     """The nested raw tree of :func:`module_params`, its leaves the module's
     parameters."""
-    out = {"axes": tuple(dict(ax.items()) for ax in module.axes), "noise": module.noise}
-    if module.mean is not None:
-        out["mean"] = module.mean
+    if hasattr(module, "components"):
+        out = {"components": tuple({"axes": tuple(dict(ax.items()) for ax in cp)}
+                                   for cp in module.components)}
+    else:
+        out = {"axes": tuple(dict(ax.items()) for ax in module.axes)}
+    out["noise"] = module.noise
+    for key in ("mean", "z"):
+        if getattr(module, key) is not None:
+            out[key] = getattr(module, key)
     return out
 
 

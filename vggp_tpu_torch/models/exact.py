@@ -22,42 +22,32 @@ from vggp_tpu_torch.ops.kron import kron_dense, kron_diag
 
 Params = Dict
 
-_NOT_PORTED = "(ROADMAP queue 1, item 10: the other features and model families)"
-
-
 @dataclass(frozen=True)
 class ExactGPSpec:
     kinds: Tuple[str, ...]           # one per input axis; product kernel across axes
     jitter: float = 1e-6
-    n_outputs: int = 0               # the coregion axis: not ported
+    # a multi-output model: a "coregion" axis whose column of X carries the
+    # output index (ICM, K = B ⊗ ⊗K_i), with n_outputs outputs of B's rank
+    n_outputs: int = 0
     coregion_rank: int = 1
-    per_output_noise: bool = False   # not ported
-    learn_mean: bool = False         # a learned constant mean
-
-    def __post_init__(self):
-        for what, on in (("the coregion axis", "coregion" in self.kinds),
-                         ("per-output noise", self.per_output_noise)):
-            if on:
-                raise NotImplementedError(f"{what} is not ported yet {_NOT_PORTED}")
+    per_output_noise: bool = False   # noise becomes an (n_outputs,) vector
+    learn_mean: bool = False         # a learned constant mean; per output with a coregion axis
 
     @property
     def ndim(self) -> int:
         return len(self.kinds)
 
     def init_params(self, dtype=torch.float32, device=None) -> Params:
-        """σ² = ℓ = 1 per axis, noise 0.1 and the mean 0 when it is learned,
+        """σ² = ℓ = 1 per continuous axis, W and κ of
+        ``OutputFeature(n_outputs, coregion_rank)`` on a coregion axis, noise
+        0.1 and the mean 0 when it is learned, each per output where asked,
         on ``cuda`` unless ``device`` is given."""
-        device = config.resolve_device(device)
+        from vggp_tpu_torch.features import AxisFeature, OutputFeature
 
-        def scalar(v):
-            return torch.tensor(v, dtype=dtype, device=device)
-
-        out = {"axes": tuple({"variance": scalar(1.0), "lengthscale": scalar(1.0)}
-                             for _ in self.kinds),
-               "noise": scalar(0.1)}
-        if self.learn_mean:
-            out["mean"] = scalar(0.0)
-        return out
+        feats = tuple(OutputFeature(self.n_outputs, self.coregion_rank)
+                      if kind == kernels.COREGION_KIND else AxisFeature() for kind in self.kinds)
+        return common.init_tree(self.kinds, feats, self.per_output_noise, self.learn_mean,
+                                dtype, config.resolve_device(device), self.n_outputs)
 
 
 def _chol_ky(spec: ExactGPSpec, params: Params, X: torch.Tensor) -> torch.Tensor:

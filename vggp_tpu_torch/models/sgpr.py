@@ -34,9 +34,6 @@ from vggp_tpu_torch.ops.kron import kron_dense, kron_diag
 
 Params = Dict
 
-_NOT_PORTED = "(ROADMAP queue 1, item 10: the other features and model families)"
-
-
 @dataclass(frozen=True)
 class SGPRSpec:
     """Static config: per-axis kernel kinds and inducing features."""
@@ -44,18 +41,13 @@ class SGPRSpec:
     kinds: Tuple[str, ...]
     features: Tuple
     jitter: float = 1e-6
-    factor_method: str = "chol"     # Kuu factorization; only "chol" is ported
-    per_output_noise: bool = False  # not ported (needs the coregion axis)
-    learn_mean: bool = False        # a learned constant mean
+    factor_method: str = "chol"     # Kuu factorization: "chol" | "eigh"
+    per_output_noise: bool = False  # a noise level per output (needs a coregion axis)
+    learn_mean: bool = False        # a learned constant mean; per output with a coregion axis
 
     def __post_init__(self):
         if self.factor_method not in ("chol", "eigh"):
             raise ValueError(f"unknown factor method {self.factor_method!r}")
-        for what, on in (("the clamped-eigh Kuu factor", self.factor_method == "eigh"),
-                         ("per-output noise", self.per_output_noise),
-                         ("the coregion axis", "coregion" in self.kinds)):
-            if on:
-                raise NotImplementedError(f"{what} is not ported yet {_NOT_PORTED}")
 
     @property
     def ndim(self) -> int:
@@ -66,20 +58,12 @@ class SGPRSpec:
         return math.prod(f.m for f in self.features)
 
     def init_params(self, dtype=torch.float32, device=None) -> Params:
-        """σ² = ℓ = 1 per axis (and the feature's own, as a point feature's
-        z), noise 0.1 and the mean 0 when it is learned, on ``cuda`` unless
-        ``device`` is given."""
-        device = config.resolve_device(device)
-
-        def scalar(v):
-            return torch.tensor(v, dtype=dtype, device=device)
-
-        axes = tuple({"variance": scalar(1.0), "lengthscale": scalar(1.0),
-                      **f.init_params(dtype, device)} for f in self.features)
-        out = {"axes": axes, "noise": scalar(0.1)}
-        if self.learn_mean:
-            out["mean"] = scalar(0.0)
-        return out
+        """:func:`common.init_tree`: σ² = ℓ = 1 per continuous axis and the
+        feature's own (a point feature's z, a coregion axis's W and κ), noise
+        0.1 and the mean 0 when it is learned, each per output where asked,
+        on ``cuda`` unless ``device`` is given."""
+        return common.init_tree(self.kinds, self.features, self.per_output_noise,
+                                self.learn_mean, dtype, config.resolve_device(device))
 
 
 @highest_precision

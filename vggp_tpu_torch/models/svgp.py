@@ -55,20 +55,15 @@ class SVGPSpec:
     num_data: int                     # n_total, for minibatch scaling
     variational: str = "full"         # "full" | "kron"
     jitter: float = 1e-6
-    factor_method: str = "chol"       # Kuu factorization; only "chol" is ported
+    factor_method: str = "chol"       # Kuu factorization: "chol" | "eigh"
     likelihood: str = "gaussian"      # see vggp_tpu_torch.likelihoods
     likelihood_opts: Tuple[Tuple[str, float], ...] = ()  # static, e.g. (("df", 4.0),)
-    learn_mean: bool = False          # a learned constant mean
+    per_output_noise: bool = False    # a noise level per output (needs a coregion axis)
+    learn_mean: bool = False          # a learned constant mean; per output with a coregion axis
 
     def __post_init__(self):
         if self.variational not in ("full", "kron"):
             raise ValueError(self.variational)
-        if self.factor_method not in ("chol", "eigh"):
-            raise ValueError(f"unknown factor method {self.factor_method!r}")
-        if self.factor_method != "chol":
-            raise NotImplementedError(
-                "the clamped-eigh Kuu factor is not ported yet "
-                "(ROADMAP queue 1, item 10: the other features and model families)")
         if self.variational == "kron" and len(self.features) < 2:
             raise ValueError("kron variational family requires ndim >= 2")
         likelihoods.check_likelihood(self.likelihood)
@@ -86,20 +81,17 @@ class SVGPSpec:
         return math.prod(self.axis_m)
 
     def init_params(self, dtype=torch.float32, device=None) -> Params:
-        """Initial constrained parameters: σ² = ℓ = 1 per axis (and the
-        feature's own, as a point feature's z), noise 0.1, μ = 0 and S = I
-        (S_i = I for the Kronecker family), the mean 0 when it is learned.
+        """Initial constrained parameters (:func:`common.init_tree`: the
+        axes, the noise and the mean when it is learned, each per output
+        where asked), μ = 0 and S = I (S_i = I for the Kronecker family).
         Runs on ``cuda`` unless ``device`` is given."""
         device = config.resolve_device(device)
-
-        def scalar(v):
-            return torch.tensor(v, dtype=dtype, device=device)
 
         def eye_raw(m):
             return raw_from_chol(torch.eye(m, dtype=dtype, device=device))
 
-        axes = tuple({"variance": scalar(1.0), "lengthscale": scalar(1.0),
-                      **f.init_params(dtype, device)} for f in self.features)
+        out = common.init_tree(self.kinds, self.features, self.per_output_noise,
+                               self.learn_mean, dtype, device)
         if self.variational == "full":
             q = {"mu": torch.zeros((self.num_inducing,), dtype=dtype, device=device),
                  "raw_L": eye_raw(self.num_inducing)}
@@ -107,10 +99,8 @@ class SVGPSpec:
             q = {"mu": torch.zeros(self.axis_m, dtype=dtype, device=device)}
             for i, mi in enumerate(self.axis_m):
                 q[f"raw_L{i + 1}"] = eye_raw(mi)
-        out = {"axes": axes, "noise": scalar(0.1), "q": q}
-        if self.learn_mean:
-            out["mean"] = scalar(0.0)
-        return out
+        mean = out.pop("mean", None)      # the JAX tree's order: axes, noise, q, mean
+        return {**out, "q": q, **({} if mean is None else {"mean": mean})}
 
 
 def _whitened_blocks(spec: SVGPSpec, params: Params, x: torch.Tensor):
@@ -278,7 +268,7 @@ def elbo(spec: SVGPSpec, params: Params, xb: torch.Tensor, yb: torch.Tensor) -> 
     mean = mean + common.mean_fn(spec, params, xb)
     kff = common.kdiag(spec, params, xb)
     var_f = torch.clamp(kff - var_red, min=0.0) + var_add
-    noise = common.obs_noise(spec, params, xb)   # per-output noise raises (item 10)
+    noise = common.obs_noise(spec, params, xb)   # a scalar, or (nb,) per output
     if spec.likelihood == "gaussian":
         ell_i = (-0.5 * torch.log(2.0 * math.pi * noise)
                  - ((yb - mean) ** 2 + var_f) / (2.0 * noise))

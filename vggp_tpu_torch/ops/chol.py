@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from vggp_tpu_torch import config
@@ -57,20 +59,39 @@ def tri_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(chol, b, upper=False)
 
 
+# Relative eigenvalue floors of the clamped-eigh factor, by dtype
+# (``chol.py:160-168``): a condition-number cap in place of a failure.
+EIG_FLOOR_F32 = 1e-6
+EIG_FLOOR_F64 = 1e-12
+
+
 class PSDFactor:
-    """Cholesky factor of a PSD matrix, A ≈ F Fᵀ with F lower-triangular,
-    and its whitening solve. (The JAX package's clamped-eigh flavour is not
-    ported: ROADMAP queue 1, item 10.)"""
+    """Factor of a PSD matrix, A ≈ F Fᵀ, with its whitening solve, in two
+    flavours (``chol.py:100-159``):
 
-    __slots__ = ("F",)
+    - Cholesky (``tri=True``): F lower-triangular; ``whiten`` a triangular
+      solve. Differentiable; the training path's factor.
+    - clamped-eigh (``tri=False``): F = QΛ^½ with the eigenvalues floored
+      at a relative threshold and F⁻¹ = Λ^{−½}Qᵀ stored; ``whiten`` one
+      fp32-accurate product, NaN-free for any symmetric input. For the
+      serving heads of extremely ill-conditioned Grams, not for training
+      (the gradient of eigh carries 1/(λ_i − λ_j)).
+    """
 
-    def __init__(self, F):
+    __slots__ = ("F", "Finv", "tri")
+
+    def __init__(self, F, Finv=None, tri=True):
         self.F = F          # (m, m), A = F @ F.T
+        self.Finv = Finv    # (m, m) explicit F⁻¹, only for tri=False
+        self.tri = tri
 
     def whiten(self, b: torch.Tensor) -> torch.Tensor:
-        """F⁻¹ b: a triangular solve, or, when b has more columns than F has
-        rows, one explicit triangular inverse and one fp32-accurate
-        :class:`WhitenMatmul` (``chol.py:123-148``)."""
+        """F⁻¹ b. Cholesky: a triangular solve, or, when b has more columns
+        than F has rows, one explicit triangular inverse and one
+        fp32-accurate :class:`WhitenMatmul` (``chol.py:123-148``). Eigh: the
+        stored F⁻¹ through :class:`WhitenMatmul`."""
+        if not self.tri:
+            return WhitenMatmul.apply(self.Finv, b)
         m = self.F.shape[0]
         cols = 1 if b.dim() == 1 else b.shape[-1]
         if cols > m:
@@ -79,7 +100,53 @@ class PSDFactor:
             return WhitenMatmul.apply(finv, b)
         return tri_solve(self.F, b)
 
+    @property
+    def logdet(self) -> torch.Tensor:
+        """log|A| = 2 log|F|: the diagonal of a Cholesky factor, the column
+        norms of QΛ^½."""
+        if self.tri:
+            return 2.0 * torch.sum(torch.log(torch.diagonal(self.F)))
+        return 2.0 * torch.sum(torch.log(torch.linalg.vector_norm(self.F, dim=0)))
 
-def psd_factor(a: torch.Tensor, jitter: float = DEFAULT_JITTER) -> PSDFactor:
-    """Jittered-Cholesky PSD factor of ``(a + aᵀ)/2`` (:func:`safe_cholesky`)."""
-    return PSDFactor(safe_cholesky(a, jitter))
+
+def psd_factor(a: torch.Tensor, method: str = "chol",
+               jitter: float = DEFAULT_JITTER) -> PSDFactor:
+    """PSD factor of ``(a + aᵀ)/2``: the jittered Cholesky
+    (:func:`safe_cholesky`) or the clamped eigendecomposition
+    (:func:`psd_factor_eigh`, which takes no jitter)."""
+    if method == "chol":
+        return PSDFactor(safe_cholesky(a, jitter))
+    if method == "eigh":
+        return psd_factor_eigh(a)
+    raise ValueError(f"unknown factor method {method!r}")
+
+
+def _sign_reference(m: int, like: torch.Tensor) -> torch.Tensor:
+    """c_i = frac((i + 1)·φ) + ½, φ the golden ratio: a fixed vector with
+    no symmetry, against which each eigenvector's sign is fixed."""
+    i = torch.arange(1, m + 1, dtype=torch.float64)
+    return torch.remainder(i * ((1.0 + math.sqrt(5.0)) / 2.0), 1.0).add_(0.5).to(like)
+
+
+def psd_factor_eigh(a: torch.Tensor, rel_floor: float = None) -> PSDFactor:
+    """Clamped-eigh PSD factor of ``(a + aᵀ)/2`` (``chol.py:175-187``): the
+    eigenvalues floored at ``rel_floor``·max(λ) (EIG_FLOOR_F32 or
+    EIG_FLOOR_F64 by dtype).
+
+    Each eigenvector's sign is fixed so that its product with a fixed
+    reference vector (:func:`_sign_reference`) is positive. The JAX package
+    leaves the sign to its solver; LAPACK and cuSOLVER pick differently, and
+    whitened parameters carried between devices would then describe another
+    model. (The largest-magnitude entry cannot decide it: the antisymmetric
+    eigenvectors of a symmetric Toeplitz Gram have their largest entries in
+    ± pairs.) No sign-invariant result changes.
+    """
+    a = 0.5 * (a + a.T)
+    if rel_floor is None:
+        rel_floor = EIG_FLOOR_F64 if a.dtype == torch.float64 else EIG_FLOOR_F32
+    w, q = torch.linalg.eigh(a)
+    w = torch.maximum(w, rel_floor * torch.max(w))
+    s = torch.sign(_sign_reference(q.shape[0], q) @ q)
+    q = q * torch.where(s == 0, torch.ones_like(s), s)[None, :]
+    sw = torch.sqrt(w)
+    return PSDFactor(q * sw[None, :], (q / sw[None, :]).T, tri=False)

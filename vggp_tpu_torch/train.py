@@ -68,30 +68,46 @@ def constrain(raw_params: Dict) -> Dict:
     return _map_positive(raw_params, lambda k, v: FLOORS[k] + softplus(v))
 
 
-_NOT_PORTED = "(ROADMAP queue 1, item 10: the other features and model families)"
-
-
 def _init_axes(params: Dict, X: torch.Tensor, variance, lmbda: float) -> tuple:
     """The axes with variance ← ``variance`` and lengthscale_i ← std(x_i)/λ
-    (population moments, as ``jnp.std``)."""
-    if "components" in params:
-        raise NotImplementedError(f"sum-of-kernels parameters are not ported yet {_NOT_PORTED}")
+    (population moments, as ``jnp.std``), writing only the keys an axis has:
+    a coregion axis keeps its W and κ."""
     if X.dim() == 1:
         X = X[:, None]
-    return tuple({**p, "variance": torch.as_tensor(variance).to(p["variance"]),
-                  "lengthscale": (torch.std(X[:, i], correction=0) / lmbda).to(p["lengthscale"])}
-                 for i, p in enumerate(params["axes"]))
+    out = []
+    for i, p in enumerate(params["axes"]):
+        q = dict(p)
+        if "variance" in q:
+            q["variance"] = torch.as_tensor(variance, dtype=p["variance"].dtype,
+                                            device=p["variance"].device)
+        if "lengthscale" in q:
+            q["lengthscale"] = (torch.std(X[:, i], correction=0) / lmbda).to(p["lengthscale"])
+        out.append(q)
+    return tuple(out)
+
+
+def _like(value: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``value`` in ``leaf``'s dtype, device and shape (a per-output vector
+    keeps its shape)."""
+    return value.to(leaf).expand_as(leaf).clone()
 
 
 def non_informative_init(params: Dict, X: torch.Tensor, y: torch.Tensor,
                          lmbda: float = 1.0, kappa: float = 2.0) -> Dict:
     """variance ← var(y); noise ← variance/κ²; lengthscale_i ← std(x_i)/λ;
-    a learned constant mean ← the sample mean of y."""
-    yvar = torch.var(y.reshape(-1), correction=0)
-    out = {**params, "axes": _init_axes(params, X, yvar, lmbda),
-           "noise": (yvar / kappa ** 2).to(params["noise"])}
+    a learned mean ← the sample mean of y. A sum of kernels inits every
+    component's axes so; the noise and the mean keep their shapes."""
+    y = y.reshape(-1)
+    yvar = torch.var(y, correction=0)
+    out = dict(params)
+    if "components" in params:
+        out["components"] = tuple({**cp, "axes": _init_axes(cp, X, yvar, lmbda)}
+                                  for cp in params["components"])
+    else:
+        out["axes"] = _init_axes(params, X, yvar, lmbda)
+    out["noise"] = _like(yvar / kappa ** 2, params["noise"])
     if "mean" in params:
-        out["mean"] = torch.mean(y.reshape(-1)).to(params["mean"]).expand_as(params["mean"])
+        out["mean"] = _like(torch.mean(y), params["mean"])
     return out
 
 
@@ -102,7 +118,7 @@ def informative_init(params: Dict, X: torch.Tensor, y: torch.Tensor,
     var = (prior_amplitude / 2.0) ** 2
     yvar = torch.var(y.reshape(-1), correction=0)
     return {**params, "axes": _init_axes(params, X, var, lmbda),
-            "noise": torch.maximum(yvar - var, 1e-6 * yvar).to(params["noise"])}
+            "noise": _like(torch.maximum(yvar - var, 1e-6 * yvar), params["noise"])}
 
 
 def guarded_update(optimizer: torch.optim.Optimizer, leaves, val: torch.Tensor) -> bool:
@@ -151,11 +167,19 @@ def raw_leaves_from(params: Dict) -> Dict:
 
 def _history_entry(params: Dict, loss_val: torch.Tensor) -> Dict:
     """One step's record: the loss and ELBO, the noise, and each axis's
-    ``scale_sigma_i`` and ``lengthscale_i``."""
+    ``scale_sigma_i`` and ``lengthscale_i`` (a coregion axis: its B diagonal
+    ``coregion_bdiag_i``); a sum of kernels keeps no per-axis traces."""
+    from vggp_tpu_torch import kernels
+
     h = {"loss": loss_val, "elbo": -loss_val, "noise": params["noise"]}
+    if "axes" not in params:
+        return h
     for i, p in enumerate(params["axes"]):
-        h[f"scale_sigma_{i + 1}"] = p["variance"]
-        h[f"lengthscale_{i + 1}"] = p["lengthscale"]
+        if "variance" in p:
+            h[f"scale_sigma_{i + 1}"] = p["variance"]
+            h[f"lengthscale_{i + 1}"] = p["lengthscale"]
+        else:
+            h[f"coregion_bdiag_{i + 1}"] = kernels.coregion_b_diag(p)
     return h
 
 
