@@ -113,15 +113,35 @@ Phases (each asserts; any failure exits non-zero before the result line):
    and q_v against the Cholesky heads and the CPU's float64; (d) the family
    cases of ``smoke_cases`` in float32 against ``bench.py``'s float64
    goldens;
-13. profile three steps at each batch (device busy share, the ops with the
+13. the matrix-free path (``models/iterative.py``, ``ops/cg.py`` and the
+   prior-path layer of ``sampling.py``): ``cell_kuf`` against its plain
+   version at (16 384, 256) and (512, 513); (a) the collapsed GriddedGP on
+   the main path's 512×512 cells with phase 4's trained hyperparameters
+   and noise on 65 536 of its points: ``solve_w`` in float32 and float64
+   (iterations, preconditioner, ms, the true relative residual in
+   float64), the posterior mean at the 4096 points, the q_v and q_dv
+   means on the 512² cells, each held against a 4000-iteration float64
+   solve (Jacobi CG stops at maxiter 1000 far from convergence there), and
+   a profiled float32 solve (ms, launches and busy share an iteration
+   against the bound of its two Kuf contractions); (b) the matrix-free
+   means of phase 7's, 10d's and 12b's trained collapsed models against
+   their dense heads at 8192 points, float64 at tol 1e-12 and float32 by
+   the phases' rule against the CPU's float32 at the same n; (c)
+   ``q_v_pathwise`` (S = 16 antithetic, control variate) and
+   ``q_dv_pathwise`` on (a)'s model at 16 384 points in float32 and
+   float64 from the same draws, and ``q_v_pathwise`` on phase 7's model at
+   S = 1024 in float64 at 8192 points against its dense q_v; (d) bench.py's
+   CG row and the float32 KMS-Woodbury PCG where its gates admit ℓ (its
+   breakdown and the Jacobi PCG that takes over);
+14. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
-14. time each kernel and its plain version (device time from the profiler's
+15. time each kernel and its plain version (device time from the profiler's
    CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
    serving grid's (512, 65 536) beside one warm cold ``posterior`` and one
    ``posterior_from_state`` on that grid and at the face difference's
    (512, 513), both cell kernels at the collapsed model's (64, 65 536) and
-   on the stretched mesh, ``cell_kuf`` at (64, 4096) and (64, 65), and
-   the fused kernel beside the unfused route it replaces, and print them and
+   on the stretched mesh, ``cell_kuf`` at (64, 4096), (64, 65) and the CG
+   case's (16 384, 256), and the fused kernel beside the unfused route it replaces, and print them and
    the steady-state step and serving times with the card's name and power
    limit.
 
@@ -131,7 +151,9 @@ script exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -305,6 +327,9 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / (den if den > 0 else 1.0))
 
 
+PROFILE_LEAD_S = 0.05
+
+
 def _profiled(fn, iters: int):
     """Run ``fn`` ``iters`` times under torch.profiler (CPU and CUDA);
     returns (profiler, wall ms of the window)."""
@@ -313,6 +338,12 @@ def _profiled(fn, iters: int):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # Late in a long run the trace lost the device records of the first
+        # few ms of a window (on an H100: 7 of 10 and 7 of 50 launches, with
+        # or without a synchronize between calls, in every window), so the
+        # calls start PROFILE_LEAD_S after the window opens (then it lost
+        # records only now and then); the wall clock starts with them.
+        time.sleep(PROFILE_LEAD_S)
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -339,7 +370,7 @@ def _kernel_ms(prof, kernel=None) -> float:
 def time_ms(fn, iters: int = 50, warm: int = 3, kernel=None):
     """(device ms, call ms) of one call of ``fn``: device time per call from
     torch.profiler's CUDA trace (host launch overhead excluded), of the
-    device kernel named ``kernel`` alone (one launch per call, averaged over
+    device kernel named ``kernel`` alone (one launch per call, the median of
     the launches the trace kept) or else of every kernel the call launches;
     call time is CUDA events around
     ``iters`` back-to-back calls (host overhead included where it exceeds
@@ -362,15 +393,22 @@ def time_ms(fn, iters: int = 50, warm: int = 3, kernel=None):
         device = _kernel_ms(prof) / iters
     else:
         # one launch per call. The trace drops device records now and then
-        # (seen on the H100: 41 and 0 of 50), so a window that kept fewer
-        # than half of them is taken again, up to three times.
-        for _ in range(3):
+        # (seen on the H100: 41 and 0 of 50, and 4 of 10 three windows in a
+        # row), so a window that kept fewer than half of them is taken
+        # again, up to five times.
+        for _ in range(5):
             prof, _ = _profiled(fn, iters)
             n_ev = len(_device_events(prof, kernel))
             if iters // 2 <= n_ev <= iters:
                 break
+            print(f"time_ms: the trace kept {n_ev} of {iters} launches of {kernel} "
+                  f"({len(_device_events(prof))} device records in all); taken again")
         check(iters // 2 <= n_ev <= iters, f"profiler saw {n_ev} launches of {kernel} in {iters} calls")
-        device = _kernel_ms(prof, kernel) / n_ev
+        # the median launch: a record the trace cut short (seen: 0.052 ms
+        # against a 0.080 ms bound beside 0.110 in the next window) does not
+        # move it
+        device = statistics.median(e.time_range.elapsed_us()
+                                   for e in _device_events(prof, kernel)) / 1e3
     check(device > 0, "the profiler saw no device time")
     return device, call
 
@@ -1690,7 +1728,8 @@ def kinds_collapsed_part(device, X, y, Xs, timings) -> None:
     FULL_COV_POINTS) and ``q_dv`` on both axes from ``precompute``, against
     the card's float64 at the full n (the ELBO and the heads, beside the
     CPU's float32) and the CPU's float64 at SGPR_CUT_N (with the gradient
-    leaves). No kernel launches."""
+    leaves). No kernel launches. Returns (spec, the trained params) for
+    13b."""
     import torch
 
     from vggp_tpu_torch import CellIntegralFeature, SGPRSpec, sgpr, train
@@ -1744,6 +1783,7 @@ def kinds_collapsed_part(device, X, y, Xs, timings) -> None:
         ref, *f32 = (quantities(cast_to(dev, dt), n, grads) for dev, dt in refs)
         check_quantities(what, got, ref, f32[0] if f32 else {}, TOL_GRAD_SLICE["collapsed"])
         timings[f"check {what} s"] = time.perf_counter() - t0
+    return spec, params
 
 
 def kinds_exact_part(device, X, y, Xs, timings) -> None:
@@ -1813,7 +1853,7 @@ def rbf_fits(device, timings) -> None:
 def slice_phase(device, X, y, Xs) -> tuple:
     """Phase 10: 10b–10e and the RBF fits (10a is check_goldens), with the
     λ_min readings. Returns (launches, timings, (the kernels' float32 errors
-    and launches on the stretched mesh, the λ_min readings))."""
+    and launches on the stretched mesh, the λ_min readings, 10d's model))."""
     timings = {}
     launches = dict(NO_LAUNCHES)
     for part in (kinds_svgp_part, nonuniform_svgp_part, kinds_collapsed_part,
@@ -1822,11 +1862,13 @@ def slice_phase(device, X, y, Xs) -> tuple:
         out = part(device, X, y, Xs, timings)
         if part is nonuniform_svgp_part:
             launches, errs, at_shape = out
+        if part is kinds_collapsed_part:
+            matern32 = out
         timings[f"{part.__name__}_s"] = time.perf_counter() - t0
         print(f"{part.__name__}: {timings[f'{part.__name__}_s']:.1f} s")
     rbf_fits(device, timings)
     readings = lambda_min_readings(device)
-    return launches, timings, ({"errs": errs, "launches": at_shape}, readings)
+    return launches, timings, ({"errs": errs, "launches": at_shape}, readings, matern32)
 
 
 # --------------------------------------------------------------------------- #
@@ -2043,7 +2085,7 @@ def full_2d_part(device, X, y, Xs, timings) -> dict:
         lambda c: svgp_cut_quantities(spec, params, xb, yb, heads, c, mu_s), device,
         TOL_GRAD_FULL["svgp"])
     # where the step's time goes: three more steps under the profiler (their
-    # launches are not the path's, as phase 13's)
+    # launches are not the path's, as phase 14's)
     step = train.make_step_fn(lambda p, xb, yb: svgp.loss(spec, p, xb, yb), model.raw_params(),
                               torch.optim.Adam(model.parameters(), lr=1e-2))
     gen = torch.Generator(device=device)
@@ -2368,7 +2410,8 @@ TOL_GRAD_FAMILY = {"svgp": 2e-3, "collapsed": 1.5e-3,
 
 # the float64 and JAX float32 goldens of bench.py:100-127 for the family
 # cases of vggp_tpu/utils/smoke_cases.py (copied: the port imports nothing of
-# the JAX package); the streaming and CG rows wait for their modules
+# the JAX package); the streaming row waits for its module, and the CG row
+# stands apart (_GOLD_CG)
 _GOLD_FAMILIES_F32 = {
     "coregion_elbo": -47.59423828125,
     "coregion_qv_mean_sum": 0.427493691444397,
@@ -2444,6 +2487,54 @@ def family_params(spec_mo, dtype, device):
              "noise": t(0.03)}
     p_add = {"axes": (hyp(0.8, 0.35), hyp(0.8, 0.35)), "noise": t(0.03)}
     return p_mo, p_sum, p_add
+
+
+def cg_case(dtype, device):
+    """``smoke_cases.cg_case`` (``:83-106``): the matrix-free q_v mean of a
+    1-D collapsed GP on 16 384 Matérn-1/2 cells (ℓ = 0.25, so ℓ/δ = 4096)
+    from 256 points, on a 20-cell grid, at ``maxiter=600``. Returns
+    (spec, params, x, y, grid)."""
+    import numpy as np
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SGPRSpec
+
+    rng = np.random.default_rng(14)
+    x = np.sort(rng.uniform(size=256))
+    y = np.sin(7 * x) + 0.05 * rng.standard_normal(256)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    spec = SGPRSpec(kinds=("matern12",), features=(CellIntegralFeature.from_lims(16384, 0.0, 1.0),))
+    params = {"axes": ({"variance": as_t(1.0), "lengthscale": as_t(0.25)},), "noise": as_t(0.05)}
+    return spec, params, as_t(x), as_t(y), (CellIntegralFeature.from_lims(20, 0.0, 1.0),)
+
+
+CG_CASE_MAXITER = 600
+# the CG row of bench.py:112 and :126 (copied), Σ|E_q[v]| of cg_case. Its
+# float64 golden predates the KMS preconditioners: it is a Jacobi iterate
+# at maxiter 600 far from convergence (relative residual about 1e-6), where
+# the iterates of two implementations part at 1e-5, and the JAX package
+# itself now gives CG_F64_JAX on the CPU, 4.3e-5 from it. CG_F64_JAX is that
+# value (copied; tests/test_torch_iterative.py holds the copy against the
+# JAX package's live value): the float64 solve converges there in 6
+# KMS-Woodbury iterations, to a relative residual of 4e-9. In float32 u =
+# δ/ℓ = 2.4e-4 lies below the u floor (1.7e-3), so Jacobi PCG runs all 600
+# iterations; the float32 golden is held at bench.py's 5e-3.
+_GOLD_CG_F32 = 0.6034155488014221
+_GOLD_CG_F64 = 0.6034675343733363
+CG_F64_JAX = 0.6034935560228916
+TOL_CG_F32 = 5e-3
+TOL_CG_F64 = 1e-9
+
+
+def cg_value(dtype, device):
+    """Σ|E_q[v]| of :func:`cg_case` in ``dtype`` on ``device`` (bench.py's
+    CG row), and the solve's info (iterations, relative residual,
+    preconditioner)."""
+    from vggp_tpu_torch import iterative
+
+    spec, p, x, y, grid = cg_case(dtype, device)
+    w, info = iterative.solve_w(spec, p, x, y, maxiter=CG_CASE_MAXITER, return_info=True)
+    return float(iterative.q_v_mean_from_w(spec, p, grid, w).abs().sum()), info
 
 
 def family_values(dtype, device) -> dict:
@@ -2748,7 +2839,7 @@ def additive_gate(spec, params) -> list:
                 for k, f, p in zip(spec.kinds, spec.features, params["axes"])]
 
 
-def collapsed_families_part(device, X, y, Xs, Xm, ym, Xsm, timings) -> dict:
+def collapsed_families_part(device, X, y, Xs, Xm, ym, Xsm, timings, fitted) -> dict:
     """12b: the ICM collapsed GP (cells × 2 outputs, a mean per output), the
     multi-scale sum, the additive model and the free-point model on the first
     SGPR_N points: ``non_informative_init`` and FAMILY_STEPS ``train.fit``
@@ -2758,7 +2849,8 @@ def collapsed_families_part(device, X, y, Xs, Xm, ym, Xsm, timings) -> dict:
     ``cell_kuf_with_dl`` where it declines, its readings printed; nothing
     for the free points); each model's heads (:func:`family_heads`) with
     their launches; then the ELBO, its gradient leaves and the heads on
-    FAMILY_CUT_N points against the CPU's float64. Returns the launches."""
+    FAMILY_CUT_N points against the CPU's float64. Returns the launches;
+    ``fitted`` gets each model's (spec, trained params, X, y)."""
     import torch
 
     from vggp_tpu_torch import train
@@ -2797,6 +2889,7 @@ def collapsed_families_part(device, X, y, Xs, Xm, ym, Xsm, timings) -> dict:
                 want = {**NO_LAUNCHES, "cell_kuf_with_dl": got["cell_kuf_with_dl"],
                         "fused_banded_whiten_kuf": 2 * n - got["cell_kuf_with_dl"]}
         check(got == want, f"12b {name} fit launches {got}, expected {want}")
+        fitted[name] = (spec, params, Xn, yn)
         timings.setdefault("family_fit_launches", {})[name] = got
         launches = add_launches(launches, got)
         timings[f"family_{name}_fit_ms_per_step"] = ms
@@ -2888,29 +2981,684 @@ def families_phase(device, X, y, Xs, collapsed) -> tuple:
     """Phase 12: the multi-output ICM models, the sum, additive and
     free-point families and the clamped-eigh factor (12a–12d), with the cell
     kernels held against their plain versions at the phase's shapes first.
-    Returns (launches, timings, the kernels' float32 errors)."""
+    Returns (launches, timings, the kernels' float32 errors, 12b's fitted
+    models by name)."""
     timings = {}
     errs = check_family_kernels(device, X)
     Xm, ym, Xsm = make_data_multioutput(device)
     launches = dict(NO_LAUNCHES)
+    fitted = {}
     for name, part in (
             ("icm_svgp_part", lambda: icm_svgp_part(device, Xm, ym, Xsm, timings)),
             ("collapsed_families_part", lambda: collapsed_families_part(
-                device, X, y, Xs, Xm, ym, Xsm, timings)),
+                device, X, y, Xs, Xm, ym, Xsm, timings, fitted)),
             ("eigh_part", lambda: eigh_part(device, X, y, Xs, collapsed, timings)),
             ("family_goldens_part", lambda: family_goldens_part(device, timings) or NO_LAUNCHES)):
         t0 = time.perf_counter()
         launches = add_launches(launches, part())
         timings[f"{name}_s"] = time.perf_counter() - t0
         print(f"{name}: {timings[f'{name}_s']:.1f} s")
-    return launches, timings, errs
+    return launches, timings, errs, fitted
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: the matrix-free path (CG and PCG solves, the KMS preconditioners,
+# the FFT Toeplitz matvec, models/iterative.py and the prior-path layer)
+# --------------------------------------------------------------------------- #
+
+# 13a: the first MF_N of the main path's points (cut from NUM_DATA: the
+# card's float64 solves at 512² have to fit the call), solved at
+# iterative's default maxiter (the product's call) in both precisions, and
+# once more in float64 at MF_LONG_MAXITER as the reference
+MF_N = 65_536
+MF_MAXITER = 1000
+MF_LONG_MAXITER = 4000
+MF_PROFILE_ITERS = 64
+# At 13a's model Jacobi CG stops at MF_MAXITER far from convergence, and the
+# CPU can run neither the solve at its size nor, at a cut n, one that
+# converges at its rate. So 13a holds two things apart: each head's own
+# float32 error from one w (the float64 solve at MF_LONG_MAXITER) at full
+# size by the 2× rule against the CPU's float32 of the same head, and the
+# float32 solve's true relative residual, recomputed in float64, within
+# TOL_MF_RESID (4.8e-4 after MF_MAXITER iterations, float64's 1.5e-4, on an
+# H100 at 700 W). Each truncated solve's heads against the long one are
+# readings: the two precisions' Krylov paths part, so their distances are
+# not in a fixed ratio (on the card 1.5–1.8 : 1; 7 : 1 in the CPU
+# rehearsal's 16² cells at about the same residuals). 13b holds truncated
+# float32 solves against dense heads where the CPU runs the same solve.
+TOL_MF_RESID = 2e-3
+# 13b: on the first MF_DENSE_N points (the KMS gate's CG_KMS_MAX_POINTS: at
+# 65 536 float64 Jacobi CG on phase 7's model ended 20 000 iterations at a
+# relative residual of 1.1e-6, its q_v 7.4e-5 from the dense head, on an
+# H100), float64 solves at tol 1e-12 and at most
+# MF_DENSE_MAXITER iterations against the dense heads with jitter 1e-12:
+# within TOL_MF_DENSE_F64 where the solve converged, else (10d's Matérn-3/2
+# and 12b's ICM models, whose Jacobi CG ended at relative residuals of
+# 8.2e-7 and 2.1e-5, their heads 5.3e-4 and 1.2e-4 from the dense ones on an
+# H100 at 700 W) within TOL_MF_DENSE_TRUNC
+MF_DENSE_N = 8192
+MF_DENSE_TOL = 1e-12
+MF_DENSE_MAXITER = 3000
+MF_DENSE_JITTER = 1e-12
+TOL_MF_DENSE_F64 = 1e-7
+TOL_MF_DENSE_TRUNC = 2e-3
+# 13c: the pathwise draws on 13a's model at MF_PATH_N points (above
+# CG_KMS_MAX_POINTS, so the G solves take Jacobi CG, as 13a's), S = 16
+# antithetic. Their G solves stop at MF_MAXITER too, each column on its own
+# Krylov path, so the antithetic mean meets the mean from solve_w within
+# TOL_MF_ANTITHETIC, not exactly (1.3e-2 and 5.1e-2 in float32, 6.9e-3 and
+# 6.1e-2 in float64 for q_v and q_dv on an H100 at 700 W). Their float32
+# against float64 is a reading: it grows with the G solves' maxiter (0.185,
+# 0.241, 0.566 at 1000, 2000, 4000 on an H100, tools/torch_cg_probe.py), a
+# float32 limit at large ℓ/δ that the JAX package shares
+# (tools/torch_draws_f32.py), and the CPU cannot run these draws at their
+# size for the 2× rule. The draws are held by the 2× rule on phase
+# 7's model at MF_DRAWS_N points, where the CPU runs the same sampler from
+# the same draws and the G solves converge: float64 at tol MF_DENSE_TOL
+# (the Woodbury PCG), float32 at its default tol within MF_DRAWS_MAXITER
+# (Jacobi PCG, 2505 iterations for solve_w on an H100); the float64
+# antithetic identity there within TOL_MF_DENSE_F64. On
+# phase 7's model MF_DENSE_SAMPLES plain draws of 4096 features, as
+# tests/test_iterative.py:351-403 (at S = 256 the per-cell variance's MC
+# error, √(2/255) = 8.9%, puts rtol 0.25 at 2.8σ, which some of 4096 cells
+# cross)
+MF_PATH_N = 16_384
+MF_SAMPLES = 16
+MF_FEATURES = 1024
+MF_DRAWS_N = 1024
+MF_DRAWS_MAXITER = 6000
+TOL_MF_ANTITHETIC = {"q_v": 3e-2, "q_dv axis 0": 0.15}
+MF_DENSE_SAMPLES = 1024
+MF_DENSE_FEATURES = 4096
+# 13d: a 1-D model inside the window where the JAX package's float32 gates
+# admit the KMS-Woodbury PCG: 512 cells at ℓ/δ = 540, inside ℓ/δ ∈ [512,
+# 579] (CG_KMS_MIN_STIFFNESS to 1/u_floor), on 4096 points; phase 4 trains
+# the main path's model into that window (ℓ/δ ≈ 550). The port's float32
+# takes Jacobi PCG there (see config); its true relative residual within
+# TOL_MF_WOODBURY_RESID, the bound tests/test_torch_iterative.py holds it to
+# on the CPU (1.5e-5 on an H100 at 700 W, 7.2e-6 on the CPU; the JAX
+# package's float32 Woodbury ends above 1 there)
+MF_WOODBURY_CELLS = 512
+MF_WOODBURY_RATIO = 540.0
+MF_WOODBURY_N = 4096
+TOL_MF_WOODBURY_RESID = 1e-4
+# the phase's cell_kuf launches by (name, m, n), summed over counted() calls
+MF_SHAPE_LAUNCHES = collections.Counter()
+
+
+def counted(name, fn, n_cell_kuf):
+    """One call of ``fn`` under no_grad, host clock around it (ending in
+    synchronize), its launches counted exactly: ``n_cell_kuf`` of cell_kuf
+    and none of the other kernels. Returns (the output, ms, launches)."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = dict(ck.LAUNCHES)
+    MF_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
+    want = {**NO_LAUNCHES, "cell_kuf": n_cell_kuf}
+    check(got == want, f"{name}: launches {got}, expected {want}")
+    return out, ms, got
+
+
+def mf_model(main):
+    """13a's model: the collapsed GriddedGP on the main path's 512×512 cells
+    with phase 4's trained kernel hyperparameters and noise."""
+    import torch
+
+    from vggp_tpu_torch import SGPRSpec
+
+    spec_svgp, model = main
+    with torch.no_grad():
+        p = model.params()
+    params = {"axes": tuple({k: v.detach().clone() for k, v in ax.items()} for ax in p["axes"]),
+              "noise": p["noise"].detach().clone()}
+    return SGPRSpec(kinds=spec_svgp.kinds, features=spec_svgp.features), params
+
+
+# 13a's heads from w and their cell_kuf launches a call: the query block one
+# per axis at (512, 4096), q_dv's face difference one at (512, 513)
+MF_HEADS = (("posterior", 2), ("q_v", 0), ("q_dv axis 0", 1))
+
+
+def mf_head(spec, name, p, w, xs):
+    from vggp_tpu_torch import iterative
+
+    if name == "posterior":
+        return iterative.posterior_mean_from_w(spec, p, xs, w)
+    if name == "q_v":
+        return iterative.q_v_mean_from_w(spec, p, spec.features, w)
+    return iterative.q_dv_mean_from_w(spec, p, spec.features, 0, w)
+
+
+def mf_solve(spec, params, X, y, xs, cast, count, maxiter=MF_MAXITER):
+    """solve_w and 13a's heads on the card (``cast`` to its dtype), each
+    call's launches counted into ``count``. Returns (quantities, info, ms of
+    solve_w)."""
+    from vggp_tpu_torch import iterative
+
+    p, Xd, yd, xd = cast(params), cast(X), cast(y), cast(xs)
+    (w, info), ms, got = counted(f"13a solve_w n={Xd.shape[0]}", lambda: iterative.solve_w(
+        spec, p, Xd, yd, maxiter=maxiter, return_info=True), spec.ndim)
+    count.update(add_launches(count, got))
+    out = {"w": w}
+    for name, n_launch in MF_HEADS:
+        out[name], _, got = counted(f"13a {name}", lambda n=name: mf_head(spec, n, p, w, xd),
+                                    n_launch)
+        count.update(add_launches(count, got))
+    return out, info, ms
+
+
+def mf_solve_part(device, X, y, Xs, main, timings) -> tuple:
+    """13a: solve_w and the heads from w on 13a's model (m = 262 144) at MF_N
+    points in float32 and float64 at MF_MAXITER, each solve's iterations,
+    preconditioner, ms and true relative residual (recomputed in float64),
+    and a float64 solve at MF_LONG_MAXITER; then the checks of TOL_MF_RESID
+    and a profiled float32 solve. Returns (launches, (spec, params))."""
+    import torch
+
+    from vggp_tpu_torch import iterative
+    from vggp_tpu_torch.ops import cell_kuf as ck
+    from vggp_tpu_torch.ops import cg
+
+    spec, params = mf_model(main)
+    ells = [float(ax["lengthscale"]) * spec.features[i].m for i, ax in enumerate(params["axes"])]
+    print(f"13a model: {spec.features[0].m}x{spec.features[1].m} cells, phase 4's trained σ² "
+          f"{[round(float(ax['variance']), 5) for ax in params['axes']]}, ℓ/δ "
+          f"{[round(v, 2) for v in ells]}, noise {float(params['noise']):.5f}; n = {MF_N}")
+    launches = dict(NO_LAUNCHES)
+    X, y = X[:MF_N], y[:MF_N]
+    c64 = cast_to(device, torch.float64)
+    p64, X64, y64 = c64(params), c64(X), c64(y)
+    card = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        cg.reset_counts()
+        card[tag], info, ms = mf_solve(spec, params, X, y, Xs, cast_to(device, dtype),
+                                       launches)
+        counts = dict(cg.COUNTS)
+        rel, _, got = counted("13a relative_residual", lambda: iterative.relative_residual(
+            spec, p64, X64, y64, card[tag]["w"]), spec.ndim)
+        launches = add_launches(launches, got)
+        timings[f"mf_solve_w_{tag}_ms"] = ms
+        timings[f"mf_solve_w_{tag}"] = {**info, "true_rel_resid": float(rel)}
+        print(f"13a solve_w {tag} n={MF_N}: {info['iterations']} iterations "
+              f"({info['preconditioner']}), relative residual {info['rel_resid']:.3e}, "
+              f"true {float(rel):.3e} (float64); {ms:.1f} ms, "
+              f"{ms / max(info['iterations'], 1):.3f} ms an iteration; host reads of the "
+              f"running flag {counts['host_syncs']} (every {cg.CHECK_EVERY} iterations)")
+    resid = timings["mf_solve_w_f32"]["true_rel_resid"]
+    print(f"check 13a solve_w f32: true relative residual {resid:.3e} (tol {TOL_MF_RESID:.0e})")
+    check(resid <= TOL_MF_RESID, f"13a float32 solve: {timings['mf_solve_w_f32']}")
+    long, info, ms = mf_solve(spec, params, X, y, Xs, c64, launches, MF_LONG_MAXITER)
+    print(f"13a solve_w f64 maxiter {MF_LONG_MAXITER}: {info['iterations']} iterations, "
+          f"relative residual {info['rel_resid']:.3e}; {ms:.1f} ms")
+    timings["mf_solve_w_f64_long"] = {**info, "ms": ms}
+
+    print("13a w: f32 vs f64 "
+          f"{rel_err(card['f32']['w'].double().cpu(), card['f64']['w'].double().cpu()):.3e}, "
+          f"f64 vs the f64 solve at maxiter {MF_LONG_MAXITER} "
+          f"{rel_err(card['f64']['w'].double().cpu(), long['w'].double().cpu()):.3e} (a reading: "
+          "w is held through its residual and the heads)")
+    # each head's own float32 error: from the long solve's w cast to float32,
+    # on the card and on the CPU, against the card's float64 head from that w
+    c32, cpu32 = cast_to(device, torch.float32), cast_to(torch.device("cpu"), torch.float32)
+    p32, xs32, w32 = c32(params), c32(Xs), c32(long["w"])
+    pc, xsc, wc = cpu32(params), cpu32(Xs), cpu32(long["w"])
+    for name, n_launch in MF_HEADS:
+        want = long[name].double().cpu()
+        got32, _, got = counted(f"13a {name} f32 from one w",
+                                lambda n=name: mf_head(spec, n, p32, w32, xs32), n_launch)
+        launches = add_launches(launches, got)
+        with torch.no_grad():
+            cpu = mf_head(spec, name, pc, wc, xsc)
+        e, e32 = rel_err(got32.double().cpu(), want), rel_err(cpu.double(), want)
+        tol = max(TOL_E2E_POST, CPU_ERR_RATIO * e32)
+        print(f"check 13a {name} from one w: card f32 vs card f64 {e:.3e}, cpu f32 {e32:.3e}, "
+              f"tol {tol:.3e}")
+        check(bool(torch.isfinite(got32).all()), f"13a {name} from one w not finite")
+        check(e <= tol, f"13a {name} from one w: card f32 {e} > {tol}")
+        timings[f"mf_{name.replace(' ', '_')}_from_w_err"] = {"card": e, "cpu_f32": e32}
+    # each precision's heads through its truncated solve against the float64
+    # solve at MF_LONG_MAXITER: readings (see TOL_MF_RESID)
+    for name, _ in MF_HEADS:
+        e = rel_err(card["f32"][name].double().cpu(), card["f64"][name].double().cpu())
+        to_long = {tag: rel_err(card[tag][name].double().cpu(), long[name].double().cpu())
+                   for tag in ("f32", "f64")}
+        print(f"13a {name}: from the f64 solve at maxiter {MF_LONG_MAXITER}: f32 "
+              f"{to_long['f32']:.3e}, f64 {to_long['f64']:.3e} (maxiter {MF_MAXITER}); card f32 "
+              f"vs f64 {e:.3e} (readings)")
+        check(bool(torch.isfinite(card["f32"][name]).all()), f"13a {name} not finite")
+        timings[f"mf_{name.replace(' ', '_')}_err"] = {"f32_vs_f64": e, "to_long": to_long}
+
+    # a profiled float32 solve of MF_PROFILE_ITERS iterations
+    c32 = cast_to(device, torch.float32)
+    p32, X32, y32 = c32(params), c32(X), c32(y)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        iterative.solve_w(spec, p32, X32, y32, maxiter=MF_PROFILE_ITERS)
+        prof, wall = _profiled(lambda: iterative.solve_w(spec, p32, X32, y32,
+                                                         maxiter=MF_PROFILE_ITERS), 1)
+    got = dict(ck.LAUNCHES)
+    MF_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
+    check(got == {**NO_LAUNCHES, "cell_kuf": 2 * spec.ndim},
+          f"13a warm and profiled solves' launches {got}")
+    launches = add_launches(launches, got)
+    n_ev = len(_device_events(prof))
+    dev_ms = _kernel_ms(prof)
+    bound = 2 * 2 * spec.num_inducing * MF_N / FP32_FLOPS_PER_S * 1e3
+    prof_out = {"iterations": MF_PROFILE_ITERS, "ms_per_iteration": wall / MF_PROFILE_ITERS,
+                "device_ms_per_iteration": dev_ms / MF_PROFILE_ITERS,
+                "launches_per_iteration": n_ev / MF_PROFILE_ITERS, "busy_share": dev_ms / wall,
+                "bound_ms_per_iteration": bound}
+    timings["mf_cg_profile"] = prof_out
+    print(f"13a profiled f32 CG ({MF_PROFILE_ITERS} iterations, the Kuf blocks included): "
+          f"{prof_out['ms_per_iteration']:.3f} ms an iteration (device "
+          f"{prof_out['device_ms_per_iteration']:.3f}), {prof_out['launches_per_iteration']:.1f} "
+          f"device kernels an iteration, busy share {prof_out['busy_share']:.3f}; the two Kuf "
+          f"contractions' bound {bound:.3f} ms an iteration (fp32)")
+    top = sorted(((e.self_device_time_total if hasattr(e, "self_device_time_total")
+                   else e.self_cuda_time_total), e.key) for e in prof.key_averages())[-6:]
+    print("13a profiled CG, the ops with the most device time (us): "
+          + ", ".join(f"{k} {t:.0f}" for t, k in reversed(top)))
+    return launches, (spec, params)
+
+
+def mf_dense_part(device, X, y, Xs, collapsed, matern32, icm, timings) -> dict:
+    """13b: the matrix-free means against the dense heads of the same
+    trained models on the card, on their first MF_DENSE_N points: phase 7's
+    collapsed GriddedGP (the KMS-Woodbury PCG in float64; q_v on its
+    cells, the posterior at the 4096 points), 10d's Matérn-3/2 one
+    (posterior_grad on both axes) and 12b's ICM one (q_v; per-output noise
+    and means, the weighted system). float64 CG at tol 1e-12 against the
+    dense float64 heads with jitter 1e-12 within TOL_MF_DENSE_F64 (where the
+    solve stopped at maxiter, TOL_MF_DENSE_TRUNC); float32 CG
+    at the defaults against the same dense float64, by the phases' rule with
+    the CPU's own float32 CG at the same n (a cut n would understate it:
+    a float32 solve's error grows with the conditioning, that is with n).
+    Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from vggp_tpu_torch import iterative, sgpr
+
+    launches = dict(NO_LAUNCHES)
+    spec7, p7 = collapsed
+    spec32, p32 = matern32
+    spec_i, p_i, X_i, y_i = icm
+    Xs_i = torch.cat([Xs, (torch.arange(Xs.shape[0], device=Xs.device) % 2)[:, None]
+                      .to(Xs.dtype)], 1)
+    # (name, spec, params, X, y, query, {head: (the CG head from w, the dense
+    # head, the cell_kuf launches of each a call)})
+    cases = (
+        ("phase 7 collapsed", spec7, p7, X, y, Xs, {
+            "q_v": (lambda s, p, X, y, w, q: iterative.q_v_mean_from_w(s, p, s.features, w),
+                    lambda s, p, X, y, q: sgpr.q_v(s, p, X, y, s.features, full_cov=False).mean,
+                    0, 2),
+            "posterior": (lambda s, p, X, y, w, q: iterative.posterior_mean_from_w(s, p, q, w),
+                          lambda s, p, X, y, q: sgpr.posterior(s, p, X, y, q, full_cov=False).mean,
+                          2, 4)}),
+        ("10d matern32", spec32, p32, X, y, Xs, {
+            f"posterior_grad axis {a}": (
+                lambda s, p, X, y, w, q, a=a: iterative.posterior_grad_mean_from_w(s, p, q, a, w),
+                lambda s, p, X, y, q, a=a: sgpr.posterior_grad(s, p, X, y, q, a).mean, 0, 0)
+            for a in (0, 1)}),
+        ("12b icm", spec_i, p_i, X_i, y_i, Xs_i, {
+            "q_v": (lambda s, p, X, y, w, q: iterative.q_v_mean_from_w(s, p, s.features, w),
+                    lambda s, p, X, y, q: sgpr.q_v(s, p, X, y, s.features, full_cov=False).mean,
+                    0, 2)}),
+    )
+    for name, spec, params, Xc, yc, q, heads in cases:
+        Xc, yc = Xc[:MF_DENSE_N], yc[:MF_DENSE_N]
+        dspec = dataclasses.replace(spec, jitter=MF_DENSE_JITTER)
+        n_axes = sum(k == "matern12" for k in spec.kinds)
+        c64, c32 = cast_to(device, torch.float64), cast_to(device, torch.float32)
+        res = {}
+        for tag, cast, tol, maxiter in (("f64", c64, MF_DENSE_TOL, MF_DENSE_MAXITER),
+                                        ("f32", c32, None, MF_MAXITER)):
+            p, Xd, yd, qd = cast(params), cast(Xc), cast(yc), cast(q)
+            (w, info), ms, got = counted(f"13b {name} solve_w {tag}", lambda: iterative.solve_w(
+                spec, p, Xd, yd, tol=tol, maxiter=maxiter, return_info=True), n_axes)
+            launches = add_launches(launches, got)
+            print(f"13b {name} solve_w {tag} n={Xd.shape[0]}: {info}, {ms:.1f} ms")
+            timings[f"mf_dense_{name}_solve_{tag}".replace(" ", "_")] = {**info, "ms": ms}
+            if tag == "f64":
+                converged = info["rel_resid"] <= MF_DENSE_TOL
+            for head, (cg_fn, _, n_cg, _) in heads.items():
+                res[(tag, head)], _, got = counted(f"13b {name} {head} {tag}",
+                                                   lambda: cg_fn(spec, p, Xd, yd, w, qd), n_cg)
+                launches = add_launches(launches, got)
+        # the CPU's own float32 CG at the same n, against the card's dense float64
+        cpu32 = cast_to(torch.device("cpu"), torch.float32)
+        p3, X3, y3, q3 = cpu32(params), cpu32(Xc), cpu32(yc), cpu32(q)
+        with torch.no_grad():
+            w3 = iterative.solve_w(spec, p3, X3, y3)
+            cpu_f32 = {head: fns[0](spec, p3, X3, y3, w3, q3) for head, fns in heads.items()}
+        p, Xd, yd, qd = c64(params), c64(Xc), c64(yc), c64(q)
+        for head, (_, dense_fn, _, n_dense) in heads.items():
+            want, _, got = counted(f"13b {name} dense {head} f64",
+                                   lambda: dense_fn(dspec, p, Xd, yd, qd), n_dense)
+            launches = add_launches(launches, got)
+            e64 = rel_err(res[("f64", head)], want)
+            e = rel_err(res[("f32", head)].double(), want)
+            e32 = rel_err(cpu_f32[head].double(), want.cpu())
+            tol = max(TOL_E2E_POST, CPU_ERR_RATIO * e32)
+            tol64 = TOL_MF_DENSE_F64 if converged else TOL_MF_DENSE_TRUNC
+            print(f"check 13b {name} {head}: f64 CG vs dense {e64:.3e} (tol {tol64:.0e}"
+                  f"{'' if converged else ': the f64 solve stopped at maxiter'}); card f32 CG "
+                  f"vs dense f64 {e:.3e}, cpu f32 CG {e32:.3e}, tol {tol:.3e}")
+            check(e64 <= tol64, f"13b {name} {head}: f64 CG vs dense {e64}")
+            check(e <= tol, f"13b {name} {head}: f32 CG vs dense {e} > {tol}")
+            timings[f"mf_dense_{name}_{head}".replace(" ", "_")] = {"f64": e64, "f32": e,
+                                                                    "cpu_f32": e32}
+    return launches
+
+
+def mf_pathwise(spec, params, X, y, cast, device, count):
+    """13c's draws on the card in one dtype (``cast``): pathwise_q_v_samples
+    (with the priors) and pathwise_q_dv_samples on axis 0, MF_SAMPLES
+    antithetic of MF_FEATURES features from two generators seeded 13 and 14,
+    and the means from solve_w that their antithetic means must equal; each
+    call's launches counted into ``count`` (cell_kuf two a sampler, one more
+    for q_dv's face difference)."""
+    import torch
+
+    from vggp_tpu_torch import iterative
+
+    p, Xd, yd = cast(params), cast(X), cast(y)
+    kw = dict(n_samples=MF_SAMPLES, n_features=MF_FEATURES, antithetic=True)
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+
+    def means():
+        w = iterative.solve_w(spec, p, Xd, yd, maxiter=MF_MAXITER)
+        return (iterative.q_v_mean_from_w(spec, p, spec.features, w),
+                iterative.q_dv_mean_from_w(spec, p, spec.features, 0, w))
+
+    calls = {
+        "q_v": (lambda: iterative.pathwise_q_v_samples(
+            spec, p, Xd, yd, spec.features, gen(13), return_prior=True, **kw), spec.ndim),
+        "q_dv axis 0": (lambda: (iterative.pathwise_q_dv_samples(
+            spec, p, Xd, yd, spec.features, 0, gen(14), **kw), None), spec.ndim + 1),
+        "means": (means, spec.ndim + 1)}
+    out = {}
+    tag = str(p["noise"].dtype)[6:]
+    for name, (fn, n_launch) in calls.items():
+        out[name], ms, got = counted(f"13c {name} {tag}", fn, n_launch)
+        count.update(add_launches(count, got))
+        print(f"13c {name} {tag} n={Xd.shape[0]}, S={MF_SAMPLES}: {ms:.1f} ms")
+    out["mean q_v"], out["mean q_dv axis 0"] = out.pop("means")
+    return out
+
+
+def mf_pathwise_part(device, X, y, mf, collapsed, timings) -> dict:
+    """13c: pathwise uncertainty on 13a's model and cells at MF_PATH_N points
+    (:func:`mf_pathwise`) in float32 and float64 from the same draws: the
+    antithetic sample means against the means from solve_w within
+    TOL_MF_ANTITHETIC; q_v_pathwise's control-variate moments, every
+    variance positive and at most diag(Kvv); float32 against float64 draw
+    by draw, a reading. Then phase 7's model: its draws by the 2× rule
+    (:func:`mf_draws_part`), and q_v_pathwise with MF_DENSE_SAMPLES plain
+    draws in float64 at MF_DENSE_N points against its dense float64 q_v:
+    the variance within rtol 0.25, the mean within 5 MC standard errors.
+    Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from vggp_tpu_torch import iterative, sgpr
+
+    spec, params = mf
+    launches = dict(NO_LAUNCHES)
+    X_full, y_full = X, y
+    X, y = X[:MF_PATH_N], y[:MF_PATH_N]
+    kvv = None
+    for i, g in enumerate(spec.features):
+        di = g.kuu_diag(spec.kinds[i], cast_to(device, torch.float64)(params)["axes"][i])
+        kvv = di if kvv is None else (kvv[:, None] * di[None, :]).reshape(-1)
+    card = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        card[tag] = out = mf_pathwise(spec, params, X, y, cast_to(device, dtype), device,
+                                      launches)
+        samples, priors = out["q_v"]
+        p = cast_to(device, dtype)(params)
+        g = iterative.pathwise_moments(spec, p, spec.features, samples, priors, True)
+        var = g.var.double()
+        print(f"13c q_v_pathwise {tag}: var range [{float(var.min()):.4g}, "
+              f"{float(var.max()):.4g}], diag(Kvv) {float(kvv.max()):.4g}")
+        check(bool((var > 0).all()) and bool((var <= kvv).all()),
+              f"13c {tag}: a variance outside (0, diag Kvv]")
+        dv = out["q_dv axis 0"][0]
+        check(bool(torch.isfinite(dv).all()) and bool((dv.var(0) > 0).all()),
+              f"13c q_dv {tag}: a variance not positive")
+        for name in ("q_v", "q_dv axis 0"):
+            e = rel_err(out[name][0].double().mean(0), out[f"mean {name}"].double())
+            print(f"check 13c {name} {tag}: antithetic mean vs the mean from solve_w {e:.3e} "
+                  f"(tol {TOL_MF_ANTITHETIC[name]:.0e})")
+            check(e <= TOL_MF_ANTITHETIC[name], f"13c {name} {tag}: antithetic mean {e}")
+    # float32 against float64 draw by draw, beside the means' distance and
+    # the variances' largest ratio: readings (see TOL_MF_ANTITHETIC)
+    for name in ("q_v", "q_dv axis 0"):
+        e = rel_err(card["f32"][name][0].double().cpu(), card["f64"][name][0].double().cpu())
+        e_mean = rel_err(card["f32"][f"mean {name}"].double().cpu(),
+                         card["f64"][f"mean {name}"].double().cpu())
+        v32, v64 = (card[t][name][0].double().var(0) for t in ("f32", "f64"))
+        ratio = float((v32 / v64.clamp(min=torch.finfo(torch.float64).tiny)).max())
+        print(f"13c {name} draws: card f32 vs f64 {e:.3e}; the mean from solve_w {e_mean:.3e}; "
+              f"the largest variance ratio f32/f64 {ratio:.3f} (readings)")
+        timings[f"mf_pathwise_{name.replace(' ', '_')}_err"] = {"f32_vs_f64": e, "mean": e_mean,
+                                                                "var_ratio_max": ratio}
+    launches = add_launches(launches, mf_draws_part(device, X_full, y_full, collapsed, timings))
+
+    # phase 7's model: the pathwise moments against the dense q_v, in float64
+    # on 13b's MF_DENSE_N points, where the solves converge (the Woodbury G
+    # solve, the KMS Kuu solve): a Monte Carlo check of the sampler, which
+    # the truncated Jacobi solves at 65 536 points would bias (on an H100:
+    # the mean 2.2 MC errors' worth past its 5-error bound, the variance
+    # 0.28 off)
+    spec7, p7 = collapsed
+    c64 = cast_to(device, torch.float64)
+    Xn, yn = c64(X_full[:MF_DENSE_N]), c64(y_full[:MF_DENSE_N])
+    g, ms, got = counted("13c q_v_pathwise on phase 7's model", lambda: iterative.q_v_pathwise(
+        spec7, c64(p7), Xn, yn, spec7.features, torch.Generator(device=device).manual_seed(15),
+        n_samples=MF_DENSE_SAMPLES, n_features=MF_DENSE_FEATURES), 2)
+    launches = add_launches(launches, got)
+    dspec7 = dataclasses.replace(spec7, jitter=MF_DENSE_JITTER)
+    want, _, got = counted("13c dense q_v f64 on phase 7's model", lambda: sgpr.q_v(
+        dspec7, c64(p7), Xn, yn, spec7.features, full_cov=False), 2)
+    launches = add_launches(launches, got)
+    w_mean, w_var = want.mean.double(), want.var.double()
+    d_mean = float((g.mean.double() - w_mean).abs().max())
+    bound_mean = 5.0 * float(torch.sqrt(w_var / MF_DENSE_SAMPLES).max())
+    d_var = float(((g.var.double() - w_var).abs() / (w_var + 1e-6 * w_var.max())).max())
+    print(f"check 13c q_v_pathwise f64 on phase 7's model (S={MF_DENSE_SAMPLES}, "
+          f"{MF_DENSE_FEATURES} features, n={MF_DENSE_N}): {ms:.1f} ms; mean max|Δ| {d_mean:.3e} "
+          f"(5 MC errors {bound_mean:.3e}), variance max rel {d_var:.3e} (tol 0.25)")
+    check(d_mean <= bound_mean, f"13c phase 7 mean {d_mean} > {bound_mean}")
+    check(d_var <= 0.25, f"13c phase 7 variance rel {d_var} > 0.25")
+    timings["mf_pathwise_phase7"] = {"ms": ms, "mean_abs": d_mean, "mean_bound": bound_mean,
+                                     "var_rel": d_var}
+    return launches
+
+
+def mf_draws_part(device, X, y, collapsed, timings) -> dict:
+    """13c on phase 7's model at MF_DRAWS_N points: pathwise_q_v_samples,
+    MF_SAMPLES antithetic of MF_FEATURES features, from one card generator
+    (so the same draws) on the card in float64 and float32 and on the CPU
+    in float32, the G solves to convergence (see MF_DRAWS_MAXITER). The
+    card's float32 draws and their variances against the card's float64 by
+    the 2× rule with the CPU's; the float64 antithetic mean against
+    q_v_mean_from_w of a float64 solve_w within TOL_MF_DENSE_F64. Returns
+    the launches."""
+    import torch
+
+    from vggp_tpu_torch import iterative
+
+    spec, params = collapsed
+    launches = dict(NO_LAUNCHES)
+    X, y = X[:MF_DRAWS_N], y[:MF_DRAWS_N]
+    print(f"13c phase 7's model: ℓ {[round(float(ax['lengthscale']), 4) for ax in params['axes']]}"
+          f", σ² {[round(float(ax['variance']), 4) for ax in params['axes']]}, noise "
+          f"{float(params['noise']):.5f}")
+    c32 = cast_to(device, torch.float32)
+    (_, info), _, got = counted("13c solve_w f32 on phase 7's model", lambda: iterative.solve_w(
+        spec, c32(params), c32(X), c32(y), maxiter=MF_DRAWS_MAXITER, return_info=True), 2)
+    launches = add_launches(launches, got)
+    print(f"13c solve_w f32 on phase 7's model n={MF_DRAWS_N} (as a G solve of the draws): "
+          f"{info}")
+    draws = {}
+    for where, dev, dtype in (("card f64", device, torch.float64),
+                              ("card f32", device, torch.float32),
+                              ("cpu f32", torch.device("cpu"), torch.float32)):
+        c = cast_to(dev, dtype)
+        p, Xd, yd = c(params), c(X), c(y)
+        gen = torch.Generator(device=device).manual_seed(16)
+        kw = dict(n_samples=MF_SAMPLES, n_features=MF_FEATURES, antithetic=True,
+                  maxiter=MF_DRAWS_MAXITER,
+                  tol=MF_DENSE_TOL if dtype == torch.float64 else None)
+        fn = lambda: iterative.pathwise_q_v_samples(spec, p, Xd, yd, spec.features, gen, **kw)
+        t0 = time.perf_counter()
+        if dev.type == "cpu":
+            with torch.no_grad():
+                draws[where] = fn()
+        else:
+            draws[where], _, got = counted(f"13c draws on phase 7's model {where}", fn, 2)
+            launches = add_launches(launches, got)
+        print(f"13c draws on phase 7's model {where} n={MF_DRAWS_N}, S={MF_SAMPLES}: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    ref = draws["card f64"].double().cpu()
+    errs = {}
+    for name, of in (("draws", lambda t: t), ("variances", lambda t: t.var(0))):
+        e = rel_err(of(draws["card f32"].double().cpu()), of(ref))
+        e32 = rel_err(of(draws["cpu f32"].double()), of(ref))
+        tol = max(TOL_E2E_POST, CPU_ERR_RATIO * e32)
+        print(f"check 13c {name} on phase 7's model: card f32 vs card f64 {e:.3e}, cpu f32 "
+              f"{e32:.3e}, tol {tol:.3e}")
+        check(e <= tol, f"13c {name} on phase 7's model: card f32 {e} > {tol}")
+        errs[name] = {"card": e, "cpu_f32": e32}
+    c64 = cast_to(device, torch.float64)
+    (w, info), _, got = counted("13c solve_w on phase 7's model", lambda: iterative.solve_w(
+        spec, c64(params), c64(X), c64(y), tol=MF_DENSE_TOL, maxiter=MF_DRAWS_MAXITER,
+        return_info=True), 2)
+    launches = add_launches(launches, got)
+    mean, _, got = counted("13c q_v_mean_from_w on phase 7's model",
+                           lambda: iterative.q_v_mean_from_w(spec, c64(params), spec.features, w),
+                           0)
+    e = rel_err(draws["card f64"].mean(0), mean)
+    print(f"check 13c antithetic mean on phase 7's model f64 ({info}): vs the mean from "
+          f"solve_w {e:.3e} (tol {TOL_MF_DENSE_F64:.0e})")
+    check(e <= TOL_MF_DENSE_F64, f"13c antithetic mean on phase 7's model {e}")
+    timings["mf_draws_phase7"] = {**errs, "antithetic_mean": e}
+    return launches
+
+
+def mf_bench_part(device, timings) -> tuple:
+    """13d: bench.py's CG row (:func:`cg_value`, cell_kuf once a solve at
+    (16 384, 256)) on the card: float32 within TOL_CG_F32 of bench.py's
+    float32 golden, float64 within TOL_CG_F64 of the JAX package's float64
+    value (CG_F64_JAX), the distance from bench.py's float64 golden printed;
+    and the 1-D model inside the JAX package's float32 Woodbury window
+    (MF_WOODBURY_*): the float32 solve must take Jacobi PCG and reach a true
+    relative residual within TOL_MF_WOODBURY_RESID, the float64 solve the
+    KMS-Woodbury PCG and 1e-7. Returns the launches."""
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SGPRSpec, iterative
+
+    launches = dict(NO_LAUNCHES)
+    vals = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        (vals[tag], info), ms, got = counted(f"13d cg_case {tag}",
+                                             lambda: cg_value(dtype, device), 1)
+        launches = add_launches(launches, got)
+        print(f"13d cg_qv_abs_sum {tag}: {vals[tag]!r} ({info}), {ms:.1f} ms")
+        timings[f"mf_cg_case_{tag}"] = {"value": vals[tag], **info, "ms": ms}
+    e32 = abs(vals["f32"] - _GOLD_CG_F32) / abs(_GOLD_CG_F32)
+    e64 = abs(vals["f64"] - CG_F64_JAX) / abs(CG_F64_JAX)
+    stale = abs(vals["f64"] - _GOLD_CG_F64) / abs(_GOLD_CG_F64)
+    print(f"check 13d cg_qv_abs_sum: f32 {e32:.3e} from bench.py's f32 golden (tol "
+          f"{TOL_CG_F32:.0e}); f64 {e64:.3e} from the JAX package's f64 value (tol "
+          f"{TOL_CG_F64:.0e}), {stale:.3e} from bench.py's f64 golden")
+    check(e32 <= TOL_CG_F32, f"13d cg_qv_abs_sum f32 {e32}")
+    check(e64 <= TOL_CG_F64, f"13d cg_qv_abs_sum f64 {e64}")
+
+    x1, y1, _ = make_data_1d(device)
+    x1, y1 = x1[:MF_WOODBURY_N], y1[:MF_WOODBURY_N]
+    m = MF_WOODBURY_CELLS
+    spec = SGPRSpec(kinds=("matern12",), features=(CellIntegralFeature.from_lims(m, 0.0, 1.0),))
+    c64 = cast_to(device, torch.float64)
+    params = {"axes": ({"variance": torch.tensor(0.91), "lengthscale":
+                        torch.tensor(MF_WOODBURY_RATIO / m)},), "noise": torch.tensor(0.114)}
+    reading = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        c = cast_to(device, dtype)
+        (w, info), ms, got = counted(f"13d woodbury solve_w {tag}", lambda: iterative.solve_w(
+            spec, c(params), c(x1), c(y1), return_info=True), 1)
+        launches = add_launches(launches, got)
+        rel, _, got = counted("13d relative_residual", lambda: iterative.relative_residual(
+            spec, c64(params), c64(x1), c64(y1), w), 1)
+        launches = add_launches(launches, got)
+        reading[tag] = {**info, "true_rel_resid": float(rel), "ms": ms}
+    print(f"check 13d the 1-D model at ℓ/δ = {MF_WOODBURY_RATIO} ({m} cells, "
+          f"n = {MF_WOODBURY_N}), solve_w: {reading}; the f32 true residual's tol "
+          f"{TOL_MF_WOODBURY_RESID:.0e}")
+    check(reading["f32"]["preconditioner"] == "jacobi-pcg"
+          and reading["f32"]["true_rel_resid"] <= TOL_MF_WOODBURY_RESID,
+          f"13d float32 Woodbury-window case: {reading['f32']}")
+    check(reading["f64"]["preconditioner"] == "kms-woodbury"
+          and reading["f64"]["true_rel_resid"] < 1e-7, f"13d float64 case: {reading['f64']}")
+    timings["mf_woodbury_case"] = reading
+    return launches
+
+
+def matrix_free_phase(device, X, y, Xs, main, collapsed, matern32, icm) -> tuple:
+    """Phase 13: cell_kuf against its plain version at the path's new shapes
+    (16 384, 256) and (512, 513), then 13a–13d. Returns (launches, timings,
+    the kernels' float32 errors, cell_kuf's launches at (512, 513) and at
+    (16 384, 256), counted by shape)."""
+    import torch
+
+    timings = {}
+    x_cg = cg_case(torch.float32, device)[2]
+    edges = torch.linspace(0.0, 1.0, M_AXIS + 1, dtype=torch.float64, device=device)
+    errs = check_kernels_at(device, ((16384, x_cg, None), (M_AXIS, edges, None)), "13")
+    launches = dict(NO_LAUNCHES)
+    MF_SHAPE_LAUNCHES.clear()
+    mf = None
+    for name, part in (
+            ("mf_solve_part", lambda: mf_solve_part(device, X, y, Xs, main, timings)),
+            ("mf_dense_part", lambda: mf_dense_part(device, X, y, Xs, collapsed, matern32, icm,
+                                                    timings)),
+            ("mf_pathwise_part", lambda: mf_pathwise_part(device, X, y, mf, collapsed,
+                                                          timings)),
+            ("mf_bench_part", lambda: mf_bench_part(device, timings))):
+        t0 = time.perf_counter()
+        got = part()
+        if name == "mf_solve_part":
+            got, mf = got
+        launches = add_launches(launches, got)
+        timings[f"{name}_s"] = time.perf_counter() - t0
+        print(f"{name}: {timings[f'{name}_s']:.1f} s")
+    at = {"at_face_edges": MF_SHAPE_LAUNCHES["cell_kuf", M_AXIS, M_AXIS + 1],
+          "at_16384_cells": MF_SHAPE_LAUNCHES["cell_kuf", 16384, 256]}
+    print(f"phase 13's cell_kuf launches by shape: {dict(MF_SHAPE_LAUNCHES)}")
+    check(all(v > 0 for v in at.values()), f"phase 13: a new shape never launched: {at}")
+    check(sum(MF_SHAPE_LAUNCHES.values()) == launches["cell_kuf"],
+          f"phase 13: launches by shape {dict(MF_SHAPE_LAUNCHES)} vs {launches}")
+    return launches, timings, errs, at
 
 
 PROFILE_STEPS = 3
 
 
 def profile_steps(step, X, y, batch, gen) -> dict:
-    """Phase 13: where a training step's time goes. Three steps under
+    """Phase 14: where a training step's time goes. Three steps under
     torch.profiler: the device's busy share of the window (kernel time over
     wall time) and the ops with the most host and device time."""
     import torch
@@ -3069,7 +3817,7 @@ def time_fused_shape(device, m, n) -> dict:
 
 
 def time_serving_grid(device, spec, model, state) -> dict:
-    """Phase 14b: cell_kuf at the serving grid's (512, 65 536), and the cold
+    """Phase 15b: cell_kuf at the serving grid's (512, 65 536), and the cold
     ``posterior`` (``precompute`` and the warm head) and the warm
     ``posterior_from_state`` on the 256×256 grid in turns (cold, warm, warm,
     cold; one call each after a warm one, host clock around a call that ends
@@ -3102,10 +3850,10 @@ def time_serving_grid(device, spec, model, state) -> dict:
 
 
 def measure_kernels(device, errs, launches, shapes) -> list:
-    """Phase 14: kernel and plain times at the main path's f32 shapes, and the
+    """Phase 15: kernel and plain times at the main path's f32 shapes, and the
     fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
     kms.banded_whiten_apply for a and t at MAIN_PRECISIONS); ``shapes``
-    (by kernel, then by key: the timings of phases 14b–14e at the other
+    (by kernel, then by key: the timings of phases 15b–15e at the other
     shapes of the main path) go into the kernels' rows."""
     import torch
 
@@ -3204,15 +3952,22 @@ def main() -> int:
         if phase is collapsed_phase:
             at_n = more[0]   # the launches at (64, 65 536) by kernel
         if phase is slice_phase:
-            stretched, timings["lambda_min"] = more[0]
+            stretched, timings["lambda_min"], matern32 = more[0]
         if phase is collapsed_phase:
             collapsed = more[1]   # phase 7's spec and trained params, for 12c
         if phase is full_phase:
             full_errs, timings["lambda_min_new_features"] = more[0]
     t0 = time.perf_counter()
-    got, phase_times, family_errs = families_phase(device, X, y, Xs, collapsed)
+    got, phase_times, family_errs, fitted = families_phase(device, X, y, Xs, collapsed)
     timings["families_phase_s"] = time.perf_counter() - t0
     print(f"families_phase: {timings['families_phase_s']:.1f} s")
+    launches = add_launches(launches, got)
+    timings.update(phase_times)
+    t0 = time.perf_counter()
+    got, phase_times, mf_errs, mf_at = matrix_free_phase(device, X, y, Xs, (spec, model),
+                                                         collapsed, matern32, fitted["icm"])
+    timings["matrix_free_phase_s"] = time.perf_counter() - t0
+    print(f"matrix_free_phase: {timings['matrix_free_phase_s']:.1f} s")
     launches = add_launches(launches, got)
     timings.update(phase_times)
     for batch in (TRAIN_BATCH, FUSED_BATCH):
@@ -3225,7 +3980,13 @@ def main() -> int:
         "cell_kuf": {
             "at_serving_grid": serving_grid,
             "at_face_edges": {**time_kuf_shape(device, M_AXIS, M_AXIS + 1, x_is_mesh=True),
-                              "launches": edge_launches},
+                              "launches": edge_launches,
+                              "launches_matrix_free": mf_at["at_face_edges"],
+                              "max_abs_err_matrix_free": mf_errs[("cell_kuf", M_AXIS,
+                                                                   M_AXIS + 1)]},
+            "at_16384_cells_256": {**time_kuf_shape(device, 16384, 256),
+                                   "launches": mf_at["at_16384_cells"],
+                                   "max_abs_err": mf_errs[("cell_kuf", 16384, 256)]},
             "at_64_cells": {**time_kuf_shape(device, SGPR_CELLS, SGPR_N),
                             "launches": at_n["cell_kuf"]},
             "at_64_cells_4096": {**time_kuf_shape(device, FULL_CELLS, TRAIN_BATCH),

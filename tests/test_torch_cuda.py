@@ -567,3 +567,72 @@ def test_cuda_collapsed_families_match_cpu_f64(cuda, family):
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {**want_launches, "fused_banded_whiten_kuf": 0}
     np.testing.assert_allclose(float(got.detach()), want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("m,n,edges", [(16384, 256, False), (512, 513, True)])
+def test_cuda_cell_kuf_at_the_matrix_free_shapes(cuda, dtype, rtol, m, n, edges):
+    """cell_kuf at the matrix-free path's new shapes: bench.py's CG case,
+    16 384 cells against 256 points (m ≫ n), and the face difference of
+    grad_grid_kvu, 512 cells against their own 513 edges; one launch each."""
+    mesh = torch.linspace(0.0, 1.0, m + 1, dtype=torch.float64).to(dtype=dtype, device=cuda)
+    x = (mesh.clone() if edges else
+         torch.as_tensor(np.sort(np.random.default_rng(14).uniform(size=n)), dtype=dtype,
+                         device=cuda))
+    v = torch.tensor(1.0, dtype=dtype, device=cuda)
+    ell = torch.tensor(0.25, dtype=dtype, device=cuda)
+    ck.reset_launch_counts()
+    got = ck.cell_kuf(mesh, x, v, ell)
+    want = ck.cell_kuf_plain(mesh, x, v, ell)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+    assert ck.SHAPE_LAUNCHES == {("cell_kuf", m, n): 1}
+    assert got.shape == want.shape == (m, n)
+    assert float((got - want).abs().max() / want.abs().max()) < rtol
+
+
+@pytest.mark.cuda
+def test_cuda_solve_w_at_512_cells_matches_float64(cuda):
+    """solve_w on 512×512 Matérn-1/2 cells (m = 262 144) as phase 13a runs
+    it: phase 4's trained hyperparameters (as tools/torch_cg_probe.py prints
+    them) on the first 65 536 of chip_smoke's points (Jacobi CG, above
+    CG_KMS_MAX_POINTS), cell_kuf once an axis. The float32 solve at the
+    default maxiter reaches a true relative residual (recomputed in float64)
+    within chip_smoke.TOL_MF_RESID, and the float32 q_v head from the
+    float64 solve's w (3000 iterations) lies within the 2× rule of the
+    float64 head, against the CPU's float32."""
+    import chip_smoke
+    from chip_smoke import CPU_ERR_RATIO, TOL_E2E_POST, TOL_MF_RESID
+    from vggp_tpu_torch import SGPRSpec, iterative
+
+    X, y, _ = chip_smoke.make_data(cuda)
+    X, y = X[:65536], y[:65536]
+    spec = SGPRSpec(kinds=("matern12",) * 2,
+                    features=tuple(CellIntegralFeature.from_lims(512, 0.0, 1.0) for _ in range(2)))
+
+    def params(dtype, device=cuda):
+        t = lambda a: torch.tensor(a, dtype=torch.float32).to(dtype=dtype, device=device)
+        return {"axes": tuple({"variance": t(0.9110044240951538), "lengthscale": t(ell)}
+                              for ell in (1.0736465454101562, 1.0830117464065552)),
+                "noise": t(0.11434642970561981)}
+
+    out = {}
+    for dtype, maxiter in ((torch.float32, 1000), (torch.float64, 3000)):
+        ck.reset_launch_counts()
+        w, info = iterative.solve_w(spec, params(dtype), X.to(dtype), y.to(dtype),
+                                    maxiter=maxiter, return_info=True)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES == {"cell_kuf": 2, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+        assert info["preconditioner"] == "jacobi"
+        out[dtype] = w
+    w32, w64 = out[torch.float32], out[torch.float64]
+    rel = float(iterative.relative_residual(spec, params(torch.float64), X.double(), y.double(),
+                                            w32))
+    assert rel <= TOL_MF_RESID, rel
+    qv = lambda p, w: iterative.q_v_mean_from_w(spec, p, spec.features, w).double().cpu()
+    want = qv(params(torch.float64), w64)
+    err = lambda got: float((got - want).abs().max() / want.abs().max())
+    e, e32 = err(qv(params(torch.float32), w64.float())), err(qv(params(torch.float32, "cpu"),
+                                                                w64.float().cpu()))
+    assert e <= max(TOL_E2E_POST, CPU_ERR_RATIO * e32), (e, e32)

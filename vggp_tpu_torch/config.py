@@ -58,6 +58,26 @@ def fused_whiten_enabled(n: int) -> bool:
     return bool(mode)
 
 
+# KMS preconditioners of the matrix-free CG path (``models.iterative``). When
+# every axis is a uniform Matérn-1/2 cell feature, Kuu = γ·KMS(ρ) + η·I
+# exactly and KMS⁻¹ is a closed tridiagonal, which gives
+# (a) a near-exact ⊗(γ⁻¹KMS⁻¹) preconditioner for the sampler's Kuu solves,
+#     where cond(Kuu) grows like (ℓ/δ)² and Jacobi scaling does little, and
+# (b) a Woodbury preconditioner M = σ²·⊗(γᵢKMSᵢ) + KufKufᵀ for the G solve:
+#     one (n, n) factorization, then O(m) tridiagonal matvecs per apply.
+# (b) has its gates read from the parameters once a solve. Below
+# u = δ/ℓ ≈ √eps the tridiagonal apply cancels to rounding noise (the u
+# floor). The JAX package's float32 also waits until the largest ℓ/δ
+# reaches its CG_KMS_MIN_STIFFNESS = 512, the regime where Jacobi CG
+# stalls: with the u floor that leaves ℓ/δ ∈ [512, 579], where the float32
+# M⁻¹ loses positive definiteness and PCG broke down within a few
+# iterations at every ratio tried (tools/torch_cg_woodbury_f32.py). So the
+# port's float32 never takes (b) and runs Jacobi PCG. The (n, n) build is
+# gated off above CG_KMS_MAX_POINTS.
+CG_KMS_PRECOND: bool = True
+CG_KMS_MAX_POINTS: int = 8192
+
+
 # The JAX package's Pallas minimums (64 cells, 128 points) have no
 # counterpart: they guard the TPU's (128, 128) tile padding, while the CUDA
 # kernels mask their ragged edges, so a CUDA tensor always takes the kernel.

@@ -402,6 +402,12 @@ class AxisFeature:
         """Kuu @ v, dense; structured features override."""
         return self.Kuu(kind, p) @ v
 
+    def kuu_operator(self, kind: str, p: Params):
+        """The map v ↦ :meth:`kuu_matvec` (v), with what does not depend on v
+        computed once: the matrix-free solves apply it every iteration."""
+        K = self.Kuu(kind, p)
+        return lambda v: K @ v
+
     def kuu_diag(self, kind: str, p: Params) -> torch.Tensor:
         """diag(Kuu), dense; structured features override (a row sum is no
         proxy: the B1 Gram's negative off-diagonals cancel its rows)."""
@@ -740,9 +746,13 @@ class B1SplineFeature(AxisFeature):
 
     def kuu_matvec(self, kind: str, p: Params, v: torch.Tensor) -> torch.Tensor:
         """Kuu @ v by the banded matvec, O(m)."""
+        return self.kuu_operator(kind, p)(v)
+
+    def kuu_operator(self, kind: str, p: Params):
         from vggp_tpu_torch.ops import banded
 
-        return banded.banded_matvec(self.kuu_bands(kind, p), v)
+        bands = self.kuu_bands(kind, p)
+        return lambda v: banded.banded_matvec(bands, v)
 
     def kuu_diag(self, kind: str, p: Params) -> torch.Tensor:
         return self.kuu_bands(kind, p)[0]
@@ -1008,6 +1018,17 @@ class CellIntegralFeature(AxisFeature):
             return None
         ell = p["lengthscale"]
         return _m12_toeplitz_first_row_dl(self.m, self.delta, p["variance"], ell, ell.dtype)
+
+    def kuu_matvec(self, kind: str, p: Params, v: torch.Tensor) -> torch.Tensor:
+        """Kuu @ v, ``v`` (m,) or (m, k): the FFT Toeplitz matvec of
+        :meth:`kuu_first_row` on a uniform mesh, O(m log m) with no (m, m)
+        Gram; the dense product on any other mesh."""
+        return self.kuu_operator(kind, p)(v)
+
+    def kuu_operator(self, kind: str, p: Params):
+        if not self.uniform:
+            return super().kuu_operator(kind, p)
+        return toeplitz.sym_toeplitz_operator(self.kuu_first_row(kind, p))
 
     def kuu_diag(self, kind: str, p: Params) -> torch.Tensor:
         """diag(Kuu): the constant first-row[0] on a uniform mesh, the

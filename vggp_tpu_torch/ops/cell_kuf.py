@@ -13,11 +13,13 @@ version here, written from the same tile math:
 
 A wrapper takes its plain version only for CPU tensors (the tests); for a
 CUDA tensor it launches the kernel or raises. Each launch adds one to
-:data:`LAUNCHES`, so a run can show that its path went through the kernels.
+:data:`LAUNCHES` (and, by shape, to :data:`SHAPE_LAUNCHES`), so a run can show
+that its path went through the kernels.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -28,11 +30,19 @@ from vggp_tpu_torch.ops.stablemath import expm1s
 
 # Kernel launches since the last reset_launch_counts(), by wrapper name.
 LAUNCHES = {"cell_kuf": 0, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+# The same launches by (wrapper name, m, n).
+SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def _count(name: str, m: int, n: int) -> None:
+    LAUNCHES[name] += 1
+    SHAPE_LAUNCHES[name, m, n] += 1
 
 
 # --------------------------------------------------------------------------- #
@@ -190,7 +200,7 @@ def cell_kuf(mesh, x, variance, lengthscale):
     rc = getattr(lib, f"cell_kuf_{sfx}")(_ptr(mesh), _ptr(x), _ptr(scal), _ptr(out),
                                          m, n, _stream(mesh))
     _raise_on(rc, "cell_kuf")
-    LAUNCHES["cell_kuf"] += 1
+    _count("cell_kuf", m, n)
     return out
 
 
@@ -209,7 +219,7 @@ def cell_kuf_with_dl(mesh, x, variance, lengthscale):
     rc = getattr(lib, f"cell_kuf_with_dl_{sfx}")(
         _ptr(mesh), _ptr(x), _ptr(scal), _ptr(out), _ptr(dl), m, n, _stream(mesh))
     _raise_on(rc, "cell_kuf_with_dl")
-    LAUNCHES["cell_kuf_with_dl"] += 1
+    _count("cell_kuf_with_dl", m, n)
     return out, dl
 
 
@@ -254,7 +264,7 @@ def fused_banded_whiten_kuf(finv, mesh, x, variance, lengthscale,
         args += [_SPLIT[a_precision], _SPLIT[t_precision]]
     rc = getattr(lib, f"fused_banded_whiten_kuf_{sfx}")(*args, _stream(mesh))
     _raise_on(rc, "fused_banded_whiten_kuf")
-    LAUNCHES["fused_banded_whiten_kuf"] += 1
+    _count("fused_banded_whiten_kuf", m, n)
     return a, t
 
 

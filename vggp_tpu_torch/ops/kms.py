@@ -184,3 +184,49 @@ def banded_whiten_apply(finv, kuf, q, precision):
         if m % BAND_BLOCK != 0 or m // BAND_BLOCK < 2 or not bool(q < 0.7):
             return finv @ kuf
         return banded_apply(finv, kuf)
+
+
+# --------------------------------------------------------------------------- #
+# KMS tridiagonal-inverse pieces of the matrix-free CG path (``kms.py:271-313``)
+# --------------------------------------------------------------------------- #
+
+
+def kms_gamma_rho(delta, variance, lengthscale, u_cap: float = 30.0,
+                  u_floor: float = 0.0):
+    """(γ, ρ, 1 − ρ²) of the exact decomposition Kuu = γ·KMS(ρ) + η·I.
+
+    The stable forms of :func:`_tridiag_coefficients` (ρ by the expm1 series
+    near 1, γ = c(1 − ρ)²/ρ through ``expm1s``). ``u = δ/ℓ`` is capped (γ
+    grows like c·eᵘ and overflows float32 past u ≈ 88; by the cap the Gram
+    is diagonal to working precision) and floored: the tridiagonal KMS⁻¹
+    applied to a smooth vector cancels to about u²·|v|, so below u ≈ √eps
+    the apply is rounding noise amplified by 1/γ. The only consumer is a
+    preconditioner, for which a floored u builds the exact factors of a
+    coarser grid's Gram: still SPD, a weaker preconditioner, never garbage.
+    Pass ``u_floor = 5·√eps`` of the dtype.
+    """
+    u = torch.clamp(delta / lengthscale, u_floor, u_cap)
+    rho = torch.where(u < 1.0, 1.0 + expm1s(-torch.clamp(u, max=1.0)),
+                      torch.exp(-torch.clamp(u, min=1.0)))
+    omr = -expm1s(-u)                       # 1 − ρ
+    s2 = -expm1s(-2.0 * u)                  # 1 − ρ²
+    c = variance * lengthscale * lengthscale
+    gamma = c * omr * omr / rho
+    return gamma, rho, s2
+
+
+def kms_tinv_matvec(rho, s2, v: torch.Tensor) -> torch.Tensor:
+    """KMS(ρ)⁻¹ @ v by the closed tridiagonal inverse, O(m), no solve:
+    T⁻¹ = tridiag(−ρ | 1 + ρ², with the corner diagonals 1)/(1 − ρ²).
+    ``v`` is (m,) or (m, k), applied along axis 0."""
+    squeeze = v.dim() == 1
+    if squeeze:
+        v = v[:, None]
+    r2 = rho * rho
+    ends = torch.zeros((v.shape[0], 1), dtype=v.dtype, device=v.device)
+    ends[0] += 1.0
+    ends[-1] += 1.0                         # both corners on one row when m = 1
+    w = (1.0 + r2) * v - r2 * ends * v
+    w = w - rho * F.pad(v[:-1], (0, 0, 1, 0)) - rho * F.pad(v[1:], (0, 0, 0, 1))
+    out = w / s2
+    return out[:, 0] if squeeze else out

@@ -36,3 +36,12 @@ def kron_diag(diags: Sequence[torch.Tensor]) -> torch.Tensor:
     for d in diags[1:]:
         out = (out[:, None] * d[None, :]).reshape(-1)
     return out
+
+
+def kron_matvec(mats: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """(A₁ ⊗ … ⊗ A_d) @ x without the product: one matmul per factor on the
+    reshaped (∏ m_i,) vector ``x``."""
+    t = x.reshape([m.shape[1] for m in mats])
+    for i, a in enumerate(mats):
+        t = torch.movedim(torch.tensordot(a, t, dims=([1], [i])), 0, i)
+    return t.reshape(-1)
