@@ -133,9 +133,25 @@ Phases (each asserts; any failure exits non-zero before the result line):
    S = 1024 in float64 at 8192 points against its dense q_v; (d) bench.py's
    CG row and the float32 KMS-Woodbury PCG where its gates admit ℓ (its
    breakdown and the Jacobi PCG that takes over);
-14. profile three steps at each batch (device busy share, the ops with the
+14. the pathwise samplers of every model family and streaming assimilation
+   (``sampling.py``, ``streaming.py``): ``cell_kuf`` against its plain
+   version at the phase's new shapes, (64, 16 384), (64, 576), (64, 16 960),
+   (64, 8192), (32, 4096), (16, 4096) and (60, 4096); (a) ``sampling.pathwise`` at the
+   4096 points and ``pathwise_q_v`` on the 512² cells of phase 4's model,
+   256 draws of 2048 features, the first 8 against the CPU's float64 from
+   the same draws, all by their moments against ``posterior`` and ``q_v``;
+   (b) the joint (f, ∂f) draws of 10b's Matérn-3/2 SVGP and 10d's collapsed
+   GP; (c) ``pathwise`` on phase 7's collapsed GP, phase 8's exact GP and
+   12b's ICM, sum, additive and free-point models, ``pathwise_q_v`` on phase
+   7's cells, 64 draws each, the same two holds; (d) phase 11a's model
+   streams the 1 000 000 points in chunks of 16 384 (``assimilate`` and
+   ``assimilate_scan``, float32 and float64), ``forget``, ``reanchor``,
+   ``to_params`` → ``q_v``, and ``assimilate_natgrad`` on Poisson targets,
+   against the CPU's float64 at 8192 points and the card's float64 stream;
+   cell_kuf's launches counted by shape;
+15. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
-15. time each kernel and its plain version (device time from the profiler's
+16. time each kernel and its plain version (device time from the profiler's
    CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
    serving grid's (512, 65 536) beside one warm cold ``posterior`` and one
    ``posterior_from_state`` on that grid and at the face difference's
@@ -1300,7 +1316,7 @@ def fit_exact(X, y) -> tuple:
 def exact_phase(device, X, y, Xs) -> tuple:
     """Phase 8: the exact GP on EXACT_N points, trained and served on the
     card and held against the CPU's float64 at the same size. Returns
-    (launches, timings)."""
+    (launches, timings, (spec, the trained params) for 14c)."""
     import torch
 
     from vggp_tpu_torch import CellIntegralFeature, exact
@@ -1332,7 +1348,7 @@ def exact_phase(device, X, y, Xs) -> tuple:
                          (device, torch.float32), (cpu, torch.float64), (cpu, torch.float32))),
                      TOL_GRAD["exact"])
     timings["check exact s"] = time.perf_counter() - t0
-    return launches, timings
+    return launches, timings, (spec, params)
 
 
 def likelihood_targets(name, X, y, seed):
@@ -1637,12 +1653,13 @@ def timed_heads(heads, spec, params, state, cast) -> dict:
     return out
 
 
-def kinds_svgp_part(device, X, y, Xs, timings) -> None:
+def kinds_svgp_part(device, X, y, Xs, timings) -> tuple:
     """10b: the 512² Kronecker SVGP with Matérn-3/2 cells (dense F⁻¹, the
     forward-mode ℓ-tangent): KIND_STEPS steps at batch 4096, the loss and its
     gradient leaves, ``posterior_grad`` on both axes cold and from
     ``precompute`` at the 4096 points and ``q_dv`` on axis 0 of the 512²
-    cells against the CPU's float64. No kernel launches anywhere."""
+    cells against the CPU's float64. No kernel launches anywhere. Returns
+    (spec, the trained params) for 14b."""
     import torch
 
     from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, svgp, train
@@ -1674,6 +1691,7 @@ def kinds_svgp_part(device, X, y, Xs, timings) -> None:
         "10b matern32 SVGP vs cpu f64",
         lambda c: svgp_slice_quantities(spec, params, xb, yb, heads, c), device,
         TOL_GRAD_SLICE["svgp"])
+    return spec, params
 
 
 def nonuniform_svgp_part(device, X, y, Xs, timings) -> tuple:
@@ -1729,7 +1747,7 @@ def kinds_collapsed_part(device, X, y, Xs, timings) -> None:
     the card's float64 at the full n (the ELBO and the heads, beside the
     CPU's float32) and the CPU's float64 at SGPR_CUT_N (with the gradient
     leaves). No kernel launches. Returns (spec, the trained params) for
-    13b."""
+    13b and 14b."""
     import torch
 
     from vggp_tpu_torch import CellIntegralFeature, SGPRSpec, sgpr, train
@@ -1853,7 +1871,8 @@ def rbf_fits(device, timings) -> None:
 def slice_phase(device, X, y, Xs) -> tuple:
     """Phase 10: 10b–10e and the RBF fits (10a is check_goldens), with the
     λ_min readings. Returns (launches, timings, (the kernels' float32 errors
-    and launches on the stretched mesh, the λ_min readings, 10d's model))."""
+    and launches on the stretched mesh, the λ_min readings, 10d's model,
+    10b's model))."""
     timings = {}
     launches = dict(NO_LAUNCHES)
     for part in (kinds_svgp_part, nonuniform_svgp_part, kinds_collapsed_part,
@@ -1864,11 +1883,14 @@ def slice_phase(device, X, y, Xs) -> tuple:
             launches, errs, at_shape = out
         if part is kinds_collapsed_part:
             matern32 = out
+        if part is kinds_svgp_part:
+            m32_svgp = out
         timings[f"{part.__name__}_s"] = time.perf_counter() - t0
         print(f"{part.__name__}: {timings[f'{part.__name__}_s']:.1f} s")
     rbf_fits(device, timings)
     readings = lambda_min_readings(device)
-    return launches, timings, ({"errs": errs, "launches": at_shape}, readings, matern32)
+    return launches, timings, ({"errs": errs, "launches": at_shape}, readings, matern32,
+                               m32_svgp)
 
 
 # --------------------------------------------------------------------------- #
@@ -1998,7 +2020,7 @@ def svgp_cut_quantities(spec, params, xb, yb, heads, cast, mu_s=None) -> dict:
     return out
 
 
-def full_2d_part(device, X, y, Xs, timings) -> dict:
+def full_2d_part(device, X, y, Xs, timings) -> tuple:
     """11a: the 2-D full-family gridded SVGP, 64×64 Matérn-1/2 cells
     (m = 4096) and a learned mean: FULL_STEPS steps at batch 4096
     (cell_kuf_with_dl twice a step at (64, 4096)); the posterior at the 4096
@@ -2008,7 +2030,7 @@ def full_2d_part(device, X, y, Xs, timings) -> dict:
     value-and-grad at the trained μ and S = LLᵀ + ELBO_MUS_RIDGE·I
     (cell_kuf_with_dl twice); then the loss, its gradient
     leaves, the heads and elbo_muS at FULL_CUT_N points against the CPU's
-    float64. Returns the launches."""
+    float64. Returns (the launches, (spec, the trained params) for 14d)."""
     import torch
 
     from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, svgp, train
@@ -2085,7 +2107,7 @@ def full_2d_part(device, X, y, Xs, timings) -> dict:
         lambda c: svgp_cut_quantities(spec, params, xb, yb, heads, c, mu_s), device,
         TOL_GRAD_FULL["svgp"])
     # where the step's time goes: three more steps under the profiler (their
-    # launches are not the path's, as phase 14's)
+    # launches are not the path's, as phase 15's)
     step = train.make_step_fn(lambda p, xb, yb: svgp.loss(spec, p, xb, yb), model.raw_params(),
                               torch.optim.Adam(model.parameters(), lr=1e-2))
     gen = torch.Generator(device=device)
@@ -2093,7 +2115,7 @@ def full_2d_part(device, X, y, Xs, timings) -> dict:
     print("11a profile:")
     timings.update({f"full2d_{k}": v for k, v in
                     profile_steps(step, X, y, TRAIN_BATCH, gen).items()})
-    return launches
+    return launches, (spec, params)
 
 
 def full_1d_part(device, x1, y1, xs1, timings) -> dict:
@@ -2356,8 +2378,9 @@ def full_phase(device, X, y, Xs) -> tuple:
     """Phase 11: 11a–11d and the new features' λ_min readings, with the cell
     kernels held against their plain versions at the phase's shapes first.
     Returns (launches, timings, (the kernels' float32 errors, the λ_min
-    readings))."""
+    readings, 11a's spec and trained params))."""
     timings = {}
+    full2d = None
     x1, y1, xs1 = make_data_1d(device)
     errs = check_full_kernels(device, X, x1)
     launches = dict(NO_LAUNCHES)
@@ -2366,11 +2389,14 @@ def full_phase(device, X, y, Xs) -> tuple:
                        ("points_part", lambda: points_part(device, x1, y1, xs1, timings)),
                        ("zoo_part", lambda: zoo_part(device, X, y, timings))):
         t0 = time.perf_counter()
-        launches = add_launches(launches, part())
+        got = part()
+        if name == "full_2d_part":
+            got, full2d = got
+        launches = add_launches(launches, got)
         timings[f"{name}_s"] = time.perf_counter() - t0
         print(f"{name}: {timings[f'{name}_s']:.1f} s")
     readings = lambda_min_full_readings(device)
-    return launches, timings, (errs, readings)
+    return launches, timings, (errs, readings, full2d)
 
 
 # --------------------------------------------------------------------------- #
@@ -3086,10 +3112,12 @@ TOL_MF_WOODBURY_RESID = 1e-4
 MF_SHAPE_LAUNCHES = collections.Counter()
 
 
-def counted(name, fn, n_cell_kuf):
+def counted(name, fn, n_cell_kuf, shapes=MF_SHAPE_LAUNCHES):
     """One call of ``fn`` under no_grad, host clock around it (ending in
-    synchronize), its launches counted exactly: ``n_cell_kuf`` of cell_kuf
-    and none of the other kernels. Returns (the output, ms, launches)."""
+    synchronize), its launches counted (reset just before, read just after;
+    by shape into ``shapes``) and, unless ``n_cell_kuf`` is None, held
+    exactly: ``n_cell_kuf`` of cell_kuf and none of the other kernels.
+    Returns (the output, ms, launches)."""
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
@@ -3102,9 +3130,10 @@ def counted(name, fn, n_cell_kuf):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     got = dict(ck.LAUNCHES)
-    MF_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
-    want = {**NO_LAUNCHES, "cell_kuf": n_cell_kuf}
-    check(got == want, f"{name}: launches {got}, expected {want}")
+    shapes.update(ck.SHAPE_LAUNCHES)
+    if n_cell_kuf is not None:
+        want = {**NO_LAUNCHES, "cell_kuf": n_cell_kuf}
+        check(got == want, f"{name}: launches {got}, expected {want}")
     return out, ms, got
 
 
@@ -3654,11 +3683,468 @@ def matrix_free_phase(device, X, y, Xs, main, collapsed, matern32, icm) -> tuple
     return launches, timings, errs, at
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the pathwise samplers of every model family (sampling.py) and
+# streaming assimilation (streaming.py)
+# --------------------------------------------------------------------------- #
+
+# 14a: sampling.pathwise at the 4096 serve points and pathwise_q_v on the
+# 512² cells of phase 4's model at the defaults of
+# vggp_tpu/experiments/exceedance.py:61-62: 256 paths of 2048 features
+P14_SAMPLES = 256
+P14_FEATURES = 2048
+# 14b and 14c: 64 draws a model at the 4096 serve points
+P14_FAMILY_SAMPLES = 64
+# Each sampler's first P14_CPU_DRAWS draws are held against the CPU's
+# float64 from the same draws by the 2× rule against the CPU's float32 (S
+# cut for the hold: the CPU's float64 at S = 256 would take minutes). The
+# collapsed models' holds also cut their data to the first P14_CUT_N points
+# (from 65 536: the CPU's (m, n) products at m = 4096 take seconds a
+# precision; n = 4096 is the query blocks' own, so no other shape is
+# launched); the card's full-n draws are held by their moments.
+P14_CPU_DRAWS = 8
+P14_CUT_N = 4096
+# The moments of the draws: the sample mean within TOL_P14_MEAN_SDS head
+# standard deviations over √S of the head's mean at every point and cell
+# (with a float32 floor of TOL_E2E_POST × max|mean|), and in 14a the sample
+# variance's median relative error within TOL_P14_VAR_MEDIAN, the bound of
+# tests/test_sampling.py:107. Matérn-3/2 gradient draws are heavy-tailed
+# (sampling.py:757-763): their variances are not held. 14a holds the
+# moments of the card's float64 draws from the same generator and reads
+# the float32 ones: at ℓ/δ ≈ 550 the float32 q_v draws lie 0.13 from
+# float64 draw by draw (the CPU's float32 0.072, ROADMAP queue 3, item 13),
+# far above a cell's posterior sd, and their sample mean read 1.47 of the
+# bound on an H100 (700 W).
+TOL_P14_MEAN_SDS = 5.0
+TOL_P14_VAR_MEDIAN = 0.35
+# 14d: phase 11a's 2-D full-family model (64×64 Matérn-1/2 cells, m = 4096)
+# with its trained hyperparameters streams the main path's 1 000 000 points
+# in chunks of STREAM_CHUNK (61 full chunks and one of 576). Its float32
+# state and q_v are held against the CPU's float64 on the first
+# STREAM_CUT_N points; the whole float32 stream against the card's float64
+# one at TOL_STREAM_F32; the float64 stream in chunks of STREAM_BIG_CHUNK
+# equals it within TOL_STREAM_IDENTITY. forget at STREAM_RHO
+# (vggp_tpu/experiments/streaming.py:102), reanchor to ℓ × STREAM_ELL;
+# assimilate_natgrad on NATGRAD_N of phase 9's Poisson targets, held
+# against the CPU on P14_CUT_N of them.
+STREAM_CHUNK = 16_384
+STREAM_CUT_N = 8192
+STREAM_BIG_CHUNK = 65_536
+STREAM_RHO = 0.55
+STREAM_ELL = 1.1
+NATGRAD_N = 16_384
+TOL_STREAM_IDENTITY = 1e-10
+# the float32 stream against the card's float64 one, set from the readings
+# of its first card run (Λ 3.6e-6, η 1.6e-5, q_v 1.3e-2, q_v after forget
+# and reanchor 2.8e-2 on an H100 at 700 W), about 4× above them: Λ's
+# condition grows like n/σ² (about 1e7 after the stream), so q_v carries
+# float32's rounding of Λ far above the heads' floor, in the JAX package too
+TOL_STREAM_F32 = {"lam": 2e-5, "eta": 1e-4, "q_v": 5e-2, "q_v after reanchor": 0.1}
+# cell_kuf's shapes that phase 14 is the first to launch, held against the
+# plain version before it runs: the stream's chunk (and natgrad's batch),
+# the short last chunks of the stream and of the chunking identity's
+# stream, the CPU hold's points on 64 cells, and the query blocks at the
+# 4096 serve points of the ICM collapsed GP's and the sum's cells; and the
+# shapes it launches that earlier phases held
+P14_NEW_SHAPES = ((FULL_CELLS, STREAM_CHUNK), (FULL_CELLS, NUM_DATA % STREAM_CHUNK),
+                  (FULL_CELLS, NUM_DATA % STREAM_BIG_CHUNK), (FULL_CELLS, STREAM_CUT_N),
+                  (ICM_CELLS, SERVE_POINTS), (SUM_CELLS[0], SERVE_POINTS),
+                  (SUM_CELLS[1], SERVE_POINTS))
+P14_HELD_SHAPES = ((M_AXIS, SERVE_POINTS), (SGPR_CELLS, SGPR_N), (FULL_CELLS, TRAIN_BATCH),
+                   (ICM_CELLS, SGPR_N), (SUM_CELLS[0], SGPR_N), (SUM_CELLS[1], SGPR_N),
+                   (ADD_CELLS, SGPR_N))
+# the phase's launches by (name, m, n), summed over p14_call()s
+P14_SHAPE_LAUNCHES = collections.Counter()
+
+
+def p14_call(name, fn):
+    """:func:`counted` with the launches read, not held, by shape into
+    P14_SHAPE_LAUNCHES; the output must be finite. Returns (the output, ms,
+    launches)."""
+    out, ms, got = counted(name, fn, None, P14_SHAPE_LAUNCHES)
+    check(finite(tuple(out.values()) if isinstance(out, dict) else out), f"{name}: not finite")
+    print(f"{name}: {ms:.1f} ms, launches {got}")
+    return out, ms, got
+
+
+def hold_draws(what, run, device, n_samples, seed, cut_n=None) -> tuple:
+    """``run(cast, gen, S, n)`` → S draws of a sampler, n the data points it
+    conditions on (None: all). On the card in float32 at ``n_samples`` and
+    all the data (timed and counted by :func:`p14_call`); then the first
+    P14_CPU_DRAWS draws on the CPU in float64 and float32 (at ``cut_n``
+    points, where given, the card's also taken again there), each from a
+    CPU generator seeded with ``seed``, so the same draws. The card's
+    against the CPU's float64 within the larger of TOL_E2E_POST and
+    CPU_ERR_RATIO × the CPU float32's error. Returns (the card's draws, ms,
+    launches, the readings)."""
+    import torch
+
+    cpu = torch.device("cpu")
+    gen = lambda: torch.Generator().manual_seed(seed)
+    c32 = cast_to(device, torch.float32)
+    draws, ms, got = p14_call(f"{what} card f32 S={n_samples}",
+                              lambda: run(c32, gen(), n_samples, None))
+    first = draws[:P14_CPU_DRAWS]
+    if cut_n is not None:
+        first, _, more = p14_call(f"{what} card f32 at n={cut_n}",
+                                  lambda: run(c32, gen(), P14_CPU_DRAWS, cut_n))
+        got = add_launches(got, more)
+    with torch.no_grad():
+        ref, f32 = (run(cast_to(cpu, dt), gen(), P14_CPU_DRAWS, cut_n).double()
+                    for dt in (torch.float64, torch.float32))
+    e, e32 = rel_err(first.double().cpu(), ref), rel_err(f32, ref)
+    tol = max(TOL_E2E_POST, CPU_ERR_RATIO * e32)
+    print(f"check {what} first {P14_CPU_DRAWS} draws{'' if cut_n is None else f' at n={cut_n}'}: "
+          f"card f32 vs cpu f64 {e:.3e}, cpu f32 {e32:.3e}, tol {tol:.3e}")
+    check(e <= tol, f"{what}: card f32 draws {e} > {tol} (cpu f32 {e32})")
+    return draws, ms, got, {"card": e, "cpu_f32": e32, "tol": tol}
+
+
+def hold_moments(what, draws, head, variance=False, held=True) -> dict:
+    """The S draws' sample mean against the head's (a Gaussian on the card)
+    within TOL_P14_MEAN_SDS·sd/√S + TOL_E2E_POST·max|mean| everywhere, and
+    with ``variance`` the sample variance's median relative error within
+    TOL_P14_VAR_MEDIAN; ``held=False`` prints them as readings. Returns the
+    readings."""
+    import torch
+
+    d = draws.double()
+    mean, var = head.mean.double(), head.var.double()
+    S = d.shape[0]
+    bound = (TOL_P14_MEAN_SDS * torch.sqrt(torch.clamp(var, min=0.0)) / S ** 0.5
+             + TOL_E2E_POST * mean.abs().max())
+    ratio = float(((d.mean(0) - mean).abs() / bound).max())
+    out = {"mean_to_bound": ratio}
+    msg = f"check {what} moments over S={S}: the sample mean at {ratio:.3f} of its bound"
+    if variance:
+        med = float(torch.median((d.var(0) - var).abs() / var))
+        out["var_median_rel"] = med
+        msg += f", the sample variance's median relative error {med:.3f} (tol {TOL_P14_VAR_MEDIAN})"
+    print(msg if held else f"{msg} (a reading)".replace("check ", "", 1))
+    if held:
+        check(ratio <= 1.0, f"{what}: the sample mean at {ratio} of its bound")
+        check(not variance or out["var_median_rel"] <= TOL_P14_VAR_MEDIAN,
+              f"{what}: sample variance median rel {out.get('var_median_rel')}")
+    return out
+
+
+def main_draws_part(device, Xs, main, timings) -> dict:
+    """14a: ``sampling.pathwise`` at the 4096 serve points and
+    ``pathwise_q_v`` on the 512² cells of phase 4's trained model,
+    P14_SAMPLES draws of P14_FEATURES features in float32 (cell_kuf twice
+    for the query block, at (512, 4096); q_v none), the first held against
+    the CPU's float64; the moments against ``svgp.posterior`` and
+    ``svgp.q_v`` of the card's float64 draws from the same generator held,
+    the float32 ones read. Returns the launches."""
+    import torch
+
+    from vggp_tpu_torch import sampling, svgp, train
+
+    spec, model = main
+    with torch.no_grad():
+        params = train.tree_map(lambda v: v.detach(), model.params())
+    own = spec.features
+    launches = dict(NO_LAUNCHES)
+    for i, (name, run, head) in enumerate((
+            ("pathwise", lambda c, g, S, n: sampling.pathwise(
+                spec, c(params), g, c(Xs), n_samples=S, n_features=P14_FEATURES),
+             lambda p=params: svgp.posterior(spec, p, Xs.to(p["noise"].dtype))),
+            ("pathwise_q_v", lambda c, g, S, n: sampling.pathwise_q_v(
+                spec, c(params), g, own, n_samples=S, n_features=P14_FEATURES),
+             lambda p=params: svgp.q_v(spec, p, own)))):
+        draws, ms, got, r = hold_draws(f"14a {name}", run, device, P14_SAMPLES, 1400 + i)
+        g, _, more = p14_call(f"14a {name}'s head", head)
+        r["f32"] = hold_moments(f"14a {name} f32", draws, g, variance=True, held=False)
+        launches = add_launches(launches, add_launches(got, more))
+        del draws
+        c64 = cast_to(device, torch.float64)
+        d64, ms64, more = p14_call(f"14a {name} card f64 S={P14_SAMPLES}", lambda: run(
+            c64, torch.Generator().manual_seed(1400 + i), P14_SAMPLES, None))
+        launches = add_launches(launches, more)
+        g64, _, more = p14_call(f"14a {name}'s head f64", lambda: head(c64(params)))
+        launches = add_launches(launches, more)
+        r["f64"] = hold_moments(f"14a {name} f64", d64, g64, variance=True)
+        del d64
+        timings[f"p14_main_{name}_ms"] = ms
+        timings[f"p14_main_{name}_f64_ms"] = ms64
+        timings[f"p14_main_{name}"] = {**r, "launches": got}
+    return launches
+
+
+def gradient_draws_part(device, X, y, Xs, m32_svgp, m32_collapsed, timings) -> dict:
+    """14b: the joint (f, ∂f/∂x₀, ∂f/∂x₁) draws of 10b's Matérn-3/2 512²
+    SVGP (``pathwise_posterior_with_grads``) and of 10d's Matérn-3/2
+    collapsed GP (``pathwise_posterior_collapsed_with_grads``, on its 65 536
+    points), P14_FAMILY_SAMPLES each at the serve points; the first held
+    against the CPU's float64 (the collapsed GP at P14_CUT_N points), the
+    rows' sample means against ``posterior`` and ``posterior_grad``. No
+    kernel launches (Matérn-3/2). Returns the launches."""
+    from vggp_tpu_torch import sampling, sgpr, svgp
+
+    launches = dict(NO_LAUNCHES)
+    spec, params = m32_svgp
+    spec_c, params_c = m32_collapsed
+    Xn, yn = X[:SGPR_N], y[:SGPR_N]
+    cases = (
+        ("svgp", lambda c, g, S, n: sampling.pathwise_posterior_with_grads(
+            spec, c(params), g, c(Xs), (0, 1), n_samples=S, n_features=P14_FEATURES), None,
+         [lambda: svgp.posterior(spec, params, Xs)]
+         + [lambda a=a: svgp.posterior_grad(spec, params, Xs, a) for a in (0, 1)]),
+        ("collapsed", lambda c, g, S, n: sampling.pathwise_posterior_collapsed_with_grads(
+            spec_c, c(params_c), g, c(Xn[:n]), c(yn[:n]), c(Xs), (0, 1), n_samples=S,
+            n_features=P14_FEATURES), P14_CUT_N,
+         [lambda: sgpr.posterior(spec_c, params_c, Xn, yn, Xs, full_cov=False)]
+         + [lambda a=a: sgpr.posterior_grad(spec_c, params_c, Xn, yn, Xs, a)
+            for a in (0, 1)]))
+    for i, (name, run, cut_n, heads) in enumerate(cases):
+        what = f"14b matern32 {name} with grads"
+        draws, ms, got, r = hold_draws(what, run, device, P14_FAMILY_SAMPLES, 1410 + i, cut_n)
+        check(draws.shape == (P14_FAMILY_SAMPLES, 3, SERVE_POINTS), f"{what}: {draws.shape}")
+        launches = add_launches(launches, got)
+        for row, head in enumerate(heads):
+            g, _, more = p14_call(f"{what} row {row}'s head", head)
+            launches = add_launches(launches, more)
+            r[f"row {row}"] = hold_moments(f"{what} row {row}", draws[:, row], g)
+        timings[f"p14_grads_{name}_ms"] = ms
+        timings[f"p14_grads_{name}"] = r
+    return launches
+
+
+def family_draws_part(device, X, y, Xs, collapsed, exact_model, fitted, timings) -> dict:
+    """14c: ``pathwise`` on phase 7's collapsed GriddedGP, phase 8's exact
+    GP and 12b's ICM collapsed, sum, additive and free-point models, and
+    ``pathwise_q_v`` on phase 7's model's cells, P14_FAMILY_SAMPLES draws
+    each at the serve points; the first held against the CPU's float64 (the
+    collapsed families at P14_CUT_N points), all by their sample means
+    against the model's own posterior. Returns the launches."""
+    from vggp_tpu_torch import additive, exact, freesvgp, sampling, sgpr
+    from vggp_tpu_torch import sum as msum
+
+    _, _, Xsm = make_data_multioutput(device)
+    spec7, p7 = collapsed
+    X7, y7 = X[:SGPR_N], y[:SGPR_N]
+    spec_e, p_e = exact_model
+    Xe, ye = X[:EXACT_N], y[:EXACT_N]
+    cases = [
+        ("phase 7 collapsed", spec7, p7, X7, y7, Xs, P14_CUT_N,
+         lambda: sgpr.posterior(spec7, p7, X7, y7, Xs, full_cov=False)),
+        ("phase 8 exact", spec_e, p_e, Xe, ye, Xs, None,
+         lambda: exact.posterior(spec_e, p_e, Xe, ye, Xs, full_cov=False))]
+    mods = {"icm": sgpr, "sum": msum, "additive": additive, "free": freesvgp}
+    for name in ("icm", "sum", "additive", "free"):
+        spec, p, Xf, yf = fitted[name]
+        q = Xsm if name == "icm" else Xs
+        cases.append((f"12b {name}", spec, p, Xf, yf, q, P14_CUT_N,
+                      lambda spec=spec, p=p, Xf=Xf, yf=yf, q=q, mod=mods[name]:
+                      mod.posterior(spec, p, Xf, yf, q, full_cov=False)))
+    launches = dict(NO_LAUNCHES)
+    for i, (name, spec, p, Xd, yd, q, cut_n, head) in enumerate(cases):
+        run = (lambda c, g, S, n, spec=spec, p=p, Xd=Xd, yd=yd, q=q: sampling.pathwise(
+            spec, c(p), g, c(q), data=(c(Xd[:n]), c(yd[:n])), n_samples=S,
+            n_features=P14_FEATURES))
+        draws, ms, got, r = hold_draws(f"14c {name}", run, device, P14_FAMILY_SAMPLES,
+                                       1420 + i, cut_n)
+        g, _, more = p14_call(f"14c {name}'s head", head)
+        r.update(hold_moments(f"14c {name}", draws, g))
+        launches = add_launches(launches, add_launches(got, more))
+        timings[f"p14_family_{name.replace(' ', '_')}_ms"] = ms
+        timings[f"p14_family_{name.replace(' ', '_')}"] = {**r, "launches": got}
+    run = lambda c, g, S, n: sampling.pathwise_q_v(spec7, c(p7), g, spec7.features, n_samples=S,
+                                                   n_features=P14_FEATURES,
+                                                   data=(c(X7[:n]), c(y7[:n])))
+    draws, ms, got, r = hold_draws("14c phase 7 collapsed pathwise_q_v", run, device,
+                                   P14_FAMILY_SAMPLES, 1430, P14_CUT_N)
+    g, _, more = p14_call("14c phase 7 q_v", lambda: sgpr.q_v(spec7, p7, X7, y7, spec7.features,
+                                                               full_cov=False))
+    r.update(hold_moments("14c phase 7 collapsed pathwise_q_v", draws, g))
+    launches = add_launches(launches, add_launches(got, more))
+    timings["p14_family_phase7_q_v_ms"] = ms
+    timings["p14_family_phase7_q_v"] = {**r, "launches": got}
+    return launches
+
+
+def streaming_part(device, X, y, full2d, timings) -> dict:
+    """14d: streaming assimilation on phase 11a's model (see STREAM_*):
+    the first STREAM_CUT_N points' state and q_v against the CPU's float64;
+    the 1 000 000 points in chunks of STREAM_CHUNK through ``assimilate``
+    (a loop) in float32 and float64 and the 61 full chunks through
+    ``assimilate_scan``; the float64 stream in chunks of STREAM_BIG_CHUNK;
+    ``forget``, ``reanchor`` and ``to_params`` → ``svgp.q_v`` on the 64²
+    cells; ``assimilate_natgrad`` under the Poisson likelihood. cell_kuf
+    twice a chunk. Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from vggp_tpu_torch import streaming, svgp
+
+    spec, params = full2d
+    own = spec.features
+    cpu = torch.device("cpu")
+    c32, c64 = cast_to(device, torch.float32), cast_to(device, torch.float64)
+    launches = dict(NO_LAUNCHES)
+    params_new = {**params, "axes": tuple({**ax, "lengthscale": ax["lengthscale"] * STREAM_ELL}
+                                          for ax in params["axes"])}
+    print(f"14d phase 11a's model: ℓ {[round(float(ax['lengthscale']), 4) for ax in params['axes']]}"
+          f", σ² {[round(float(ax['variance']), 4) for ax in params['axes']]}, noise "
+          f"{float(params['noise']):.5f}, mean {float(params['mean']):.5f}")
+
+    def assimilated(cast, n):
+        p, Xc, yc = cast(params), cast(X[:n]), cast(y[:n])
+        s = streaming.assimilate(spec, p, streaming.init_state(spec, Xc.dtype, Xc.device), Xc, yc)
+        return {**s, "q_v": svgp.q_v(spec, streaming.to_params(spec, p, s), own)}
+
+    got, _, more = p14_call(f"14d assimilate n={STREAM_CUT_N} card f32",
+                            lambda: assimilated(c32, STREAM_CUT_N))
+    launches = add_launches(launches, more)
+    with torch.no_grad():
+        ref, f32 = (assimilated(cast_to(cpu, dt), STREAM_CUT_N)
+                    for dt in (torch.float64, torch.float32))
+    check_quantities(f"14d assimilate n={STREAM_CUT_N} vs cpu f64", got, ref, f32, TOL_E2E_POST)
+
+    n_full = (NUM_DATA // STREAM_CHUNK) * STREAM_CHUNK
+    states = {}
+
+    def stream(cast, chunk, keep_full=False):
+        p, Xc, yc = cast(params), cast(X), cast(y)
+        s = streaming.init_state(spec, Xc.dtype, Xc.device)
+        for lo in range(0, NUM_DATA, chunk):
+            if keep_full and lo == n_full:
+                states["full chunks"] = s
+            s = streaming.assimilate(spec, p, s, Xc[lo:lo + chunk], yc[lo:lo + chunk])
+        return s
+
+    n_chunks = -(-NUM_DATA // STREAM_CHUNK)
+    s32, ms, more = p14_call(f"14d stream f32, {n_chunks} chunks of {STREAM_CHUNK}",
+                             lambda: stream(c32, STREAM_CHUNK, keep_full=True))
+    launches = add_launches(launches, more)
+    timings["p14_stream_f32_ms_per_chunk"] = ms / n_chunks
+    timings["p14_stream_f32_points_per_s"] = NUM_DATA / (ms / 1e3)
+    p32 = c32(params)
+    scan, ms_scan, more = p14_call(
+        f"14d assimilate_scan f32, {n_full // STREAM_CHUNK} chunks",
+        lambda: streaming.assimilate_scan(
+            spec, p32, streaming.init_state(spec, torch.float32, device),
+            X[:n_full].reshape(-1, STREAM_CHUNK, 2), y[:n_full].reshape(-1, STREAM_CHUNK)))
+    launches = add_launches(launches, more)
+    timings["p14_scan_f32_ms_per_chunk"] = ms_scan / (n_full // STREAM_CHUNK)
+    e_scan = max(rel_err(scan[k], states["full chunks"][k]) for k in ("lam", "eta", "n_seen"))
+    print(f"check 14d assimilate_scan against the loop over the same chunks: {e_scan:.3e}")
+    check(e_scan <= TOL_F32, f"14d assimilate_scan vs the loop {e_scan}")
+    s64, ms64, more = p14_call(f"14d stream f64, chunks of {STREAM_CHUNK}",
+                               lambda: stream(c64, STREAM_CHUNK))
+    launches = add_launches(launches, more)
+    timings["p14_stream_f64_ms_per_chunk"] = ms64 / n_chunks
+    big, _, more = p14_call(f"14d stream f64, chunks of {STREAM_BIG_CHUNK}",
+                            lambda: stream(c64, STREAM_BIG_CHUNK))
+    launches = add_launches(launches, more)
+    e_id = max(rel_err(big[k], s64[k]) for k in ("lam", "eta"))
+    print(f"check 14d f64 chunks of {STREAM_BIG_CHUNK} vs {STREAM_CHUNK}: Λ, η {e_id:.3e} "
+          f"(tol {TOL_STREAM_IDENTITY:.0e})")
+    check(e_id <= TOL_STREAM_IDENTITY, f"14d chunking identity {e_id}")
+    check(float(s64["n_seen"]) == NUM_DATA, f"14d n_seen {float(s64['n_seen'])}")
+
+    def handoff(cast, s):
+        p, pn = cast(params), cast(params_new)
+        r = streaming.reanchor(spec, p, pn, streaming.forget(s, STREAM_RHO))
+        return {"q_v": svgp.q_v(spec, streaming.to_params(spec, p, s), own),
+                "q_v after reanchor": svgp.q_v(spec, streaming.to_params(spec, pn, r), own)}
+
+    h32, ms_h, more = p14_call("14d forget, reanchor, to_params -> q_v f32",
+                               lambda: handoff(c32, s32))
+    launches = add_launches(launches, more)
+    timings["p14_handoff_f32_ms"] = ms_h
+    h64, _, more = p14_call("14d forget, reanchor, to_params -> q_v f64",
+                            lambda: handoff(c64, s64))
+    launches = add_launches(launches, more)
+    reading = {k: quantity_err(s32[k], s64[k]) for k in ("lam", "eta")}
+    reading.update({k: quantity_err(h32[k], h64[k]) for k in h64})
+    print(f"check 14d the f32 stream of {NUM_DATA} points vs the card's f64: {reading} "
+          f"(tol {TOL_STREAM_F32})")
+    for k, e in reading.items():
+        check(e <= TOL_STREAM_F32[k], f"14d f32 stream {k}: {e} > {TOL_STREAM_F32[k]}")
+    timings["p14_stream_f32_vs_f64"] = reading
+
+    spec_p = dataclasses.replace(spec, likelihood="poisson")
+    t = likelihood_targets("poisson", X, y, seed=21)     # phase 9's (20 + its index)
+
+    def natgrad(cast, n):
+        p, Xc, tc = cast(params), cast(X[:n]), cast(t[:n])
+        s = streaming.init_state(spec_p, Xc.dtype, Xc.device)
+        return streaming.assimilate_natgrad(spec_p, p, s, Xc, tc)
+
+    nat, ms_n, more = p14_call(f"14d assimilate_natgrad poisson f32 n={NATGRAD_N}",
+                               lambda: natgrad(c32, NATGRAD_N))
+    launches = add_launches(launches, more)
+    timings["p14_natgrad_f32_ms"] = ms_n
+    ev = torch.linalg.eigvalsh(nat["lam"].double())
+    lam_min, lam_max = float(ev[0]), float(ev[-1])
+    print(f"check 14d natgrad: λ of Λ in [{lam_min:.6f}, {lam_max:.6g}] (log-concave sites "
+          f"keep Λ ⪰ I; float32 rounding allowed 1e-4·λ_max)")
+    check(lam_min >= 1.0 - 1e-4 * lam_max, f"14d natgrad λ_min {lam_min}, λ_max {lam_max}")
+    got, _, more = p14_call(f"14d assimilate_natgrad poisson f32 n={P14_CUT_N}",
+                            lambda: natgrad(c32, P14_CUT_N))
+    launches = add_launches(launches, more)
+    with torch.no_grad():
+        ref, f32 = (natgrad(cast_to(cpu, dt), P14_CUT_N) for dt in (torch.float64, torch.float32))
+    check_quantities(f"14d natgrad n={P14_CUT_N} vs cpu f64", got, ref, f32, TOL_E2E_POST)
+    return launches
+
+
+def sampler_stream_phase(device, X, y, Xs, models) -> tuple:
+    """Phase 14: cell_kuf against its plain version at P14_NEW_SHAPES, then
+    14a–14d on the models of the earlier phases (``models``: "main",
+    "matern32 svgp", "matern32 collapsed", "collapsed", "exact", "fitted",
+    "full2d"). Every shape the phase launches must have been held against
+    the plain version. Returns (launches, timings, the float32 errors by
+    (name, m, n), cell_kuf's launches by (m, n))."""
+    import torch
+
+    timings = {}
+    Xm, _, Xsm = make_data_multioutput(device)
+    n_full = (NUM_DATA // STREAM_CHUNK) * STREAM_CHUNK
+    n_big = (NUM_DATA // STREAM_BIG_CHUNK) * STREAM_BIG_CHUNK
+    points = {(FULL_CELLS, STREAM_CHUNK): X[:STREAM_CHUNK, 0],
+              (FULL_CELLS, NUM_DATA % STREAM_CHUNK): X[n_full:, 0],
+              (FULL_CELLS, NUM_DATA % STREAM_BIG_CHUNK): X[n_big:, 0],
+              (FULL_CELLS, STREAM_CUT_N): X[:STREAM_CUT_N, 0],
+              (ICM_CELLS, SERVE_POINTS): Xsm[:, 0],
+              (SUM_CELLS[0], SERVE_POINTS): Xs[:, 0], (SUM_CELLS[1], SERVE_POINTS): Xs[:, 1]}
+    errs = check_kernels_at(device, tuple((m, points[m, n], None) for m, n in P14_NEW_SHAPES),
+                            "14")
+    P14_SHAPE_LAUNCHES.clear()
+    launches = dict(NO_LAUNCHES)
+    for name, part in (
+            ("main_draws_part", lambda: main_draws_part(device, Xs, models["main"], timings)),
+            ("gradient_draws_part", lambda: gradient_draws_part(
+                device, X, y, Xs, models["matern32 svgp"], models["matern32 collapsed"],
+                timings)),
+            ("family_draws_part", lambda: family_draws_part(
+                device, X, y, Xs, models["collapsed"], models["exact"], models["fitted"],
+                timings)),
+            ("streaming_part", lambda: streaming_part(device, X, y, models["full2d"], timings))):
+        t0 = time.perf_counter()
+        launches = add_launches(launches, part())
+        timings[f"{name}_s"] = time.perf_counter() - t0
+        print(f"{name}: {timings[f'{name}_s']:.1f} s")
+    at = {(m, n): c for (name, m, n), c in P14_SHAPE_LAUNCHES.items() if name == "cell_kuf"}
+    print(f"phase 14's cell_kuf launches by shape: {at}; the other kernels: "
+          f"{ {k: v for k, v in P14_SHAPE_LAUNCHES.items() if k[0] != 'cell_kuf'} }")
+    check(sum(P14_SHAPE_LAUNCHES.values()) == sum(launches.values()),
+          f"phase 14: launches by shape {dict(P14_SHAPE_LAUNCHES)} vs {launches}")
+    check(launches["cell_kuf"] == sum(at.values()) and set(at) <= set(P14_NEW_SHAPES)
+          | set(P14_HELD_SHAPES), f"phase 14 launched a shape never held against plain: {at}")
+    check(all(at.get(s, 0) > 0 for s in P14_NEW_SHAPES),
+          f"phase 14: a new shape never launched: {at}")
+    torch.cuda.synchronize()
+    return launches, timings, errs, at
+
+
 PROFILE_STEPS = 3
 
 
 def profile_steps(step, X, y, batch, gen) -> dict:
-    """Phase 14: where a training step's time goes. Three steps under
+    """Phase 15: where a training step's time goes. Three steps under
     torch.profiler: the device's busy share of the window (kernel time over
     wall time) and the ops with the most host and device time."""
     import torch
@@ -3817,7 +4303,7 @@ def time_fused_shape(device, m, n) -> dict:
 
 
 def time_serving_grid(device, spec, model, state) -> dict:
-    """Phase 15b: cell_kuf at the serving grid's (512, 65 536), and the cold
+    """Phase 16b: cell_kuf at the serving grid's (512, 65 536), and the cold
     ``posterior`` (``precompute`` and the warm head) and the warm
     ``posterior_from_state`` on the 256×256 grid in turns (cold, warm, warm,
     cold; one call each after a warm one, host clock around a call that ends
@@ -3850,10 +4336,10 @@ def time_serving_grid(device, spec, model, state) -> dict:
 
 
 def measure_kernels(device, errs, launches, shapes) -> list:
-    """Phase 15: kernel and plain times at the main path's f32 shapes, and the
+    """Phase 16: kernel and plain times at the main path's f32 shapes, and the
     fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
     kms.banded_whiten_apply for a and t at MAIN_PRECISIONS); ``shapes``
-    (by kernel, then by key: the timings of phases 15b–15e at the other
+    (by kernel, then by key: the timings of phases 16b–16e at the other
     shapes of the main path) go into the kernels' rows."""
     import torch
 
@@ -3952,11 +4438,13 @@ def main() -> int:
         if phase is collapsed_phase:
             at_n = more[0]   # the launches at (64, 65 536) by kernel
         if phase is slice_phase:
-            stretched, timings["lambda_min"], matern32 = more[0]
+            stretched, timings["lambda_min"], matern32, m32_svgp = more[0]
         if phase is collapsed_phase:
             collapsed = more[1]   # phase 7's spec and trained params, for 12c
+        if phase is exact_phase:
+            exact_model = more[0]
         if phase is full_phase:
-            full_errs, timings["lambda_min_new_features"] = more[0]
+            full_errs, timings["lambda_min_new_features"], full2d = more[0]
     t0 = time.perf_counter()
     got, phase_times, family_errs, fitted = families_phase(device, X, y, Xs, collapsed)
     timings["families_phase_s"] = time.perf_counter() - t0
@@ -3968,6 +4456,14 @@ def main() -> int:
                                                          collapsed, matern32, fitted["icm"])
     timings["matrix_free_phase_s"] = time.perf_counter() - t0
     print(f"matrix_free_phase: {timings['matrix_free_phase_s']:.1f} s")
+    launches = add_launches(launches, got)
+    timings.update(phase_times)
+    t0 = time.perf_counter()
+    got, phase_times, p14_errs, p14_at = sampler_stream_phase(device, X, y, Xs, {
+        "main": (spec, model), "matern32 svgp": m32_svgp, "matern32 collapsed": matern32,
+        "collapsed": collapsed, "exact": exact_model, "fitted": fitted, "full2d": full2d})
+    timings["sampler_stream_phase_s"] = time.perf_counter() - t0
+    print(f"sampler_stream_phase: {timings['sampler_stream_phase_s']:.1f} s")
     launches = add_launches(launches, got)
     timings.update(phase_times)
     for batch in (TRAIN_BATCH, FUSED_BATCH):
@@ -4040,6 +4536,11 @@ def main() -> int:
         **time_fused_shape(device, ADD_CELLS, SGPR_N),
         "max_abs_err": family_errs[("fused_banded_whiten_kuf", ADD_CELLS, SGPR_N)],
         "launches_in_training": fits["additive"]["fused_banded_whiten_kuf"]}
+    # phase 14's new shapes, their launches counted there by shape
+    for m, n in P14_NEW_SHAPES:
+        shapes["cell_kuf"][f"at_{m}_cells_{n}"] = {
+            **time_kuf_shape(device, m, n), "launches": p14_at[m, n],
+            "max_abs_err": p14_errs[("cell_kuf", m, n)]}
     shapes["cell_kuf"]["cell_kuf_op_backward_at_512_cells_4096"] = {
         "max_abs_err_vs_cpu_f64": family_errs[("cell_kuf_op_backward", M_AXIS, TRAIN_BATCH)]}
     rows = measure_kernels(device, errs, launches, shapes)

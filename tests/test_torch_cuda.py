@@ -636,3 +636,81 @@ def test_cuda_solve_w_at_512_cells_matches_float64(cuda):
     e, e32 = err(qv(params(torch.float32), w64.float())), err(qv(params(torch.float32, "cpu"),
                                                                 w64.float().cpu()))
     assert e <= max(TOL_E2E_POST, CPU_ERR_RATIO * e32), (e, e32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["svgp kron", "svgp full", "collapsed"])
+def test_cuda_samplers_match_cpu_f64(cuda, family):
+    """``sampling.pathwise`` and ``pathwise_q_v`` in float64 on the card and
+    on the CPU from one CPU generator (so the same draws): rtol 1e-9, with
+    cell_kuf launched once an axis for the query block, and for each
+    factored state of the collapsed GP, on the card only."""
+    from vggp_tpu_torch import SGPRSpec, sampling
+
+    rng = np.random.default_rng(21)
+    X = rng.random((2048, 2))
+    y = np.sin(6 * X[:, 0]) * np.cos(5 * X[:, 1]) + 0.1 * rng.standard_normal(2048)
+    xs = rng.random((512, 2))
+    cells = tuple(CellIntegralFeature.from_lims(m, 0.0, 1.0) for m in (64, 48))
+    if family == "collapsed":
+        spec = SGPRSpec(kinds=("matern12",) * 2, features=cells)
+    else:
+        spec = SVGPSpec(kinds=("matern12",) * 2, features=cells, num_data=2048,
+                        variational=family.split()[1], learn_mean=True)
+    p = spec.init_params(torch.float64, device="cpu")
+    for ax, ell in zip(p["axes"], (0.2, 0.3)):
+        ax["lengthscale"] = torch.tensor(ell, dtype=torch.float64)
+    if family != "collapsed":
+        g = torch.Generator().manual_seed(1)
+        p["q"] = {k: (0.3 * torch.randn(v.shape, generator=g, dtype=torch.float64) if k == "mu"
+                      else torch.eye(v.shape[0], dtype=torch.float64) * 0.2)
+                  for k, v in p["q"].items()}
+        p["mean"] = torch.tensor(0.1, dtype=torch.float64)
+    grid = tuple(CellIntegralFeature.from_lims(m, 0.0, 1.0) for m in (20, 24))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        c = lambda t: train.tree_map(lambda v: v.to(dev), t)
+        data = (c(torch.as_tensor(X)), c(torch.as_tensor(y))) if family == "collapsed" else None
+        ck.reset_launch_counts()
+        with torch.no_grad():
+            f = sampling.pathwise(spec, c(p), torch.Generator().manual_seed(5),
+                                  c(torch.as_tensor(xs)), data=data, n_samples=6,
+                                  n_features=256)
+            v = sampling.pathwise_q_v(spec, c(p), torch.Generator().manual_seed(6), grid,
+                                      n_samples=6, n_features=256, data=data)
+        torch.cuda.synchronize()
+        want = {"svgp kron": 2, "svgp full": 2, "collapsed": 6}[family]
+        assert ck.LAUNCHES["cell_kuf"] == (want if dev.type == "cuda" else 0)
+        out[dev.type] = (f.cpu(), v.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-9
+
+
+@pytest.mark.cuda
+def test_cuda_assimilate_matches_cpu_f64(cuda):
+    """``streaming.assimilate`` of 4096 points in two chunks on a 2-D
+    full-family spec (24×24 Matérn-1/2 cells) and ``to_params`` → q_v, in
+    float64 on the card and on the CPU: rtol 1e-10; cell_kuf twice a chunk
+    on the card."""
+    from vggp_tpu_torch import streaming
+
+    rng = np.random.default_rng(22)
+    X = torch.as_tensor(rng.random((4096, 2)))
+    y = torch.as_tensor(np.sin(6 * X[:, 0].numpy()) + 0.1 * rng.standard_normal(4096))
+    cells = tuple(CellIntegralFeature.from_lims(24, 0.0, 1.0) for _ in range(2))
+    spec = SVGPSpec(kinds=("matern12",) * 2, features=cells, num_data=4096)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = spec.init_params(torch.float64, device=dev)
+        p["noise"] = torch.tensor(0.02, dtype=torch.float64, device=dev)
+        s = streaming.init_state(spec, torch.float64, device=dev)
+        ck.reset_launch_counts()
+        for lo in (0, 2048):
+            s = streaming.assimilate(spec, p, s, X[lo:lo + 2048].to(dev), y[lo:lo + 2048].to(dev))
+        q = svgp.q_v(spec, streaming.to_params(spec, p, s), cells, full_cov=False)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["cell_kuf"] == (4 if dev.type == "cuda" else 0)
+        out[dev.type] = [t.cpu() for t in (s["lam"], s["eta"], q.mean, q.var)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-10

@@ -11,7 +11,7 @@ from vggp_tpu_torch.features import (  # noqa: F401
     FourierFeature, OutputFeature, PointFeature, SplineRKHSFeature)
 from vggp_tpu_torch.models import (  # noqa: F401,A004
     additive, common, exact, freesvgp, iterative, sgpr, sum, svgp)
-from vggp_tpu_torch import sampling  # noqa: F401,E402
+from vggp_tpu_torch import sampling, streaming  # noqa: F401,E402
 from vggp_tpu_torch.models.additive import AdditiveSGPR, AdditiveSGPRSpec  # noqa: F401
 from vggp_tpu_torch.models.common import Gaussian  # noqa: F401
 from vggp_tpu_torch.models.exact import ExactGP, ExactGPSpec  # noqa: F401

@@ -52,11 +52,18 @@ def safe_cholesky(a: torch.Tensor, jitter: float = DEFAULT_JITTER) -> torch.Tens
     return torch.linalg.cholesky(a + scale * torch.eye(n, dtype=a.dtype, device=a.device))
 
 
-def tri_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``L x = b`` for lower-triangular L; ``b`` a vector or a matrix."""
+def tri_solve(chol: torch.Tensor, b: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """Solve ``L x = b`` (or ``Lᵀ x = b`` with ``trans``) for lower-triangular
+    L; ``b`` a vector or a matrix."""
+    a = chol.T if trans else chol
     if b.dim() == 1:
-        return torch.linalg.solve_triangular(chol, b[:, None], upper=False)[:, 0]
-    return torch.linalg.solve_triangular(chol, b, upper=False)
+        return torch.linalg.solve_triangular(a, b[:, None], upper=trans)[:, 0]
+    return torch.linalg.solve_triangular(a, b, upper=trans)
+
+
+def solve_psd(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``A x = b`` given the lower Cholesky factor of A."""
+    return tri_solve(chol, tri_solve(chol, b), trans=True)
 
 
 # Relative eigenvalue floors of the clamped-eigh factor, by dtype

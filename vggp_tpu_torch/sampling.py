@@ -1,4 +1,5 @@
-"""Pathwise sampling, its prior-path layer (port of ``vggp_tpu/sampling.py:49-656``).
+"""Pathwise sampling: the prior-path layer and the Matheron samplers of every
+model family (port of ``vggp_tpu/sampling.py``).
 
 A prior path is a random-Fourier-feature draw
 f(x) = amp · Σ_j cos(Σ_k ω_kj x_k + b_j), amp = σ_total·√(2/F). For the
@@ -13,7 +14,9 @@ as (re, im) pairs of real tensors, as in the JAX package.
 Random draws take an explicit ``torch.Generator`` in place of a JAX key.
 They are made in float64 on the generator's device and cast to the
 parameters' dtype and device, so one seed gives a float32 and a float64 run
-the same draws. The Matheron samplers over these paths are in
+the same draws. Over these paths, :func:`pathwise` and :func:`pathwise_q_v`
+draw coherent posterior functions and gridded products of the dense models
+(Matheron's rule, Wilson et al. 2020); the matrix-free samplers are in
 ``models.iterative``.
 """
 
@@ -26,9 +29,11 @@ import numpy as np
 import torch
 
 from vggp_tpu_torch import kernels
+from vggp_tpu_torch.config import highest_precision
 from vggp_tpu_torch.features import (B1SplineFeature, CellIntegralFeature, FourierFeature,
                                      PointFeature, SplineRKHSFeature)
 from vggp_tpu_torch.models import common
+from vggp_tpu_torch.ops.chol import solve_psd, tri_solve
 
 _DF = {"matern12": 1, "matern32": 3, "matern52": 5}
 
@@ -535,3 +540,424 @@ def _whiten_axes(w: torch.Tensor, chols) -> torch.Tensor:
         solved = chols[k].whiten(moved.reshape(w.shape[k], -1))
         w = torch.movedim(solved.reshape(moved.shape), 0, k)
     return w
+
+
+# --------------------------------------------------------------------------- #
+# the pathwise samplers (``sampling.py:658-1227``)
+#
+# Matheron's rule in whitened coordinates,
+#   f_s(x) = f_prior,s(x) + a(x)ᵀ (w_q,s − F⁻¹ u_prior,s),
+# with a(x) the per-axis whitened blocks and w_q,s a draw of q(w): μ + L_S z
+# for the SVGP, L_B⁻ᵀ(c + z) from the collapsed families' factored state
+# (q*(w) = N(L_B⁻ᵀc, B⁻¹)); the exact GP updates against the data itself,
+#   f_s(x) = f_prior,s(x) + k(x, X)(Kxx + σ²I)⁻¹(y − f_prior,s(X) − ε_s).
+# Each sampler draws its samples' paths and z (or ε) from ``gen`` one sample
+# at a time, in the order the JAX package's per-sample function draws them;
+# the heavy work of all S samples then runs batched: the whitening of the S
+# inducing functionals as the columns of one solve per axis, the Kronecker
+# contraction of the S residuals, one (S, m) @ (m, n*) product, the exact
+# GP's S solves as columns.
+# --------------------------------------------------------------------------- #
+
+
+def _stack_draws(n_samples: int, one) -> list:
+    """``one()``, a tuple of tensors, for each sample in turn → the list of
+    each slot's (S, …) stack."""
+    rows = [one() for _ in range(n_samples)]
+    return [torch.stack(col) for col in zip(*rows)]
+
+
+def _path_and_u(gen, spec, params, n_features: int, xstar, co):
+    """One sample's prior path at ``xstar`` and its exact u_prior, through
+    the chol(B)-mixed bundles when ``co`` is a coregion axis."""
+    if co is None:
+        om, ph, amp = prior_paths(gen, spec, params, n_features)
+        return eval_path(om, ph, amp, xstar), prior_inducing_sample(om, ph, amp, spec, params)
+    om, ph, amp, LBm, _ = prior_paths_multioutput(gen, spec, params, n_features)
+    return (eval_path_multioutput(om, ph, amp, LBm, co, xstar),
+            prior_inducing_sample_multioutput(om, ph, amp, LBm, co, spec, params))
+
+
+def _whiten_samples(U: torch.Tensor, chols) -> torch.Tensor:
+    """F⁻¹u for S stacked inducing tensors (S, m₁, …, m_d): one whitening
+    solve per axis over all samples' columns."""
+    from vggp_tpu_torch.models.iterative import _along_axes
+
+    return _along_axes(U, [c.whiten for c in chols])
+
+
+def _z_shape(spec) -> tuple:
+    """The shape of one q(w) draw's standard normal: (m,) for the full
+    family, ``axis_m`` for the Kronecker one."""
+    return (spec.num_inducing,) if spec.variational == "full" else tuple(spec.axis_m)
+
+
+def _svgp_diff_sample(spec, params, W: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """The Matheron residuals w_q − F⁻¹u_prior of S samples for the
+    (whitened) SVGP family, from the whitened prior functionals ``W`` and
+    the standard normals ``Z``: (S, m) for the full family, (S, m₁, …, m_d)
+    for the Kronecker family."""
+    from vggp_tpu_torch.models.iterative import _along_axes
+    from vggp_tpu_torch.models.svgp import _kron_chols, chol_from_raw
+
+    q = params["q"]
+    if spec.variational == "full":
+        w_q = q["mu"] + Z @ chol_from_raw(q["raw_L"]).T
+        return w_q - W.reshape(W.shape[0], -1)
+    lz = _along_axes(Z, [lambda v, L=L: L @ v for L in _kron_chols(spec, q)])
+    return q["mu"] + lz - W
+
+
+def _apply_blocks(spec, diff: torch.Tensor, blocks) -> torch.Tensor:
+    """Contract S Matheron residuals against per-axis whitened blocks →
+    (S, n): through the Khatri–Rao block for the full family's (S, m), one
+    axis at a time (``svgp._kron_contract``'s sum over samples, never the
+    (m, n) block) for the Kronecker family's (S, m₁, …, m_d), in as many
+    slices of S as keep the (S, m / m_d, n) intermediate within
+    ``iterative.SAMPLER_CHUNK_BYTES``."""
+    from vggp_tpu_torch.models.iterative import _in_chunks, _kufT_w
+
+    if diff.dim() == 2:
+        return diff @ common.khatri_rao_all(blocks)
+    row_bytes = (diff[0].numel() // blocks[-1].shape[0]) * blocks[0].shape[1] * diff.element_size()
+    return _in_chunks(lambda part: _kufT_w(blocks, part), diff, row_bytes)
+
+
+def _collapsed_w_q(LB: torch.Tensor, c: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """S draws of the collapsed-optimal q*(w), L_B⁻ᵀ(c + z) → (S, m)."""
+    return tri_solve(LB, c[:, None] + Z.T, trans=True).T
+
+
+@highest_precision
+def pathwise_posterior(spec, params, gen: torch.Generator, xstar: torch.Tensor,
+                       n_samples: int = 8, n_features: int = 1024) -> torch.Tensor:
+    """Coherent posterior function draws of an SVGP at ``xstar`` → (S, n):
+    f_s = f_prior,s + a(x)ᵀ(w_q,s − F⁻¹u_prior,s), a(x) the per-axis
+    whitened blocks (never joined for the Kronecker family); a coregion
+    spec draws chol(B)-mixed path bundles. Draws come from ``gen``."""
+    if xstar.dim() == 1:
+        xstar = xstar[:, None]
+    chols = common.axis_chol_kuu(spec, params)
+    blocks = common.axis_whitened_kuf(spec, params, chols, xstar)
+    co, _ = _coregion_split(spec)
+
+    def one():
+        f, u = _path_and_u(gen, spec, params, n_features, xstar, co)
+        return f, u, normal(gen, _z_shape(spec), f)
+
+    f_prior, U, Z = _stack_draws(n_samples, one)
+    diff = _svgp_diff_sample(spec, params, _whiten_samples(U, chols), Z)
+    return f_prior + _apply_blocks(spec, diff, blocks) + common.mean_fn(spec, params, xstar)
+
+
+@highest_precision
+def pathwise_posterior_with_grads(spec, params, gen: torch.Generator, xstar: torch.Tensor,
+                                  grad_axes=None, n_samples: int = 8,
+                                  n_features: int = 1024) -> torch.Tensor:
+    """Joint draws of (f, ∂f for each entry of ``grad_axes``) of an SVGP at
+    ``xstar`` → (S, 1 + len(grad_axes), n): every row of a sample rides the
+    same prior path and the same Matheron residual. An entry is an axis j
+    (∂/∂x_j) or a per-axis order tuple, e.g. (2, 0) for ∂²/∂x² and (1, 1)
+    for ∂²/∂x∂y; first derivatives need Matérn ≥ 3/2 or the RBF on that
+    axis, second ones Matérn ≥ 5/2 or the RBF. The mean goes on row 0.
+
+    Matérn-3/2 path frequencies are Student-t₃ draws with an infinite 4th
+    moment, so one sample's gradient rows are heavy-tailed at any finite
+    ``n_features`` (``sampling.py:757-763``)."""
+    if xstar.dim() == 1:
+        xstar = xstar[:, None]
+    if grad_axes is None:
+        grad_axes = tuple(range(spec.ndim))
+    orders_list = [common.normalize_deriv_orders(spec, e) for e in grad_axes]
+    chols = common.axis_chol_kuu(spec, params)
+    blocks = common.axis_whitened_kuf(spec, params, chols, xstar)
+    dblocks = [common.axis_whitened_deriv_kuf(spec, params, chols, xstar, o)
+               for o in orders_list]
+
+    def one():
+        om, ph, amp = prior_paths(gen, spec, params, n_features)
+        f = eval_path(om, ph, amp, xstar)
+        u = prior_inducing_sample(om, ph, amp, spec, params)
+        z = normal(gen, _z_shape(spec), f)
+        return (f, u, z, *(eval_path_deriv(om, ph, amp, xstar, o) for o in orders_list))
+
+    f_prior, U, Z, *g_prior = _stack_draws(n_samples, one)
+    diff = _svgp_diff_sample(spec, params, _whiten_samples(U, chols), Z)
+    rows = [f_prior + _apply_blocks(spec, diff, blocks) + common.mean_fn(spec, params, xstar)]
+    rows += [g + _apply_blocks(spec, diff, db) for g, db in zip(g_prior, dblocks)]
+    return torch.stack(rows, dim=1)
+
+
+@highest_precision
+def pathwise_posterior_collapsed(spec, params, gen: torch.Generator, X: torch.Tensor,
+                                 y: torch.Tensor, xstar: torch.Tensor, n_samples: int = 8,
+                                 n_features: int = 1024) -> torch.Tensor:
+    """Coherent draws from the collapsed-optimal posterior of an ``SGPRSpec``
+    model (any feature family, any ndim, the coregion axis) → (S, n*):
+    w_q = L_B⁻ᵀ(c + z) from the factored state, then the SVGP's update."""
+    if xstar.dim() == 1:
+        xstar = xstar[:, None]
+    chols, _, LB, c, _ = common.factored_state(spec, params, X, y)
+    a = common.khatri_rao_all(common.axis_whitened_kuf(spec, params, chols, xstar))
+    m = a.shape[0]
+    co, _ = _coregion_split(spec)
+
+    def one():
+        f, u = _path_and_u(gen, spec, params, n_features, xstar, co)
+        return f, u, normal(gen, (m,), f)
+
+    f_prior, U, Z = _stack_draws(n_samples, one)
+    W = _whiten_samples(U, chols).reshape(n_samples, -1)
+    return f_prior + (_collapsed_w_q(LB, c, Z) - W) @ a + common.mean_fn(spec, params, xstar)
+
+
+@highest_precision
+def pathwise_posterior_collapsed_with_grads(spec, params, gen: torch.Generator,
+                                            X: torch.Tensor, y: torch.Tensor,
+                                            xstar: torch.Tensor, grad_axes=None,
+                                            n_samples: int = 8,
+                                            n_features: int = 1024) -> torch.Tensor:
+    """Joint (f, derivative rows) draws from the collapsed-optimal posterior
+    of an ``SGPRSpec`` model → (S, 1 + len(grad_axes), n*); ``grad_axes`` as
+    in :func:`pathwise_posterior_with_grads`, the mean on row 0."""
+    if xstar.dim() == 1:
+        xstar = xstar[:, None]
+    if grad_axes is None:
+        grad_axes = tuple(range(spec.ndim))
+    orders_list = [common.normalize_deriv_orders(spec, e) for e in grad_axes]
+    chols, _, LB, c, _ = common.factored_state(spec, params, X, y)
+    a = common.khatri_rao_all(common.axis_whitened_kuf(spec, params, chols, xstar))
+    da = [common.khatri_rao_all(common.axis_whitened_deriv_kuf(spec, params, chols, xstar, o))
+          for o in orders_list]
+    m = a.shape[0]
+
+    def one():
+        om, ph, amp = prior_paths(gen, spec, params, n_features)
+        f = eval_path(om, ph, amp, xstar)
+        u = prior_inducing_sample(om, ph, amp, spec, params)
+        z = normal(gen, (m,), f)
+        return (f, u, z, *(eval_path_deriv(om, ph, amp, xstar, o) for o in orders_list))
+
+    f_prior, U, Z, *g_prior = _stack_draws(n_samples, one)
+    diff = _collapsed_w_q(LB, c, Z) - _whiten_samples(U, chols).reshape(n_samples, -1)
+    rows = [f_prior + diff @ a + common.mean_fn(spec, params, xstar)]
+    rows += [g + diff @ dai for g, dai in zip(g_prior, da)]
+    return torch.stack(rows, dim=1)
+
+
+@highest_precision
+def pathwise_posterior_free(spec, params, gen: torch.Generator, X: torch.Tensor,
+                            y: torch.Tensor, xstar: torch.Tensor, n_samples: int = 8,
+                            n_features: int = 1024) -> torch.Tensor:
+    """Coherent draws for the free-inducing-point ``FreeSVGPSpec`` model
+    (collapsed-optimal q; the inducing functionals are point values of the
+    path at the trained Z) → (S, n*). No mean is added, as in the JAX
+    package."""
+    from vggp_tpu_torch.models import freesvgp
+
+    if xstar.dim() == 1:
+        xstar = xstar[:, None]
+    chol, _, LB, c, _ = freesvgp._factored_state(spec, params, X, y)
+    a = chol.whiten(freesvgp._hadamard_gram(spec, params, params["z"], xstar))
+    m = a.shape[0]
+
+    def one():
+        om, ph, amp = prior_paths(gen, spec, params, n_features)
+        f = eval_path(om, ph, amp, xstar)
+        return f, eval_path(om, ph, amp, params["z"]), normal(gen, (m,), f)
+
+    f_prior, U, Z = _stack_draws(n_samples, one)
+    return f_prior + (_collapsed_w_q(LB, c, Z) - chol.whiten(U.T).T) @ a
+
+
+@highest_precision
+def pathwise_posterior_exact(spec, params, gen: torch.Generator, X: torch.Tensor,
+                             y: torch.Tensor, xstar: torch.Tensor, n_samples: int = 8,
+                             n_features: int = 1024) -> torch.Tensor:
+    """Coherent draws from the exact GP posterior by Matheron's rule against
+    the data (Wilson et al. 2020, eq. 7) → (S, n*); ε_s at the per-point
+    (per-output) noise, the S solves as the columns of one."""
+    from vggp_tpu_torch.models import exact
+
+    if X.dim() == 1:
+        X = X[:, None]
+    if xstar.dim() == 1:
+        xstar = xstar[:, None]
+    y = y.reshape(-1) - common.mean_fn(spec, params, X)
+    L = exact._chol_ky(spec, params, X)
+    ksx = common.gram_full(spec, params, xstar, X)
+    sigma = torch.sqrt(common.obs_noise(spec, params, X))
+    co, _ = _coregion_split(spec)
+
+    def one():
+        if co is None:
+            om, ph, amp = prior_paths(gen, spec, params, n_features)
+            f_star, f_X = eval_path(om, ph, amp, xstar), eval_path(om, ph, amp, X)
+        else:
+            om, ph, amp, LBm, _ = prior_paths_multioutput(gen, spec, params, n_features)
+            f_star = eval_path_multioutput(om, ph, amp, LBm, co, xstar)
+            f_X = eval_path_multioutput(om, ph, amp, LBm, co, X)
+        eps = sigma * normal(gen, f_X.shape, f_X)
+        return f_star, y - f_X - eps
+
+    f_star, resid = _stack_draws(n_samples, one)
+    alpha = solve_psd(L, resid.T)                       # (n, S)
+    return f_star + (ksx @ alpha).T + common.mean_fn(spec, params, xstar)
+
+
+@highest_precision
+def pathwise_posterior_additive(spec, params, gen: torch.Generator, X: torch.Tensor,
+                                y: torch.Tensor, xstar: torch.Tensor, n_samples: int = 8,
+                                n_features: int = 1024) -> torch.Tensor:
+    """Coherent draws for the additive model (``AdditiveSGPRSpec``) →
+    (S, n*): the prior path is a sum of independent 1-D paths, one a
+    component, each drawing its own frequencies and phases; the inducing
+    functionals are each component's, stacked as the block-diagonal Kuu.
+    No mean is added, as in the JAX package."""
+    from vggp_tpu_torch.models import additive
+
+    if xstar.dim() == 1:
+        xstar = xstar[:, None]
+    d = spec.ndim
+    chols, _, LB, c, _ = additive._factored_state(spec, params, X, y)
+    a = torch.cat(common.axis_whitened_kuf(spec, params, chols, xstar), dim=0)
+    m = a.shape[0]
+
+    def one():
+        f = torch.zeros((xstar.shape[0],), dtype=a.dtype, device=a.device)
+        us = []
+        for i in range(d):
+            p_ax = common.axis_params(params, i)
+            om = sample_frequencies(gen, spec.kinds[i], p_ax["lengthscale"], n_features)
+            ph = _phases(gen, n_features, om)
+            amp = torch.sqrt(2.0 * p_ax["variance"] / n_features)
+            f = f + eval_path(om[None, :], ph, amp, xstar[:, i:i + 1])
+            factor = _axis_factor(spec.features[i], spec.kinds[i], p_ax, om)
+            us.append(_accumulate_factors(ph, amp, [factor]))
+        return (f, *us, normal(gen, (m,), a))
+
+    f_prior, *U, Z = _stack_draws(n_samples, one)
+    W = torch.cat([chols[i].whiten(U[i].T).T for i in range(d)], dim=1)
+    return f_prior + (_collapsed_w_q(LB, c, Z) - W) @ a
+
+
+@highest_precision
+def pathwise_posterior_sum(spec, params, gen: torch.Generator, X: torch.Tensor,
+                           y: torch.Tensor, xstar: torch.Tensor, n_samples: int = 8,
+                           n_features: int = 1024) -> torch.Tensor:
+    """Coherent draws for the sum-of-separable-kernels model
+    (``SumSGPRSpec``) → (S, n*): the prior path is a sum of independent
+    per-component paths (coregion components through chol(B)-mixed
+    bundles), the inducing functionals stacked blockwise."""
+    from vggp_tpu_torch.models import sum as msum
+
+    if xstar.dim() == 1:
+        xstar = xstar[:, None]
+    chols, _, LB, c, _ = msum._factored_state(spec, params, X, y)
+    comps = [(comp, msum._comp_params(params, q)) for q, comp in enumerate(spec.components)]
+    a = torch.cat([common.khatri_rao_all(common.axis_whitened_kuf(comp, cp, chols[q], xstar))
+                   for q, (comp, cp) in enumerate(comps)], dim=0)
+    m = a.shape[0]
+
+    def one():
+        f = torch.zeros((xstar.shape[0],), dtype=a.dtype, device=a.device)
+        us = []
+        for comp, cp in comps:
+            fq, uq = _path_and_u(gen, comp, cp, n_features, xstar, _coregion_split(comp)[0])
+            f = f + fq
+            us.append(uq)
+        return (f, *us, normal(gen, (m,), a))
+
+    f_prior, *U, Z = _stack_draws(n_samples, one)
+    W = torch.cat([_whiten_samples(U[q], chols[q]).reshape(n_samples, -1)
+                   for q in range(len(comps))], dim=1)
+    return f_prior + (_collapsed_w_q(LB, c, Z) - W) @ a + common.mean_fn(spec, params, xstar)
+
+
+def pathwise(spec, params, gen: torch.Generator, xstar: torch.Tensor, data=None,
+             n_samples: int = 8, n_features: int = 1024) -> torch.Tensor:
+    """Coherent posterior draws for any model spec, dispatched on its type.
+
+    ``data=(X, y)`` is required for the collapsed and exact families (their
+    posterior is a function of the data); the SVGP ignores it.
+    """
+    from vggp_tpu_torch.models.additive import AdditiveSGPRSpec
+    from vggp_tpu_torch.models.exact import ExactGPSpec
+    from vggp_tpu_torch.models.freesvgp import FreeSVGPSpec
+    from vggp_tpu_torch.models.sgpr import SGPRSpec
+    from vggp_tpu_torch.models.sum import SumSGPRSpec
+    from vggp_tpu_torch.models.svgp import SVGPSpec
+
+    if isinstance(spec, SVGPSpec):
+        return pathwise_posterior(spec, params, gen, xstar, n_samples=n_samples,
+                                  n_features=n_features)
+    if data is None:
+        raise ValueError(f"{type(spec).__name__} needs data=(X, y) to sample "
+                         "its (collapsed/exact) posterior")
+    X, y = data
+    if isinstance(spec, SGPRSpec):
+        fn = pathwise_posterior_collapsed
+    elif isinstance(spec, FreeSVGPSpec):
+        fn = pathwise_posterior_free
+    elif isinstance(spec, ExactGPSpec):
+        fn = pathwise_posterior_exact
+    elif isinstance(spec, AdditiveSGPRSpec):
+        fn = pathwise_posterior_additive
+    elif isinstance(spec, SumSGPRSpec):
+        fn = pathwise_posterior_sum
+    else:
+        raise NotImplementedError(type(spec).__name__)
+    return fn(spec, params, gen, X, y, xstar, n_samples=n_samples, n_features=n_features)
+
+
+# --------------------------------------------------------------------------- #
+# draws of the gridded product v (``sampling.py:1141-1227``): both u and the
+# cell integrals v of a cosine path are exact per-axis integrals, so
+#   v_s = v_prior,s + R (w_q,s − F⁻¹ u_prior,s),   R_i = Kvu_i F_i⁻ᵀ,
+# draws the exact integral functionals, with no lattice anywhere.
+# --------------------------------------------------------------------------- #
+
+
+@highest_precision
+def pathwise_q_v(spec, params, gen: torch.Generator, grid_axes, n_samples: int = 8,
+                 n_features: int = 1024, data=None) -> torch.Tensor:
+    """Coherent joint draws of the gridded product v → (S, g), flat
+    row-major (the ``numpy.kron`` order of ``q_v``), for the ``SVGPSpec``
+    (either variational family) and the collapsed ``SGPRSpec`` (pass
+    ``data=(X, y)``). No mean is added, as in the JAX package."""
+    from vggp_tpu_torch.models.iterative import _along_axes
+    from vggp_tpu_torch.models.sgpr import SGPRSpec
+    from vggp_tpu_torch.models.svgp import SVGPSpec
+
+    collapsed = isinstance(spec, SGPRSpec)
+    if collapsed:
+        if data is None:
+            raise ValueError("SGPRSpec needs data=(X, y) to sample q(v)")
+        X, y = data
+        chols, _, LB, c, _ = common.factored_state(spec, params, X, y)
+    elif isinstance(spec, SVGPSpec):
+        chols = common.axis_chol_kuu(spec, params)
+    else:
+        raise NotImplementedError(
+            f"pathwise_q_v supports SVGPSpec and SGPRSpec; got "
+            f"{type(spec).__name__} (use sampling.pathwise for function-"
+            "space draws of the other families)")
+    kvu_blocks = common.grid_kvu(spec, params, grid_axes)
+    r_blocks = tuple(chols[i].whiten(kvu_blocks[i].T).T for i in range(spec.ndim))
+    m = math.prod(b.shape[1] for b in r_blocks)
+    z_shape = (m,) if collapsed else _z_shape(spec)
+
+    def one():
+        om, ph, amp = prior_paths(gen, spec, params, n_features)
+        v = prior_grid_integral_sample(om, ph, amp, grid_axes)
+        u = prior_inducing_sample(om, ph, amp, spec, params)
+        return v, u, normal(gen, z_shape, v)
+
+    V, U, Z = _stack_draws(n_samples, one)
+    W = _whiten_samples(U, chols)
+    if collapsed:
+        diff = (_collapsed_w_q(LB, c, Z) - W.reshape(n_samples, -1)).reshape(W.shape)
+    else:
+        diff = _svgp_diff_sample(spec, params, W, Z).reshape(W.shape)
+    corr = _along_axes(diff, [lambda v, R=R: R @ v for R in r_blocks])
+    return V.reshape(n_samples, -1) + corr.reshape(n_samples, -1)
