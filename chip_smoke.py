@@ -149,9 +149,31 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``to_params`` → ``q_v``, and ``assimilate_natgrad`` on Poisson targets,
    against the CPU's float64 at 8192 points and the card's float64 stream;
    cell_kuf's launches counted by shape;
-15. profile three steps at each batch (device busy share, the ops with the
+15. ``hyperpost.py`` and the rest of ``train.py``: both cell kernels against
+   their plain versions at the phase's new shape (32, 200); (a) the Hessian
+   ``hyperpost.laplace`` takes, through ``models.common.second_order()``
+   (the ``cell_kuf`` kernel forward, a plain-torch backward): the 1-D case of
+   ROADMAP queue 3, item 16 on the card against the CPU in float64 and
+   float32, phase 7's trained model at its full width and phase 8's exact GP
+   in float64 against central differences of their gradient, their float32
+   Hessians against float64 by the 1-D case's bound; (b) ``fit_lbfgs`` (optax's L-BFGS and zoom line search) on
+   phase 7's model, 20 iterations in float32 and float64, and the 1-D
+   case's float64 trajectory against the CPU's; (c) ``fit_natgrad`` on
+   11a's model, 8 minibatch steps, then one full-batch step at γ = 1 in
+   float64 against the collapsed bound; (d) ``hmc_sample_params`` on phase
+   7's model at 8192 points (2 chains of 24 + 24 steps) against its Laplace
+   Gaussian, and the 1-D
+   case's HMC against the CPU's from one CPU generator; (e)
+   ``predict_marginalized`` and ``log_evidence_laplace`` on phase 7's model;
+   (f) ``fit_restarts`` on phase 8's exact GP, a checkpoint round trip of
+   phase 4's model and a resumed ``fit_minibatch``, a ``profile_trace`` of
+   training steps that names the ``cell_kuf_with_dl`` kernel; the launches
+   read by shape, every shape held against plain. It runs last, after 16
+   and 17: after it, late in a long process, the profiler's windows kept
+   only a few of their launches, and 17's timings need them;
+16. profile three steps at each batch (device busy share, the ops with the
    most host and device time);
-16. time each kernel and its plain version (device time from the profiler's
+17. time each kernel and its plain version (device time from the profiler's
    CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
    serving grid's (512, 65 536) beside one warm cold ``posterior`` and one
    ``posterior_from_state`` on that grid and at the face difference's
@@ -2107,7 +2129,7 @@ def full_2d_part(device, X, y, Xs, timings) -> tuple:
         lambda c: svgp_cut_quantities(spec, params, xb, yb, heads, c, mu_s), device,
         TOL_GRAD_FULL["svgp"])
     # where the step's time goes: three more steps under the profiler (their
-    # launches are not the path's, as phase 15's)
+    # launches are not the path's, as phase 16's)
     step = train.make_step_fn(lambda p, xb, yb: svgp.loss(spec, p, xb, yb), model.raw_params(),
                               torch.optim.Adam(model.parameters(), lr=1e-2))
     gen = torch.Generator(device=device)
@@ -4140,11 +4162,570 @@ def sampler_stream_phase(device, X, y, Xs, models) -> tuple:
     return launches, timings, errs, at
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: hyperpost.py and the rest of train.py
+# --------------------------------------------------------------------------- #
+
+# 15a's 1-D case, ROADMAP queue 3, item 16's (tests/test_torch_sgpr.py's
+# "1d"): 32 Matérn-1/2 cells on [0, 1], 200 points of sin(6x) + 0.05·N(0, 1)
+# from numpy seed 0, σ² 1.3, ℓ 0.08, noise 0.02
+P15_1D_CELLS = 32
+P15_1D_N = 200
+P15_1D_PARAMS = (1.3, 0.08, 0.02)
+# the card's float64 Hessian of the 1-D case against the CPU's, the same
+# function through the same route: roundoff only
+TOL_H_CPU = 1e-10
+# a full-width float64 Hessian against central differences (step
+# P15_FD_STEP in the raw space) of the card's own float64 gradient, as a
+# share of max|H|: the differences' truncation error is about h²·|f'''|/6,
+# their rounding the gradient's (about 1e-13 relative) over 2h
+P15_FD_STEP = 1e-4
+TOL_H_FD = 1e-6
+# the float32 Hessian of the 1-D case on the card against the CPU's
+# float64, by the 2× rule against the CPU's float32 with this floor (as the
+# heads' floor: its products are the heads'); the full-width float32
+# Hessians against the card's float64 by the same bound (the CPU takes no
+# float32 Hessian at that width; the JAX package's docstring calls the
+# float32 H noise-limited on the TPU: on an H100 it read 3.2e-6 and 1.5e-6)
+TOL_H_F32 = 1e-3
+# 15b: fit_lbfgs on phase 7's model from its trained parameters; the 1-D
+# case's float64 trajectory against the CPU's at TOL_LBFGS_CPU
+LBFGS_ITERS = 20
+TOL_LBFGS_CPU = 1e-8
+# 15c: fit_natgrad on 11a's model, NATGRAD_STEPS minibatch steps at
+# TRAIN_BATCH (γ NATGRAD_GAMMA, Adam at 1e-2), then one full-batch step at
+# γ = 1 on SGPR_N points in float64, whose ELBO must equal the collapsed
+# bound at TOL_NATGRAD_COLLAPSED (tests/test_natgrad.py:34)
+NATGRAD_STEPS = 8
+NATGRAD_GAMMA = 0.5
+TOL_NATGRAD_COLLAPSED = 1e-6
+# 15d: HMC on phase 7's model at SGPR_CUT_N points (cut from 65 536), 2
+# chains, 24 warmup, 24 draws, 8 leapfrog steps (cut from 4 / 128 / 256 /
+# 16 to fit about 900 gradients: one takes 45–60 ms there on an H100, and
+# 32 + 32 steps, 1152 gradients, made phase 15 111 s); the draws' raw mean within
+# TOL_HMC_MEAN_SDS Laplace sd/√S of the Laplace mean, each raw variance
+# within a factor TOL_HMC_VAR of Laplace's, the accept rate in (0.5, 0.99]
+HMC_CHAINS, HMC_WARMUP, HMC_DRAWS, HMC_LEAPFROG = 2, 24, 24, 8
+HMC_FIT_ITERS = 30       # fit_lbfgs at the cut, float64, to the mode the Laplace state is taken at
+TOL_HMC_MEAN_SDS = 5.0
+TOL_HMC_VAR = 3.0
+# the 1-D case's HMC on the card against the CPU's from one CPU generator
+HMC_1D = dict(n_samples=16, n_chains=2, n_warmup=8, n_leapfrog=4)
+TOL_HMC_CPU = 1e-8
+# 15e: predict_marginalized at the SERVE_POINTS query points, MARG_SAMPLES
+# draws; with chol_cov × MARG_SHRINK the mixture is the plug-in head
+MARG_SAMPLES = 16
+MARG_SHRINK = 1e-6
+# 15f: fit_restarts on phase 8's exact GP
+RESTARTS, RESTART_ITERS, RESTART_SPREAD = 4, 10, 0.5
+TOL_RESTART_SEQ = 1e-6   # each restart against train.fit from its start: the same calls
+CKPT_STEPS = 3
+# 15f traces this many training steps (2 cell_kuf_with_dl launches each):
+# phase 15 runs last, where a profiler window has kept as few as 3 of 20
+# kernel launches on an H100, so the trace must name the kernel with most
+# of its launches lost
+P15_TRACE_STEPS = 16
+# a resumed fit_minibatch takes the same losses: the same inputs through the
+# same kernels; a reduction order that varied between calls would show here
+TOL_CKPT_RESUME = 1e-6
+# cell kernel shapes phase 15 launches first (held against the plain version
+# before it runs), and those earlier phases held
+P15_NEW_SHAPES = ((P15_1D_CELLS, P15_1D_N),)
+P15_HELD_SHAPES = ((SGPR_CELLS, SGPR_N), (SGPR_CELLS, SGPR_CUT_N), (FULL_CELLS, TRAIN_BATCH),
+                   (M_AXIS, TRAIN_BATCH), (SGPR_CELLS, SERVE_POINTS))
+
+
+def p15_count(fn):
+    """``fn()`` on the host clock (ending in synchronize) and its launches:
+    the counts' growth over the call (phase 15 zeroes them once, before its
+    parts, and reads them by shape after). Returns (the output, ms,
+    launches)."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    before = dict(ck.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, {k: ck.LAUNCHES[k] - before[k] for k in before}
+
+
+def p15_case_1d(device, dtype):
+    """15a's 1-D collapsed case on ``device`` in ``dtype``: (spec, params,
+    loss)."""
+    import numpy as np
+    import torch
+
+    from vggp_tpu_torch import CellIntegralFeature, SGPRSpec, sgpr
+
+    rng = np.random.default_rng(0)
+    x = rng.random(P15_1D_N)
+    y = np.sin(6 * x) + 0.05 * rng.standard_normal(P15_1D_N)
+    spec = SGPRSpec(kinds=("matern12",),
+                    features=(CellIntegralFeature.from_lims(P15_1D_CELLS, 0.0, 1.0),))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    var, ell, noise = P15_1D_PARAMS
+    params = {"axes": ({"variance": t(var), "lengthscale": t(ell)},), "noise": t(noise)}
+    X, Y = t(x), t(y)
+    return spec, params, lambda p: sgpr.loss(spec, p, X, Y)
+
+
+def fd_hessian(loss_fn, flat, unravel, h=P15_FD_STEP):
+    """Central differences of the first-order gradient of
+    ``loss_fn(constrain(unravel(v)))`` at ``flat``, symmetrized."""
+    import torch
+
+    from vggp_tpu_torch import train
+
+    def grad(v):
+        v = v.detach().clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss_fn(train.constrain(unravel(v))), v)
+        return g
+
+    cols = []
+    for i in range(flat.shape[0]):
+        e = torch.zeros_like(flat)
+        e[i] = h
+        cols.append((grad(flat + e) - grad(flat - e)) / (2 * h))
+    H = torch.stack(cols, 1)
+    return 0.5 * (H + H.T)
+
+
+def second_order_part(device, collapsed, exact_model, X, y, timings) -> dict:
+    """15a: the Hessian of ``hyperpost.laplace`` through
+    ``models.common.second_order()``: the 1-D case on the card against the
+    CPU in float64 and float32 (the 2× rule); phase 7's trained model at its
+    full width (64² cells, SGPR_N points) and phase 8's exact GP in float64
+    against central differences of the card's own float64 gradient, their
+    float32 H against float64 by the 1-D case's bound. Returns the
+    readings."""
+    import torch
+
+    from vggp_tpu_torch import exact, hyperpost, sgpr
+
+    cpu = torch.device("cpu")
+    out = {}
+    H = {}
+    for where, dev, dt in (("card", device, torch.float64), ("cpu", cpu, torch.float64),
+                           ("card", device, torch.float32), ("cpu", cpu, torch.float32)):
+        _, p, loss = p15_case_1d(dev, dt)
+        (h, _, _), ms, got = p15_count(lambda: hyperpost.raw_hessian(loss, p))
+        H[where, dt] = h.double().cpu()
+        if where == "card":
+            check(got["cell_kuf"] > 0 and got["cell_kuf_with_dl"] == 0,
+                  f"15a 1-D Hessian launches {got}")
+            print(f"15a 1-D Hessian ({dt}): {ms:.1f} ms, launches {got}")
+    ref = H["cpu", torch.float64]
+    e64 = rel_err(H["card", torch.float64], ref)
+    e32, c32 = rel_err(H["card", torch.float32], ref), rel_err(H["cpu", torch.float32], ref)
+    tol32 = max(TOL_H_F32, CPU_ERR_RATIO * c32)
+    print(f"check 15a 1-D Hessian: card f64 vs cpu f64 {e64:.3e} (tol {TOL_H_CPU}); card f32 "
+          f"{e32:.3e}, cpu f32 {c32:.3e}, tol {tol32:.3e}; H_ll {float(ref[0, 0]):.6g}, "
+          f"H_ss {float(ref[1, 1]):.6g}")
+    check(e64 <= TOL_H_CPU, f"15a 1-D Hessian card f64 {e64}")
+    check(e32 <= tol32, f"15a 1-D Hessian card f32 {e32} > {tol32}")
+    out["1d"] = {"f64": e64, "f32": e32, "cpu_f32": c32}
+    spec7, p7 = collapsed
+    espec, pe = exact_model
+    Xn, yn = X[:SGPR_N], y[:SGPR_N]
+    Xe, ye = X[:EXACT_N], y[:EXACT_N]
+    for name, loss, params in (
+            ("phase 7 collapsed", lambda c: (lambda p: sgpr.loss(spec7, p, c(Xn), c(yn))), p7),
+            ("phase 8 exact", lambda c: (lambda p: exact.loss(espec, p, c(Xe), c(ye))), pe)):
+        to64, to32 = cast_to(device, torch.float64), cast_to(device, torch.float32)
+        (h64, flat, unravel), ms, got = p15_count(lambda: hyperpost.raw_hessian(loss(to64),
+                                                                                to64(params)))
+        t0 = time.perf_counter()
+        hfd = fd_hessian(loss(to64), flat, unravel)
+        fd_s = time.perf_counter() - t0
+        (h32, _, _), ms32, _ = p15_count(lambda: hyperpost.raw_hessian(loss(to32),
+                                                                       to32(params)))
+        efd = rel_err(h64.cpu(), hfd.cpu())
+        r32 = rel_err(h32.double().cpu(), h64.cpu())
+        w = torch.linalg.eigvalsh(0.5 * (h64 + h64.T)).cpu()
+        print(f"check 15a {name} Hessian (p = {flat.shape[0]}) f64: {ms:.1f} ms, launches "
+              f"{got}; against central differences of its gradient ({fd_s:.1f} s) {efd:.3e} "
+              f"of max|H| {float(h64.abs().max()):.4g} (tol {TOL_H_FD}); eigenvalues "
+              f"{w.numpy().round(3).tolist()}; f32 H {ms32:.1f} ms, {r32:.3e} from f64 "
+              f"(tol {tol32:.3e}, the 1-D case's rule)")
+        check(efd <= TOL_H_FD, f"15a {name} Hessian vs central differences {efd}")
+        check(r32 <= tol32, f"15a {name} f32 Hessian {r32} > {tol32}")
+        tag = name.split()[-1]
+        timings[f"p15_hessian_{tag}_ms_f64"] = ms
+        timings[f"p15_hessian_{tag}_ms_f32"] = ms32
+        out[tag] = {"fd": efd, "f32_vs_f64": r32}
+    return out
+
+
+def lbfgs_part(device, collapsed, X, y, timings) -> dict:
+    """15b: ``fit_lbfgs`` LBFGS_ITERS iterations on phase 7's model at its
+    full width from its trained parameters, float32 and float64 (the
+    float32 final loss within TOL_E2E_LOSS of float64's), with the loss
+    evaluations an iteration and ms an iteration; the 1-D case's float64
+    trajectory on the card against the CPU's at TOL_LBFGS_CPU."""
+    import torch
+
+    from vggp_tpu_torch import sgpr, train
+
+    spec, params = collapsed
+    Xn, yn = X[:SGPR_N], y[:SGPR_N]
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        c = cast_to(device, dt)
+        Xc, yc, evals = c(Xn), c(yn), [0]
+
+        def loss(p):
+            evals[0] += 1
+            return sgpr.loss(spec, p, Xc, yc)
+
+        (_, hist), ms, got = p15_count(lambda: train.fit_lbfgs(loss, c(params), LBFGS_ITERS))
+        losses = hist["loss"].double().cpu()
+        tag = "f32" if dt == torch.float32 else "f64"
+        out[tag] = float(losses[-1])
+        print(f"15b fit_lbfgs phase 7 {tag}: {LBFGS_ITERS} iterations, loss "
+              f"{float(losses[0]):.8g} -> {float(losses[-1]):.8g}, {evals[0]} loss evaluations "
+              f"({evals[0] / LBFGS_ITERS:.2f} an iteration), {ms / LBFGS_ITERS:.1f} ms an "
+              f"iteration, launches {got}")
+        check(bool(torch.isfinite(losses).all()) and float(losses[-1]) < float(losses[0]),
+              f"15b fit_lbfgs {tag}: {losses}")
+        check(got == {**NO_LAUNCHES, "cell_kuf_with_dl": 2 * evals[0]},
+              f"15b fit_lbfgs {tag} launches {got} for {evals[0]} evaluations")
+        timings[f"p15_lbfgs_ms_per_iter_{tag}"] = ms / LBFGS_ITERS
+        timings[f"p15_lbfgs_evals_per_iter_{tag}"] = evals[0] / LBFGS_ITERS
+    e = abs(out["f32"] - out["f64"]) / abs(out["f64"])
+    print(f"check 15b fit_lbfgs final loss f32 vs f64: {e:.3e} (tol {TOL_E2E_LOSS})")
+    check(e <= TOL_E2E_LOSS, f"15b fit_lbfgs f32 final loss {e}")
+    hists = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        _, p, loss = p15_case_1d(dev, torch.float64)
+        (fin, hist), _, _ = p15_count(lambda: train.fit_lbfgs(loss, p, LBFGS_ITERS))
+        hists[where] = ({k: v.cpu() for k, v in hist.items()},
+                        [v.cpu() for v in train.sorted_leaves(fin)])
+    e = max(max(rel_err(hists["card"][0][k], hists["cpu"][0][k]) for k in hists["cpu"][0]),
+            max(rel_err(a, b) for a, b in zip(hists["card"][1], hists["cpu"][1])))
+    print(f"check 15b 1-D fit_lbfgs f64 trajectory card vs cpu: {e:.3e} (tol {TOL_LBFGS_CPU}), "
+          f"loss {float(hists['cpu'][0]['loss'][0]):.8g} -> {float(hists['cpu'][0]['loss'][-1]):.8g}")
+    check(e <= TOL_LBFGS_CPU, f"15b 1-D fit_lbfgs trajectory {e}")
+    out["1d_traj"] = e
+    return out
+
+
+def natgrad_part(device, full2d, X, y, timings) -> dict:
+    """15c: ``fit_natgrad`` on 11a's model (64² cells, m = 4096, the full
+    family, a learned mean; its trained hyperparameters, q from the prior):
+    NATGRAD_STEPS minibatch steps at TRAIN_BATCH in
+    float32 (cell_kuf_with_dl twice a step, the loss finite and falling), then
+    one full-batch step at γ = 1 with the hyperparameters frozen on SGPR_N
+    points in float64, whose ELBO must equal ``sgpr.elbo`` on the same
+    cells, points and hyperparameters."""
+    import dataclasses
+
+    import torch
+
+    from vggp_tpu_torch import SGPRSpec, sgpr, svgp, train
+
+    spec, trained = full2d
+    # 11a's hyperparameters with q at the spec's start (μ = 0, S = I): the
+    # natural parameters of 11a's Adam-trained q need S⁻¹, whose factor
+    # (a 4096² triangle moved entrywise by Adam) float32 cannot invert
+    params = {**trained, "q": spec.init_params(torch.float32, device)["q"]}
+    (fin, hist), ms, got = p15_count(lambda: train.fit_natgrad(
+        spec, params, X, y, NATGRAD_STEPS, gamma=NATGRAD_GAMMA, hyper_lr=1e-2,
+        batch_size=TRAIN_BATCH, seed=15))
+    losses = [float(v) for v in hist["loss"]]
+    print(f"15c fit_natgrad 11a: {NATGRAD_STEPS} steps at {TRAIN_BATCH}, loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g}, {ms / NATGRAD_STEPS:.1f} ms a step, launches {got}")
+    check(all(v == v and abs(v) != float("inf") for v in losses), f"15c losses {losses}")
+    check(sum(losses[-3:]) < sum(losses[:3]), f"15c: the loss did not fall: {losses}")
+    check(got == {**NO_LAUNCHES, "cell_kuf_with_dl": 2 * NATGRAD_STEPS}, f"15c launches {got}")
+    timings["p15_natgrad_ms_per_step"] = ms / NATGRAD_STEPS
+    c = cast_to(device, torch.float64)
+    Xn, yn = c(X[:SGPR_N]), c(y[:SGPR_N])
+    full = dataclasses.replace(spec, num_data=SGPR_N)
+    p64 = c(fin)
+
+    def one():
+        p1, _ = train.fit_natgrad(full, p64, Xn, yn, 1, gamma=1.0, hyper_lr=0.0)
+        with torch.no_grad():
+            return (svgp.elbo(full, p1, Xn, yn),
+                    sgpr.elbo(SGPRSpec(kinds=spec.kinds, features=spec.features, learn_mean=True),
+                              {k: p1[k] for k in ("axes", "noise", "mean")}, Xn, yn))
+
+    (e_sv, e_col), ms, got = p15_count(one)
+    e = abs(float(e_sv) - float(e_col)) / abs(float(e_col))
+    print(f"check 15c one natgrad step (γ = 1, f64, {SGPR_N} points): ELBO {float(e_sv):.10g} vs "
+          f"collapsed {float(e_col):.10g}, rel {e:.3e} (tol {TOL_NATGRAD_COLLAPSED}); "
+          f"{ms:.1f} ms, launches {got}")
+    check(e <= TOL_NATGRAD_COLLAPSED, f"15c natgrad vs collapsed bound {e}")
+    return {"collapsed_rel": e}
+
+
+def hmc_part(device, collapsed, X, y, timings) -> dict:
+    """15d: ``hmc_sample_params`` on phase 7's model at SGPR_CUT_N points in
+    float32 from its float64 Laplace state at the mode (``fit_lbfgs`` there
+    first; 2 chains, 24 + 24 steps of 8 leapfrog steps), over the four
+    hyperparameters the model identifies: the draws against the Laplace
+    Gaussian and the accept rate; the 1-D case's HMC on the card against the CPU's, float64, one
+    CPU generator seeded the same."""
+    import torch
+
+    from vggp_tpu_torch import hyperpost, sgpr, train
+
+    spec, trained = collapsed
+    c64, c32 = cast_to(device, torch.float64), cast_to(device, torch.float32)
+    Xc, yc = X[:SGPR_CUT_N], y[:SGPR_CUT_N]
+    # the product kernel identifies σ₁²σ₂² alone (a flat direction of the
+    # Hessian at the mode, which HMC would random-walk along): axis 1's
+    # variance is held at 1 and axis 0's carries the product
+    ax0, ax1 = trained["axes"]
+    params = {"axes": ({**ax0, "variance": ax0["variance"] * ax1["variance"]},),
+              "axis_1": {"lengthscale": ax1["lengthscale"]}, "noise": trained["noise"]}
+
+    def loss(c):
+        X1, y1 = c(Xc), c(yc)
+
+        def f(p):
+            ax1 = {"variance": torch.ones_like(p["noise"]), **p["axis_1"]}
+            return sgpr.loss(spec, {"axes": (p["axes"][0], ax1), "noise": p["noise"]}, X1, y1)
+
+        return f
+    # the Laplace Gaussian is the posterior's approximation at its mode: the
+    # model at the cut, fitted there by L-BFGS in float64 first
+    (mode, _), ms_fit, _ = p15_count(lambda: train.fit_lbfgs(loss(c64), c64(params),
+                                                             HMC_FIT_ITERS))
+    st, ms_l, _ = p15_count(lambda: hyperpost.laplace(loss(c64), mode))
+    st32 = st._replace(mean=st.mean.float(), chol_cov=st.chol_cov.float(),
+                       logdet_h=st.logdet_h.float())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(15)
+    n_grads = HMC_CHAINS * (HMC_WARMUP + HMC_DRAWS) * (HMC_LEAPFROG + 1)
+    res, ms, got = p15_count(lambda: hyperpost.hmc_sample_params(
+        loss(c32), st32, gen, n_samples=HMC_CHAINS * HMC_DRAWS, n_chains=HMC_CHAINS,
+        n_warmup=HMC_WARMUP, n_leapfrog=HMC_LEAPFROG))
+    raws = res.raw_draws.double().cpu()
+    S = raws.shape[0]
+    cov = (st.chol_cov @ st.chol_cov.T).cpu()
+    sd = torch.sqrt(torch.diagonal(cov))
+    mean_sds = float(((raws.mean(0) - st.mean.cpu()).abs() / (sd / S ** 0.5)).max())
+    var_ratio = raws.var(0) / torch.diagonal(cov)
+    acc = float(res.accept_rate)
+    print(f"check 15d HMC phase 7 at {SGPR_CUT_N} points: {S} draws, {ms:.0f} ms "
+          f"({ms / n_grads:.2f} ms a gradient, {n_grads} gradients), the mode by L-BFGS "
+          f"{ms_fit:.0f} ms, Laplace {ms_l:.0f} ms; "
+          f"accept {acc:.3f}, step sizes {res.step_size.cpu().numpy().round(4).tolist()}; the "
+          f"raw mean at {mean_sds:.2f} Laplace sd/√S (tol {TOL_HMC_MEAN_SDS}), the variance "
+          f"ratios {var_ratio.numpy().round(3).tolist()} (tol ×{TOL_HMC_VAR}); launches {got}")
+    check(bool(torch.isfinite(raws).all()), "15d HMC draws not finite")
+    check(0.5 < acc <= 0.99, f"15d HMC accept rate {acc}")
+    check(mean_sds <= TOL_HMC_MEAN_SDS, f"15d HMC mean at {mean_sds} sd/√S")
+    check(bool(((var_ratio <= TOL_HMC_VAR) & (var_ratio >= 1 / TOL_HMC_VAR)).all()),
+          f"15d HMC variance ratios {var_ratio}")
+    check(got["cell_kuf_with_dl"] > 0 and got["fused_banded_whiten_kuf"] == 0,
+          f"15d HMC launches {got}")
+    timings["p15_hmc_ms_per_gradient"] = ms / n_grads
+    out = {"accept": acc, "mean_sds": mean_sds}
+    runs = {}
+    # one Laplace state for both (the eigenvectors' signs differ between
+    # cuSOLVER and LAPACK, and with them the whitened coordinates)
+    _, p, loss1 = p15_case_1d(torch.device("cpu"), torch.float64)
+    st1 = hyperpost.laplace(loss1, p)
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        _, _, loss1 = p15_case_1d(dev, torch.float64)
+        st_dev = st1._replace(mean=st1.mean.to(dev), chol_cov=st1.chol_cov.to(dev),
+                              logdet_h=st1.logdet_h.to(dev))
+        r, _, _ = p15_count(lambda: hyperpost.hmc_sample_params(
+            loss1, st_dev, torch.Generator().manual_seed(7), **HMC_1D))
+        runs[where] = r
+    e = max(rel_err(runs["card"].raw_draws.cpu(), runs["cpu"].raw_draws),
+            rel_err(runs["card"].step_size.cpu(), runs["cpu"].step_size),
+            rel_err(runs["card"].accept_rate.cpu(), runs["cpu"].accept_rate))
+    print(f"check 15d 1-D HMC card vs cpu (f64, one CPU generator): {e:.3e} (tol {TOL_HMC_CPU}), "
+          f"accept {float(runs['cpu'].accept_rate):.3f}")
+    check(e <= TOL_HMC_CPU, f"15d 1-D HMC card vs cpu {e}")
+    out["1d"] = e
+    return out
+
+
+def marginalized_part(device, collapsed, X, y, Xs, timings) -> dict:
+    """15e: ``predict_marginalized`` (the posterior at the SERVE_POINTS
+    points, MARG_SAMPLES draws) and ``log_evidence_laplace`` on phase 7's
+    model at its full width: with chol_cov × MARG_SHRINK the mixture is the
+    plug-in head within the heads' floor; the true state's variance read
+    against the plug-in one; the log evidence in float32 against
+    float64."""
+    import torch
+
+    from vggp_tpu_torch import hyperpost, sgpr
+
+    spec, params = collapsed
+    Xn, yn = X[:SGPR_N], y[:SGPR_N]
+    ev = {}
+    for dt in (torch.float64, torch.float32):
+        c = cast_to(device, dt)
+        loss = lambda p: sgpr.loss(spec, p, c(Xn), c(yn))
+        st, _, _ = p15_count(lambda: hyperpost.laplace(loss, c(params)))
+        ev[dt] = float(hyperpost.log_evidence_laplace(loss, c(params), st))
+        if dt == torch.float32:
+            state = st
+    e_ev = abs(ev[torch.float32] - ev[torch.float64]) / abs(ev[torch.float64])
+    print(f"check 15e log evidence f32 {ev[torch.float32]:.8g} vs f64 {ev[torch.float64]:.8g}: "
+          f"{e_ev:.3e} (tol {TOL_E2E_LOSS})")
+    check(e_ev <= TOL_E2E_LOSS, f"15e log evidence f32 vs f64 {e_ev}")
+    predict = lambda p: sgpr.posterior(spec, p, Xn, yn, Xs, full_cov=False)
+    gen = torch.Generator(device=device)
+    with torch.no_grad():
+        plug = predict(params)
+        shrunk = state._replace(chol_cov=state.chol_cov * MARG_SHRINK)
+        gen.manual_seed(5)
+        m0, ms0, got0 = p15_count(lambda: hyperpost.predict_marginalized(predict, shrunk, gen,
+                                                                         MARG_SAMPLES))
+        gen.manual_seed(6)
+        m1, ms1, got1 = p15_count(lambda: hyperpost.predict_marginalized(predict, state, gen,
+                                                                         MARG_SAMPLES))
+    e0 = gauss_err(m0, plug)
+    ratio = (m1.var / plug.var).double().cpu()
+    print(f"check 15e predict_marginalized S={MARG_SAMPLES} at {SERVE_POINTS} points: shrunk "
+          f"state vs plug-in {e0:.3e} (tol {TOL_E2E_POST}), {ms0:.0f} ms, launches {got0}; the "
+          f"true state's variance over the plug-in's: median {float(ratio.median()):.4f}, min "
+          f"{float(ratio.min()):.4f}, max {float(ratio.max()):.4f} (a reading), {ms1:.0f} ms")
+    check(e0 <= TOL_E2E_POST, f"15e shrunk marginalized vs plug-in {e0}")
+    check(finite(m1) and bool((m1.var > 0).all()), "15e marginalized head")
+    check(got0["cell_kuf"] == got1["cell_kuf"] == 4 * MARG_SAMPLES,
+          f"15e launches {got0}, {got1}")
+    timings["p15_marginalized_ms"] = ms1
+    return {"shrunk": e0, "log_evidence": e_ev, "var_ratio_median": float(ratio.median())}
+
+
+def rest_part(device, exact_model, main, X, y, timings) -> dict:
+    """15f: ``fit_restarts`` on phase 8's exact GP (each restart against a
+    sequential ``fit`` from its start, ``best`` the argmin); a checkpoint
+    round trip of phase 4's trained 512² SVGP on the card (bitwise, and a
+    resumed ``fit_minibatch`` taking the same losses); a ``profile_trace``
+    of P15_TRACE_STEPS training steps, whose trace must name the
+    cell_kuf_with_dl kernel."""
+    import json as _json
+    import os
+    import shutil
+
+    import torch
+
+    from vggp_tpu_torch import exact, svgp, train
+
+    espec, pe = exact_model
+    Xe, ye = X[:EXACT_N], y[:EXACT_N]
+    loss = lambda p: exact.loss(espec, p, Xe, ye)
+    pb = train.init_restarts(pe, torch.Generator(device=device).manual_seed(3), RESTARTS,
+                             RESTART_SPREAD)
+    (best, hist), ms, _ = p15_count(lambda: train.fit_restarts(loss, pb, RESTART_ITERS, FIT_LR))
+    final = hist["loss"][:, -1]
+    worst = 0.0
+    for r in range(RESTARTS):
+        _, h = train.fit(loss, train.tree_map(lambda v: v[r], pb), RESTART_ITERS, FIT_LR)
+        worst = max(worst, rel_err(hist["loss"][r], h["loss"]))
+    print(f"check 15f fit_restarts exact GP: {RESTARTS} × {RESTART_ITERS}, {ms:.0f} ms, final "
+          f"losses {final.cpu().numpy().round(3).tolist()}, best {hist['best']}; each restart "
+          f"against a sequential fit {worst:.3e}")
+    check(hist["loss"].shape == (RESTARTS, RESTART_ITERS), "15f restarts history shape")
+    check(worst <= TOL_RESTART_SEQ, f"15f restart vs sequential fit {worst}")
+    check(hist["best"] == int(torch.argmin(final)), f"15f best {hist['best']}")
+    spec, model = main
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_tree", "p15")
+    shutil.rmtree(root, ignore_errors=True)
+    params = train.tree_map(lambda v: v.detach().clone(), model.params())
+    train.save_checkpoint(os.path.join(root, "ckpt"), params, step=7)
+    back = train.load_checkpoint(os.path.join(root, "ckpt"), step=7, like=params,
+                                 map_location=device)
+    same = all(torch.equal(a, b) and a.device == b.device
+               for a, b in zip(train.tree_leaves(params), train.tree_leaves(back), strict=True))
+    mloss = lambda p, xb, yb: svgp.loss(spec, p, xb, yb)
+    runs = [train.fit_minibatch(mloss, p, X, y, CKPT_STEPS, TRAIN_BATCH, seed=9)[1]["loss"]
+            for p in (params, back)]
+    e = rel_err(runs[0].double().cpu(), runs[1].double().cpu())
+    print(f"check 15f checkpoint of phase 4's 512² SVGP: bitwise {same}; a resumed "
+          f"fit_minibatch ({CKPT_STEPS} steps) against the original's losses {e:.3e} "
+          f"(tol {TOL_CKPT_RESUME})")
+    check(same, "15f checkpoint round trip not bitwise")
+    check(e <= TOL_CKPT_RESUME, f"15f resumed losses differ by {e}")
+    trace_dir = os.path.join(root, "trace")
+    raw = train.raw_leaves_from(params)
+    step = train.make_step_fn(mloss, raw, torch.optim.Adam(train.tree_leaves(raw), lr=1e-2))
+    idx = torch.randint(0, X.shape[0], (TRAIN_BATCH,), generator=torch.Generator(
+        device=device).manual_seed(4), device=device)
+
+    def traced():
+        with train.profile_trace(trace_dir):
+            time.sleep(PROFILE_LEAD_S)     # as _profiled: the window's first ms can go unrecorded
+            for _ in range(P15_TRACE_STEPS):
+                step(X[idx], y[idx])
+
+    _, ms, got = p15_count(traced)
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    names = set()
+    for f in files:
+        with open(os.path.join(trace_dir, f)) as fh:
+            names |= {str(e.get("name", "")) for e in _json.load(fh).get("traceEvents", [])}
+    hit = sorted(n for n in names if _DEVICE_KERNELS["cell_kuf_with_dl"] in n)
+    print(f"check 15f profile_trace: {len(files)} trace file(s), {len(names)} event names, "
+          f"cell_kuf_with_dl's kernel {hit[:1]}; the step's launches {got}")
+    check(len(files) == 1 and hit, "15f profile_trace: the trace names no cell_kuf_with_dl kernel")
+    check(got == {**NO_LAUNCHES, "cell_kuf_with_dl": 2 * P15_TRACE_STEPS},
+          f"15f traced steps' launches {got}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"restart_vs_sequential": worst}
+
+
+def hyperpost_phase(device, X, y, Xs, models) -> tuple:
+    """Phase 15: both cell kernels against their plain versions at
+    P15_NEW_SHAPES, then 15a–15f on the earlier phases' models (``models``:
+    "main", "collapsed", "exact", "full2d"). Every shape the phase launches
+    must have been held against the plain version, and both cell kernels
+    must be launched. Returns (launches, timings, the float32 errors by
+    (name, m, n), the launches by (name, m, n), the readings)."""
+    import numpy as np
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    timings, readings = {}, {}
+    x1 = torch.as_tensor(np.random.default_rng(0).random(P15_1D_N), dtype=torch.float32,
+                         device=device)
+    errs = check_kernels_at(device, ((P15_1D_CELLS, x1, None),), "15")
+    ck.reset_launch_counts()
+    for name, part in (
+            ("second_order", lambda: second_order_part(device, models["collapsed"],
+                                                       models["exact"], X, y, timings)),
+            ("lbfgs", lambda: lbfgs_part(device, models["collapsed"], X, y, timings)),
+            ("natgrad", lambda: natgrad_part(device, models["full2d"], X, y, timings)),
+            ("hmc", lambda: hmc_part(device, models["collapsed"], X, y, timings)),
+            ("marginalized", lambda: marginalized_part(device, models["collapsed"], X, y, Xs,
+                                                       timings)),
+            ("rest", lambda: rest_part(device, models["exact"], models["main"], X, y, timings))):
+        t0 = time.perf_counter()
+        readings[name] = part()
+        timings[f"p15_{name}_s"] = time.perf_counter() - t0
+        print(f"15 {name}: {timings[f'p15_{name}_s']:.1f} s")
+    at = dict(ck.SHAPE_LAUNCHES)
+    launches = dict(ck.LAUNCHES)
+    print(f"phase 15's launches by shape: {at}")
+    allowed = set(P15_NEW_SHAPES) | set(P15_HELD_SHAPES)
+    check(all((m, n) in allowed for _, m, n in at), f"phase 15 launched a shape never held "
+          f"against plain: {sorted(k for k in at if k[1:] not in allowed)}")
+    check(launches["cell_kuf"] > 0 and launches["cell_kuf_with_dl"] > 0,
+          f"phase 15: a cell kernel never launched: {launches}")
+    check(all(at.get((k, *s), 0) > 0 for s in P15_NEW_SHAPES
+              for k in ("cell_kuf", "cell_kuf_with_dl")), f"phase 15: a new shape never launched")
+    torch.cuda.synchronize()
+    return launches, timings, errs, at, readings
+
+
 PROFILE_STEPS = 3
 
 
 def profile_steps(step, X, y, batch, gen) -> dict:
-    """Phase 15: where a training step's time goes. Three steps under
+    """Phase 16: where a training step's time goes. Three steps under
     torch.profiler: the device's busy share of the window (kernel time over
     wall time) and the ops with the most host and device time."""
     import torch
@@ -4303,7 +4884,7 @@ def time_fused_shape(device, m, n) -> dict:
 
 
 def time_serving_grid(device, spec, model, state) -> dict:
-    """Phase 16b: cell_kuf at the serving grid's (512, 65 536), and the cold
+    """Phase 17b: cell_kuf at the serving grid's (512, 65 536), and the cold
     ``posterior`` (``precompute`` and the warm head) and the warm
     ``posterior_from_state`` on the 256×256 grid in turns (cold, warm, warm,
     cold; one call each after a warm one, host clock around a call that ends
@@ -4336,10 +4917,10 @@ def time_serving_grid(device, spec, model, state) -> dict:
 
 
 def measure_kernels(device, errs, launches, shapes) -> list:
-    """Phase 16: kernel and plain times at the main path's f32 shapes, and the
+    """Phase 17: kernel and plain times at the main path's f32 shapes, and the
     fused kernel beside the unfused route it replaces (cell_kuf_with_dl, then
     kms.banded_whiten_apply for a and t at MAIN_PRECISIONS); ``shapes``
-    (by kernel, then by key: the timings of phases 16b–16e at the other
+    (by kernel, then by key: the timings of phases 17b–17e at the other
     shapes of the main path) go into the kernels' rows."""
     import torch
 
@@ -4541,9 +5122,34 @@ def main() -> int:
         shapes["cell_kuf"][f"at_{m}_cells_{n}"] = {
             **time_kuf_shape(device, m, n), "launches": p14_at[m, n],
             "max_abs_err": p14_errs[("cell_kuf", m, n)]}
+    # phase 15's new shape, timed here with the others: phase 15 runs after
+    # the timings (after it, late in a long process, the profiler kept only
+    # 3–5 of 20 launches a window for tens of shapes in a row, on an H100);
+    # its launches and error join the row once it has run
+    for name in ("cell_kuf", "cell_kuf_with_dl"):
+        for m, n in P15_NEW_SHAPES:
+            shapes[name][f"at_{m}_cells_{n}"] = time_kuf_shape(device, m, n, name=name)
     shapes["cell_kuf"]["cell_kuf_op_backward_at_512_cells_4096"] = {
         "max_abs_err_vs_cpu_f64": family_errs[("cell_kuf_op_backward", M_AXIS, TRAIN_BATCH)]}
     rows = measure_kernels(device, errs, launches, shapes)
+    t0 = time.perf_counter()
+    got, phase_times, p15_errs, p15_at, timings["p15_readings"] = hyperpost_phase(
+        device, X, y, Xs, {"main": (spec, model), "collapsed": collapsed,
+                           "exact": exact_model, "full2d": full2d})
+    timings["hyperpost_phase_s"] = time.perf_counter() - t0
+    print(f"hyperpost_phase: {timings['hyperpost_phase_s']:.1f} s")
+    launches = add_launches(launches, got)
+    timings.update(phase_times)
+    for row in rows:
+        name = row["name"]
+        row["launches"] = launches[name]
+        if name == "fused_banded_whiten_kuf":
+            continue
+        for m, n in P15_NEW_SHAPES:
+            row[f"at_{m}_cells_{n}"].update(launches=p15_at.get((name, m, n), 0),
+                                            max_abs_err=p15_errs[(name, m, n)])
+        row["phase15_launches_by_shape"] = {
+            f"{m}x{n}": k for (kname, m, n), k in sorted(p15_at.items()) if kname == name}
     timings["card"] = card
     print(json.dumps({"steps": timings}))
     print(json.dumps({"kernels": rows, "card": card}))

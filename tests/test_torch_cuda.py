@@ -714,3 +714,84 @@ def test_cuda_assimilate_matches_cpu_f64(cuda):
         out[dev.type] = [t.cpu() for t in (s["lam"], s["eta"], q.mean, q.var)]
     for got, want in zip(out["cuda"], out["cpu"]):
         assert float((got - want).abs().max() / want.abs().max()) < 1e-10
+
+
+def _case_1d(dev):
+    """ROADMAP queue 3, item 16's 1-D case (32 Matérn-1/2 cells, 200
+    points, σ² 1.3, ℓ 0.08, noise 0.02) in float64 on ``dev``: (params,
+    loss)."""
+    from vggp_tpu_torch import SGPRSpec, sgpr
+
+    rng = np.random.default_rng(0)
+    x = rng.random(200)
+    y = np.sin(6 * x) + 0.05 * rng.standard_normal(200)
+    spec = SGPRSpec(kinds=("matern12",), features=(CellIntegralFeature.from_lims(32, 0.0, 1.0),))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    X, Y = t(x), t(y)
+    p = {"axes": ({"variance": t(1.3), "lengthscale": t(0.08)},), "noise": t(0.02)}
+    return p, lambda q: sgpr.loss(spec, q, X, Y)
+
+
+@pytest.mark.cuda
+def test_cuda_second_order_route_matches_cpu(cuda):
+    """The Hessian of ``hyperpost.laplace`` through ``second_order()`` on the
+    card (the ``cell_kuf`` kernel forward under CellKufOp, its plain-torch
+    backward twice) against the CPU's: rtol 1e-10 of max|H|, float64; the
+    route launches cell_kuf, never the tangent kernels."""
+    from vggp_tpu_torch import hyperpost
+
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p, loss = _case_1d(dev)
+        ck.reset_launch_counts()
+        H, *_ = hyperpost.raw_hessian(loss, p)
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert ck.LAUNCHES["cell_kuf"] > 0 and ck.LAUNCHES["cell_kuf_with_dl"] == 0
+        out[dev.type] = H.cpu()
+    assert float((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_cuda_hmc_matches_cpu_from_one_generator(cuda):
+    """A short HMC (2 chains, 4 warmup, 8 draws, 4 leapfrog steps) on the
+    1-D case in float64 from one Laplace state (the CPU's), the draws from
+    one CPU generator seeded the same:
+    the card's raw draws, step sizes and accept rate against the CPU's at
+    rtol 1e-8; the leapfrog's gradients launch cell_kuf_with_dl."""
+    from vggp_tpu_torch import hyperpost
+
+    p, loss = _case_1d("cpu")
+    st_cpu = hyperpost.laplace(loss, p)     # one state: eigenvector signs differ by device
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p, loss = _case_1d(dev)
+        st = st_cpu._replace(mean=st_cpu.mean.to(dev), chol_cov=st_cpu.chol_cov.to(dev),
+                             logdet_h=st_cpu.logdet_h.to(dev))
+        ck.reset_launch_counts()
+        r = hyperpost.hmc_sample_params(loss, st, torch.Generator().manual_seed(3), n_samples=8,
+                                        n_chains=2, n_warmup=4, n_leapfrog=4)
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert ck.LAUNCHES["cell_kuf_with_dl"] > 0
+        out[dev.type] = [t.cpu() for t in (r.raw_draws, r.step_size, r.accept_rate)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-8
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_loads_with_map_location(cuda, tmp_path):
+    """A parameter tree saved on the card loads bitwise onto the CPU and back
+    onto the card with ``map_location``, tuples restored by ``like``."""
+    cells = tuple(CellIntegralFeature.from_lims(16, 0.0, 1.0) for _ in range(2))
+    spec = SVGPSpec(kinds=("matern12",) * 2, features=cells, num_data=100)
+    p = spec.init_params(torch.float32, device=cuda)
+    p["q"]["mu"] = torch.randn(p["q"]["mu"].shape, device=cuda)
+    train.save_checkpoint(str(tmp_path), p, step=2)
+    on_cpu = train.load_checkpoint(str(tmp_path), step=2, like=p, map_location="cpu")
+    back = train.load_checkpoint(str(tmp_path), step=2, like=p, map_location=cuda)
+    assert isinstance(back["axes"], tuple)
+    for a, b, c in zip(train.tree_leaves(p), train.tree_leaves(on_cpu), train.tree_leaves(back),
+                       strict=True):
+        assert b.device.type == "cpu" and c.device.type == "cuda"
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)

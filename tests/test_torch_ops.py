@@ -453,8 +453,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import vggp_tpu_torch\n"
         "for m in pkgutil.walk_packages(vggp_tpu_torch.__path__, 'vggp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'vggp_tpu'))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'vggp_tpu', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"
+        "for m in ('hyperpost', 'lbfgs', 'train', 'convert'):\n"
+        "    assert 'vggp_tpu_torch.' + m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules if k.startswith('vggp_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -36,3 +36,20 @@ def params_from_jax(params_np: Dict, device=None, dtype=None) -> Dict:
 def params_to_numpy(params: Dict) -> Dict:
     """A tree of tensors → the same tree of numpy arrays (host copies)."""
     return tree_map(lambda v: v.detach().cpu().numpy(), params)
+
+
+def laplace_state_from_jax(state_np: Dict, params_like: Dict, device=None, dtype=None):
+    """A JAX ``LaplaceState``'s arrays (``{"mean", "chol_cov", "logdet_h"}``
+    as numpy, ``numpy.asarray`` of each field) → the port's
+    ``hyperpost.LaplaceState`` on ``device`` (``cuda`` unless given), its
+    ``unravel`` built from ``params_like``, a parameter tree of the same
+    structure (the flat order is ``ravel_pytree``'s in both packages)."""
+    from vggp_tpu_torch import hyperpost
+    from vggp_tpu_torch.train import ravel
+
+    device = config.resolve_device(device)
+    t = {k: torch.as_tensor(np.asarray(state_np[k]), dtype=dtype, device=device)
+         for k in ("mean", "chol_cov", "logdet_h")}
+    _, unravel = ravel(tree_map(lambda v: torch.as_tensor(v, device=device), params_like))
+    return hyperpost.LaplaceState(mean=t["mean"], chol_cov=t["chol_cov"],
+                                  logdet_h=t["logdet_h"], unravel=unravel)

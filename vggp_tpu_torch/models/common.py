@@ -6,6 +6,7 @@ factored state, bound and posterior, and the Gaussian result."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
@@ -194,7 +195,12 @@ class WhitenedKufScalar(torch.autograd.Function):
     a = F⁻¹Kuf and its ℓ-tangent, both computed before: ∂/∂ℓ = Σ ḡ·∂a/∂ℓ
     and ∂/∂σ² = Σ ḡ·a / (2σ²) (a ∝ √σ² for a fixed basis). The points get
     no gradient. (The tangents are taken outside the Function: inside its
-    forward, forward-mode AD is off and a dual ℓ would carry no tangent.)"""
+    forward, forward-mode AD is off and a dual ℓ would carry no tangent.)
+
+    a and ∂a/∂ℓ are built without a graph, so the backward is exact to
+    first order only: asked for a graph of itself (``create_graph``, the
+    first pass of a Hessian) it raises. A Hessian takes
+    :func:`second_order`'s route instead."""
 
     @staticmethod
     def forward(ctx, ell, var, a, da_dl):
@@ -203,10 +209,45 @@ class WhitenedKufScalar(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        first_order_only("WhitenedKufScalar")
         a, da_dl, var = ctx.saved_tensors
         dl = torch.sum(g * da_dl)
         dv = torch.sum(g * a) / (2.0 * var)
         return dl, dv, None, None
+
+
+def first_order_only(what: str) -> None:
+    """Raise when a first-order-only backward runs under ``create_graph``.
+    (``torch.autograd.function.once_differentiable`` does not raise here:
+    its error node has no edge to the inputs, so the engine prunes it and a
+    Hessian comes back silently short of those terms.)"""
+    if torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{what}'s backward is first-order only and cannot build a graph for a "
+            "second derivative; take Hessians inside models.common.second_order()")
+
+
+_SECOND_ORDER = [0]
+
+
+@contextlib.contextmanager
+def second_order():
+    """Inside, :func:`whitened_kuf_scalar` builds a = F⁻¹Kuf by its primal
+    route under autograd (the differentiable F⁻¹, ``CellKufOp`` — the
+    ``cell_kuf`` kernel forward, a plain-torch backward — and the banded
+    apply), and the SVGP's q(f) moments skip ``KronMoments``, so a
+    derivative of a derivative is exact: the route of
+    ``hyperpost.laplace``'s Hessian. Outside, the first-order backwards
+    stay the training path."""
+    _SECOND_ORDER[0] += 1
+    try:
+        yield
+    finally:
+        _SECOND_ORDER[0] -= 1
+
+
+def in_second_order() -> bool:
+    return _SECOND_ORDER[0] > 0
 
 
 def whitened_kuf_scalar(feat, kind: str, rel_jitter: float, p: Params,
@@ -217,11 +258,13 @@ def whitened_kuf_scalar(feat, kind: str, rel_jitter: float, p: Params,
     ℓ-tangent is computed alongside a, through ``cell_kuf_with_dl`` or, at
     large batch, the fused kernel (a forward-mode tangent for the other
     kinds) — as JAX's ``custom_vjp`` runs only ``wk_fwd`` under
-    differentiation. Otherwise only the primal is built: the ``cell_kuf``
-    kernel and the banded apply, no tangents.
+    differentiation. Otherwise, and inside :func:`second_order`, only the
+    primal is built: the ``cell_kuf`` kernel and the banded apply, no
+    tangents.
     """
     ell, var = p["lengthscale"], p["variance"]
-    if torch.is_grad_enabled() and (ell.requires_grad or var.requires_grad):
+    if (not in_second_order() and torch.is_grad_enabled()
+            and (ell.requires_grad or var.requires_grad)):
         with torch.no_grad():
             a, da_dl = _whitened_kuf_tangent(feat, kind, rel_jitter, ell.detach(),
                                              var.detach(), x)

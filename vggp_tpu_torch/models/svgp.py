@@ -184,7 +184,12 @@ class KronMoments(torch.autograd.Function):
     """(mean, var_red, var_add) of the Kronecker family with the hand-written
     backward of ``svgp.py:213-242``, whose matmuls ride
     ``config.MATMUL_PRECISION``. Called as ``apply(mu, *Ls, *blocks)``; the
-    full family is its one-axis case, L and the Khatri–Rao block."""
+    full family is its one-axis case, L and the Khatri–Rao block.
+
+    The backward reads t, r and v saved without a graph: it is exact to
+    first order only (its Hessian was 0.19–0.43 of max|H| off
+    ``jax.hessian``), so under ``create_graph`` it raises; inside
+    ``common.second_order()`` the moments take plain autograd."""
 
     @staticmethod
     def forward(ctx, mu, *mats):
@@ -197,6 +202,7 @@ class KronMoments(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gm, gr, gv):
+        common.first_order_only("KronMoments")
         d = ctx.d
         saved = ctx.saved_tensors
         mu = saved[0]
@@ -230,7 +236,7 @@ def _qf_mean_var(spec: SVGPSpec, params: Params, blocks,
         Ls = _var_chols(spec, q)
     if spec.variational == "full":
         Ls, blocks = (Ls,), (common.khatri_rao_all(blocks),)
-    if config.FAST_MOMENTS_BWD:
+    if config.FAST_MOMENTS_BWD and not common.in_second_order():
         return KronMoments.apply(q["mu"], *Ls, *blocks)
     mean, var_red, var_add, *_ = _moments_math(q["mu"], Ls, blocks)
     return mean, var_red, var_add
@@ -305,7 +311,10 @@ def elbo_muS(spec: SVGPSpec, params: Params, mu: torch.Tensor, S: torch.Tensor,
     else:
         ell_i = likelihoods.expected_log_lik(spec.likelihood, yb, mean, var_f,
                                              {**params, "noise": noise}, spec.likelihood_opts)
-    L = torch.linalg.cholesky(S)
+    # an S that is not positive definite gives NaN, as jnp.linalg.cholesky
+    # does (and a natural-gradient guard then drops the step), not an error
+    L, info = torch.linalg.cholesky_ex(S)
+    L = torch.where(info == 0, L, torch.full_like(L, math.nan))
     kl_val = 0.5 * (torch.sum(mu * mu) + torch.trace(S) - S.shape[0]
                     - 2.0 * torch.sum(torch.log(torch.diagonal(L))))
     return (spec.num_data / nb) * torch.sum(ell_i) - kl_val

@@ -51,6 +51,12 @@ def normal(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
     return _draw(torch.randn, gen, shape, like)
 
 
+def uniform(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` from ``gen``, made in float64 and cast to
+    ``like``'s dtype and device."""
+    return _draw(torch.rand, gen, shape, like)
+
+
 def sample_gaussian(gen: torch.Generator, g, n_samples: int) -> torch.Tensor:
     """(n_samples, n) draws from a :class:`models.common.Gaussian`: joint
     where the covariance is materialized, independent marginals where only

@@ -1,14 +1,21 @@
-"""Parameter transforms, init heuristics and training loops of the port
-(``vggp_tpu/train.py``: the transforms, ``non_informative_init``,
-``informative_init``, ``fit``, ``fit_minibatch`` and ``make_step_fn``).
+"""Parameter transforms, init heuristics, training loops, checkpoints and
+metrics of the port (``vggp_tpu/train.py``, all of it): the transforms,
+``non_informative_init``, ``informative_init``, ``fit``, ``fit_minibatch``,
+``make_step_fn``, the restarts, ``fit_lbfgs``, ``fit_natgrad``, the
+checkpoints, ``MetricsLogger`` and ``profile_trace``.
 
 Positive hyperparameters (variance, lengthscale, noise) live unconstrained
-under a floored softplus; models always see constrained values. The
-optimizer is ``torch.optim.Adam`` on the raw leaves.
+under a floored softplus; models always see constrained values. ``fit``,
+``fit_minibatch`` and the restarts step ``torch.optim.Adam`` on the raw
+leaves; ``fit_natgrad`` steps Adam as optax writes it, with its guard on the
+device; ``fit_lbfgs`` is optax's L-BFGS (``lbfgs.py``).
 """
 
 from __future__ import annotations
 
+import json
+import math
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -31,10 +38,13 @@ def inv_softplus(y: torch.Tensor) -> torch.Tensor:
 
 def _map_positive(tree, fn):
     """Apply ``fn(key, value)`` to the values under POSITIVE_KEYS anywhere in
-    a nested dict/tuple/list; leave everything else as it is."""
+    a nested dict/tuple/list; leave everything else as it is. ``fn`` is
+    called in sorted-key order (the order ``jax.tree`` visits a dict, which
+    ``init_restarts``'s draws follow); each dict keeps its own key order."""
     if isinstance(tree, dict):
-        return {k: (fn(k, v) if k in POSITIVE_KEYS else _map_positive(v, fn))
-                for k, v in tree.items()}
+        done = {k: (fn(k, tree[k]) if k in POSITIVE_KEYS else _map_positive(tree[k], fn))
+                for k in sorted(tree)}
+        return {k: done[k] for k in tree}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_positive(v, fn) for v in tree)
     return tree
@@ -55,6 +65,50 @@ def tree_map(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def sorted_leaves(tree) -> list:
+    """The leaves in ``jax.tree.leaves`` order: dict keys sorted, sequences
+    in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in sorted_leaves(v)]
+    return [tree]
+
+
+def ravel(tree) -> Tuple[torch.Tensor, Callable]:
+    """(flat, unravel) as ``jax.flatten_util.ravel_pytree`` gives them: the
+    leaves in :func:`sorted_leaves` order, each flattened, concatenated in
+    their common dtype. ``unravel(v)`` rebuilds the tree (its containers and
+    key order) from views of ``v``, so a gradient flows back to ``v``; a
+    ``v`` of shape (…, p) gives leaves with the same leading axes."""
+    leaves = sorted_leaves(tree)
+    dtype = leaves[0].dtype
+    for leaf in leaves[1:]:
+        dtype = torch.promote_types(dtype, leaf.dtype)
+    shapes = [leaf.shape for leaf in leaves]
+    flat = torch.cat([leaf.reshape(-1).to(dtype) for leaf in leaves])
+
+    def unravel(v: torch.Tensor):
+        parts, off = [], 0
+        for shape in shapes:
+            size = math.prod(shape)
+            parts.append(v[..., off:off + size].reshape(v.shape[:-1] + shape))
+            off += size
+        it = iter(parts)
+
+        def build(t):
+            if isinstance(t, dict):
+                got = {k: build(t[k]) for k in sorted(t)}
+                return {k: got[k] for k in t}
+            if isinstance(t, (tuple, list)):
+                return type(t)(build(x) for x in t)
+            return next(it)
+
+        return build(tree)
+
+    return flat, unravel
 
 
 def unconstrain(params: Dict) -> Dict:
@@ -255,3 +309,278 @@ def fit_minibatch(
     with torch.no_grad():
         final = constrain(tree_map(lambda v: v.detach(), raw))
     return final, {"loss": losses, "elbo": -losses}
+
+
+# --------------------------------------------------------------------------- #
+# multi-start fitting and L-BFGS
+# --------------------------------------------------------------------------- #
+
+def _randint(gen: torch.Generator, n: int, size: int, device) -> torch.Tensor:
+    """``size`` uniform indices in [0, n) from ``gen``, on ``device``."""
+    return torch.randint(0, n, (size,), generator=gen, device=gen.device).to(device)
+
+
+def init_restarts(params: Dict, gen: torch.Generator, n_restarts: int,
+                  spread: float = 0.5) -> Dict:
+    """Batch a base init into ``n_restarts`` starts along a new leading axis.
+
+    Restart 0 is the base init verbatim; restarts 1.. multiply every
+    positive hyperparameter (``POSITIVE_KEYS`` leaves) by an independent
+    ``exp(spread · N(0, 1))`` factor, one draw of (R, …) per leaf from
+    ``gen`` (``sampling.normal``), the leaves visited as the JAX package
+    visits them (dict keys sorted). Other leaves are tiled unchanged. Feed the result to
+    :func:`fit_restarts`.
+    """
+    from vggp_tpu_torch import sampling
+
+    tiled = tree_map(lambda v: v.expand((n_restarts,) + tuple(v.shape)).clone(), params)
+
+    def jitter(_k, v):
+        factor = torch.exp(spread * sampling.normal(gen, v.shape, v))
+        factor[0] = 1.0
+        return v * factor
+
+    return _map_positive(tiled, jitter)
+
+
+def fit_restarts(loss_fn: Callable[[Dict], torch.Tensor], params_batch: Dict, n_iters: int,
+                 learning_rate: float = 0.1) -> Tuple[Dict, Dict]:
+    """Multi-start fit: :func:`fit` from each restart of ``params_batch``
+    (every leaf with a leading restart axis, e.g. from
+    :func:`init_restarts`), one after another — the JAX package ``vmap``s
+    them into one program. Returns ``(best_params, hist)``: the restart with
+    the lowest final loss (a non-finite one counts as +inf), and its
+    history entries stacked to (R, n_iters) with ``hist["best"]`` the
+    winning index."""
+    n_restarts = tree_leaves(params_batch)[0].shape[0]
+    finals, hists = [], []
+    for r in range(n_restarts):
+        final, hist = fit(loss_fn, tree_map(lambda v: v[r], params_batch), n_iters,
+                          learning_rate)
+        finals.append(final)
+        hists.append(hist)
+    hist = {k: torch.stack([h[k] for h in hists]) for k in hists[0]}
+    last = hist["loss"][:, -1]
+    best = int(torch.argmin(torch.where(torch.isfinite(last), last,
+                                        torch.full_like(last, math.inf))))
+    hist["best"] = best
+    return finals[best], hist
+
+
+def fit_lbfgs(loss_fn: Callable[[Dict], torch.Tensor], params: Dict, n_iters: int = 100,
+              memory_size: int = 10) -> Tuple[Dict, Dict]:
+    """Full-batch fit with optax's L-BFGS and zoom line search
+    (:mod:`vggp_tpu_torch.lbfgs`) on the raw parameters flattened as
+    ``ravel_pytree`` flattens them.
+
+    For smooth full-batch objectives (exact MLL, collapsed ELBO); each
+    iteration costs one or more loss evaluations in the line search. A step
+    whose iterate is not finite everywhere is dropped with its optimizer
+    state. Returns (params, history): the loss before each step and the
+    parameters after it; the history flatlines once the search finds no
+    step.
+    """
+    from vggp_tpu_torch import lbfgs
+
+    flat, unravel = ravel(tree_map(lambda v: v.detach(), unconstrain(params)))
+
+    def value_and_grad(v):
+        v = v.detach().requires_grad_(True)
+        val = loss_fn(constrain(unravel(v)))
+        (g,) = torch.autograd.grad(val, v)
+        return val.detach(), g
+
+    state = lbfgs.init(flat, memory_size)
+    hist = []
+    for _ in range(n_iters):
+        new, new_state, val, _ = lbfgs.step(value_and_grad, flat, state)
+        if bool(torch.isfinite(new).all()):
+            flat, state = new, new_state
+        with torch.no_grad():
+            hist.append(_history_entry(constrain(unravel(flat)),
+                                       torch.as_tensor(val, dtype=flat.dtype, device=flat.device)))
+    history = {k: torch.stack([h[k] for h in hist]) for k in hist[0]} if hist else {}
+    with torch.no_grad():
+        return constrain(unravel(flat.clone())), history
+
+
+# --------------------------------------------------------------------------- #
+# natural gradients
+# --------------------------------------------------------------------------- #
+
+class _Adam:
+    """optax.adam (b1 0.9, b2 0.999, eps 1e-8) on a list of tensors, its
+    update and state taken or kept whole by a device-side select (the
+    JAX package's ``guarded_update``): no host read."""
+
+    def __init__(self, leaves, lr: float):
+        self.lr = lr
+        self.mu = [torch.zeros_like(v) for v in leaves]
+        self.nu = [torch.zeros_like(v) for v in leaves]
+        self.count = torch.zeros((), dtype=torch.int64, device=leaves[0].device)
+
+    def step(self, leaves, grads, ok: torch.Tensor) -> list:
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        count = self.count + 1
+        out, mus, nus = [], [], []
+        for v, g, mu, nu in zip(leaves, grads, self.mu, self.nu):
+            t = count.to(v.dtype)
+            mu_n = (1.0 - b1) * g + b1 * mu
+            nu_n = (1.0 - b2) * (g * g) + b2 * nu
+            mu_hat = mu_n / (1.0 - torch.pow(b1, t))
+            nu_hat = nu_n / (1.0 - torch.pow(b2, t))
+            new = v + (-self.lr) * (mu_hat / (torch.sqrt(nu_hat) + eps))
+            out.append(torch.where(ok, new, v))
+            mus.append(torch.where(ok, mu_n, mu))
+            nus.append(torch.where(ok, nu_n, nu))
+        self.mu, self.nu = mus, nus
+        self.count = torch.where(ok, count, self.count)
+        return out
+
+
+def _natural_to_moments(th1: torch.Tensor, th2: torch.Tensor):
+    """(μ, S) from natural parameters θ₁ = S⁻¹μ, θ₂ = −½S⁻¹."""
+    sinv = -2.0 * th2
+    L = torch.linalg.cholesky_ex(0.5 * (sinv + sinv.T))[0]   # PD by the step's guard
+    S = torch.cholesky_inverse(L)
+    S = 0.5 * (S + S.T)
+    return S @ th1, S
+
+
+def fit_natgrad(spec, params: Dict, X: torch.Tensor, y: torch.Tensor, n_iters: int,
+                gamma: float = 0.5, hyper_lr: float = 0.01, batch_size: Optional[int] = None,
+                seed: int = 0) -> Tuple[Dict, Dict]:
+    """Hybrid trainer of the full-family whitened SVGP: natural-gradient
+    steps on q, Adam on the hyperparameters (``train.py:414-524``).
+
+    With θ₁ = S⁻¹μ, θ₂ = −½S⁻¹ and dL/dξ₁ = ∇_μL − 2(∇_S L)μ, dL/dξ₂ = ∇_S L
+    of ``svgp.elbo_muS``, the step is θ ← θ − γ·dL/dξ. For a Gaussian
+    likelihood and the full batch, γ = 1 lands on the optimal q(u) in one
+    step; other likelihoods take γ < 1. A step that leaves −2θ₂ not
+    positive definite (``cholesky_ex``) or any part non-finite is dropped by
+    a device-side select, and so is a non-finite hyperparameter step.
+    Minibatch indices come from a ``torch.Generator`` seeded with ``seed``
+    on the data's device. Returns (params with q as (μ, raw_L), history of
+    the losses and ELBOs).
+    """
+    from vggp_tpu_torch.models import svgp as _svgp
+    from vggp_tpu_torch.ops.chol import safe_cholesky
+
+    if getattr(spec, "variational", "full") != "full":
+        raise ValueError(
+            "fit_natgrad requires the full variational family (the Kronecker-"
+            "factored covariance is not an exponential family, so the natural-"
+            "gradient step has no closed form); use train.fit_minibatch for "
+            "variational='kron'")
+    y = y.reshape(-1)
+    n = y.shape[0]
+    q0 = params["q"]
+    with torch.no_grad():
+        L0 = _svgp.chol_from_raw(q0["raw_L"])
+        S0 = L0 @ L0.T
+        th1 = torch.linalg.solve(S0, q0["mu"])
+        th2 = -0.5 * torch.linalg.inv(S0)
+    raw = raw_leaves_from({k: v for k, v in params.items() if k != "q"})
+    leaves = tree_leaves(raw)
+    opt = _Adam(leaves, hyper_lr)
+    gen = torch.Generator(device=X.device)
+    gen.manual_seed(seed)
+    losses = []
+    for _ in range(n_iters):
+        with torch.no_grad():
+            mu, S = _natural_to_moments(th1, th2)
+        if batch_size is None:
+            xb, yb = X, y
+        else:
+            idx = _randint(gen, n, batch_size, X.device)
+            xb, yb = X[idx], y[idx]
+        mu, S = mu.requires_grad_(True), S.requires_grad_(True)
+        p = dict(constrain(raw))
+        p["q"] = None
+        val = -_svgp.elbo_muS(spec, p, mu, S, xb, yb)
+        *g_h, g_mu, g_S = torch.autograd.grad(val, leaves + [mu, S], allow_unused=True)
+        with torch.no_grad():
+            g_h = [torch.zeros_like(v) if g is None else g for v, g in zip(leaves, g_h)]
+            g_S = 0.5 * (g_S + g_S.T)
+            new_th1 = th1 - gamma * (g_mu - 2.0 * (g_S @ mu))
+            new_th2 = th2 - gamma * g_S
+            probe, info = torch.linalg.cholesky_ex(-2.0 * 0.5 * (new_th2 + new_th2.T))
+            finite_val = torch.isfinite(val)
+            ok = (finite_val & torch.isfinite(new_th1).all() & (info == 0)
+                  & torch.isfinite(probe).all())
+            th1 = torch.where(ok, new_th1, th1)
+            th2 = torch.where(ok, new_th2, th2)
+            finite = finite_val
+            for g in g_h:
+                finite = finite & torch.isfinite(g).all()
+            for leaf, new in zip(leaves, opt.step(leaves, g_h, finite)):
+                leaf.copy_(new)
+            losses.append(val.detach())
+    with torch.no_grad():
+        mu, S = _natural_to_moments(th1, th2)
+        out = constrain(tree_map(lambda v: v.detach().clone(), raw))
+        out["q"] = {"mu": mu, "raw_L": _svgp.raw_from_chol(safe_cholesky(S, 1e-10))}
+    losses = torch.stack(losses) if losses else torch.zeros(0)
+    return out, {"loss": losses, "elbo": -losses}
+
+
+# --------------------------------------------------------------------------- #
+# checkpoints, metrics, tracing
+# --------------------------------------------------------------------------- #
+
+def save_checkpoint(path: str, params: Dict, step: int = 0) -> None:
+    """Save a parameter tree under ``path/<step>/`` with ``torch.save`` (its
+    tensors as they are, their devices recorded)."""
+    target = os.path.join(os.path.abspath(path), str(step))
+    os.makedirs(target, exist_ok=True)
+    torch.save(params, os.path.join(target, "params.pt"))
+
+
+def _restore_like(tree, like):
+    """``tree`` rebuilt in ``like``'s containers (tuples stay tuples)."""
+    if isinstance(like, dict):
+        return {k: _restore_like(tree[k], v) for k, v in like.items()}
+    if isinstance(like, (tuple, list)):
+        return type(like)(_restore_like(t, v) for t, v in zip(tree, like, strict=True))
+    return tree
+
+
+def load_checkpoint(path: str, step: int = 0, like: Optional[Dict] = None,
+                    map_location=None) -> Dict:
+    """Restore a parameter tree saved by :func:`save_checkpoint`
+    (``torch.load(weights_only=True)``), onto ``map_location`` where given.
+    ``like`` (a tree of the same structure, e.g. ``spec.init_params()``)
+    restores its container types and key order."""
+    target = os.path.join(os.path.abspath(path), str(step), "params.pt")
+    tree = torch.load(target, weights_only=True, map_location=map_location)
+    return tree if like is None else _restore_like(tree, like)
+
+
+class MetricsLogger:
+    """Minimal structured metrics logger: one JSON object a line, the bytes
+    the JAX package's logger writes."""
+
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        self.records = []
+
+    def log(self, step: int, **metrics) -> None:
+        rec = {"step": int(step)}
+        for k, v in metrics.items():
+            rec[k] = float(v)
+        self.records.append(rec)
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+
+
+def profile_trace(log_dir: str):
+    """A ``torch.profiler`` context (the CPU, and the card where there is
+    one) that writes a Chrome trace into ``log_dir`` on exit."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir))
