@@ -179,9 +179,23 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``posterior_from_state`` on that grid and at the face difference's
    (512, 513), both cell kernels at the collapsed model's (64, 65 536) and
    on the stretched mesh, ``cell_kuf`` at (64, 4096), (64, 65) and the CG
-   case's (16 384, 256), and the fused kernel beside the unfused route it replaces, and print them and
-   the steady-state step and serving times with the card's name and power
-   limit.
+   case's (16 384, 256), ``cell_kuf_with_dl`` at phase 15's (64, 8192),
+   and the fused kernel beside the unfused route it replaces, and print
+   them and the steady-state step and serving times with the card's name
+   and power limit;
+18. the object facade (``vggp_tpu_torch.api``), after phase 15, with no
+   profiler window: every call with no device named, held against the
+   functional calls it stands for at 1e-6 relative (the facade does no
+   arithmetic) with the same kernels launched, the host ms of each side
+   printed: (a) ``SVGP.gridded`` at the main path's 512² cells, ``fit`` 8
+   steps at 4096 and 4 at 16 384, ``precompute``, the warm ``predict``,
+   ``q_v`` and ``q_dv``, ``q_v`` cold, ``save``/``restore`` and
+   ``sample_q_v`` bitwise; (b) ``SVGP.multioutput`` (12a's model) ``fit`` 4
+   steps and ``sample_q_v``: the zero-mean draws plus ``grid_mean``; (c)
+   ``GP.gridded`` (phase 7's model) ``fit`` 6 steps, ``q_v``, ``q_dv``,
+   ``solve_iterative``, ``q_v_mean_iterative``; (d) 11a's model streamed
+   through ``Streaming`` (4 chunks of 16 384) and ``to_svgp().q_v()``; its
+   launches read by shape, each at a shape held against plain before.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -681,7 +695,8 @@ def drive_main_path(device, X, y, Xs):
     """Phases 4 and 5: train at 4096 and 16384, serve the posterior."""
     import torch
 
-    from vggp_tpu_torch import CellIntegralFeature, SVGP, SVGPSpec, svgp, train
+    from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, svgp, train
+    from vggp_tpu_torch.models.svgp import SVGP
     from vggp_tpu_torch.ops import cell_kuf as ck
 
     spec = SVGPSpec(kinds=("matern12", "matern12"),
@@ -1399,7 +1414,8 @@ def train_likelihood(device, X, y, i) -> tuple:
     losses, ms per step, launches)."""
     import torch
 
-    from vggp_tpu_torch import SVGP, CellIntegralFeature, SVGPSpec, svgp, train
+    from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, svgp, train
+    from vggp_tpu_torch.models.svgp import SVGP
     from vggp_tpu_torch.ops import cell_kuf as ck
 
     name, opts = LIKELIHOODS[i]
@@ -1603,7 +1619,8 @@ def train_svgp(device, spec, X, y, runs, seed, after_run=None) -> tuple:
     launches)])."""
     import torch
 
-    from vggp_tpu_torch import SVGP, svgp, train
+    from vggp_tpu_torch import svgp, train
+    from vggp_tpu_torch.models.svgp import SVGP
     from vggp_tpu_torch.ops import cell_kuf as ck
 
     model = SVGP(spec)
@@ -2731,7 +2748,8 @@ def icm_svgp_part(device, Xm, ym, Xsm, timings) -> dict:
     float64 at 4096 points. Returns the launches."""
     import torch
 
-    from vggp_tpu_torch import SVGP, kernels, svgp, train
+    from vggp_tpu_torch import kernels, svgp, train
+    from vggp_tpu_torch.models.svgp import SVGP
     from vggp_tpu_torch.ops import cell_kuf as ck
 
     spec = icm_svgp_spec()
@@ -4721,6 +4739,312 @@ def hyperpost_phase(device, X, y, Xs, models) -> tuple:
     return launches, timings, errs, at, readings
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: the object facade (api.GP, api.SVGP, api.Streaming) on the card
+# --------------------------------------------------------------------------- #
+
+P18_STEPS = 8             # 18a at batch 4096 (cell_kuf_with_dl twice a step)
+P18_FUSED_STEPS = 4       # 18a at batch 16 384 (the fused kernel twice a step)
+P18_ICM_STEPS = 4         # 18b at batch 4096 (cell_kuf twice a step: the dense route)
+P18_SAMPLES = 16          # 18a and 18b: sample_q_v
+P18_FEATURES = 2048
+P18_COLLAPSED_STEPS = 6   # 18c, full batch on SGPR_N points
+P18_STREAM_CHUNKS = 4     # 18d, chunks of STREAM_CHUNK
+P18_LR = 1e-2             # phase 4's learning rate (its seed, 0, seeds every fit)
+P18_SEED = 18             # the draws' generator
+# the facade does no arithmetic: its results are the functional calls', the
+# same kernels on the same inputs; this bound leaves float32 roundoff room
+TOL_FACADE = 1e-6
+P18_SHAPE_LAUNCHES = collections.Counter()
+
+
+def p18_held_shapes() -> set:
+    """(kernel, m, n) of every launch phase 18 may make: the shapes phases 3
+    and 14 held against the plain version."""
+    return {("cell_kuf_with_dl", M_AXIS, TRAIN_BATCH), ("cell_kuf", M_AXIS, TRAIN_BATCH),
+            ("fused_banded_whiten_kuf", M_AXIS, FUSED_BATCH), ("cell_kuf", M_AXIS, SERVE_POINTS),
+            ("cell_kuf", M_AXIS, M_AXIS + 1), ("cell_kuf_with_dl", SGPR_CELLS, SGPR_N),
+            ("cell_kuf", SGPR_CELLS, SGPR_N), ("cell_kuf", SGPR_CELLS, SGPR_CELLS + 1),
+            ("cell_kuf", FULL_CELLS, STREAM_CHUNK)}
+
+
+def _p18_tensors(out) -> list:
+    """The tensors of a facade result: a tensor, a Gaussian, a PSD factor,
+    or a dict, tuple or list of them."""
+    from vggp_tpu_torch.models.common import Gaussian
+
+    if isinstance(out, Gaussian):
+        return [t for t in (out.mean, out.cov, out.var) if t is not None]
+    if hasattr(out, "F"):
+        return [out.F]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _p18_tensors(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for v in out for t in _p18_tensors(v)]
+    return [out]
+
+
+def p18_pair(what, facade, functional, want=None, no_grad=True, repeat=True) -> tuple:
+    """The facade call and the functional calls it stands for (under
+    no_grad with ``no_grad``), each on the host clock (ending in
+    synchronize) with its launches counted (reset just before, read just
+    after), in turns facade, functional and, with ``repeat`` (a call that
+    can run twice), again, so the second pair's times are warm. Every
+    facade call's launches by shape join P18_SHAPE_LAUNCHES. Each call of
+    the pair launches the same kernels (``want`` where given); the last
+    outputs are finite and agree within TOL_FACADE (max|Δ|/max|ref| of each
+    tensor). Returns (the facade's output, the functional output, the
+    facade's launches over its calls, the readings)."""
+    import contextlib
+
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    runs = {"facade": [], "functional": []}
+    total = dict(NO_LAUNCHES)
+    for _ in range(2 if repeat else 1):
+        for side, fn, ctx in (("facade", facade, contextlib.nullcontext()),
+                              ("functional", functional,
+                               torch.no_grad() if no_grad else contextlib.nullcontext())):
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx:
+                out = fn()
+            torch.cuda.synchronize()
+            got = dict(ck.LAUNCHES)
+            runs[side].append((out, (time.perf_counter() - t0) * 1e3, got))
+            if side == "facade":
+                P18_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
+                total = add_launches(total, got)
+        check(runs["facade"][-1][2] == runs["functional"][-1][2],
+              f"18 {what}: facade launches {runs['facade'][-1][2]}, functional "
+              f"{runs['functional'][-1][2]}")
+        check(want is None or runs["facade"][-1][2] == {**NO_LAUNCHES, **want},
+              f"18 {what}: launches {runs['facade'][-1][2]}, expected {want}")
+    got, ref = runs["facade"][-1][0], runs["functional"][-1][0]
+    gt, rt = _p18_tensors(got), _p18_tensors(ref)
+    check(len(gt) == len(rt) and all(g.shape == r.shape for g, r in zip(gt, rt)),
+          f"18 {what}: the facade's output does not match the functional one's in structure")
+    err = max(rel_err(g.double(), r.double()) for g, r in zip(gt, rt))
+    ms = {side: [r[1] for r in runs[side]] for side in runs}
+    print(f"check 18 {what}: host ms facade " + "/".join(f"{t:.3f}" for t in ms["facade"])
+          + ", functional " + "/".join(f"{t:.3f}" for t in ms["functional"])
+          + f", rel {err:.3e} (tol {TOL_FACADE:.0e}), launches {runs['facade'][-1][2]}")
+    check(all(bool(torch.isfinite(t).all()) for t in gt), f"18 {what}: not finite")
+    check(err <= TOL_FACADE, f"18 {what}: facade vs functional {err} > {TOL_FACADE}")
+    return got, ref, total, {"facade_ms": ms["facade"], "functional_ms": ms["functional"],
+                             "rel": err}
+
+
+def facade_phase(device, X, y, Xs, models) -> tuple:
+    """Phase 18: the object facade, every call through ``vggp_tpu_torch.api``
+    with no device named (so on the card), on phase 4's data at its
+    learning rate and seed, each held by :func:`p18_pair` against the
+    functional calls it stands for. (a) ``SVGP.gridded`` at the main path's
+    512² cells: ``fit`` P18_STEPS at 4096 then P18_FUSED_STEPS at 16 384
+    (continuing), ``precompute`` and the warm ``predict``, ``q_v`` and
+    ``q_dv``, ``q_v`` cold on a copy without the state, ``save`` and
+    ``restore`` (bitwise), ``sample_q_v`` (bitwise); (b) ``SVGP.multioutput``
+    (12a's model, a noise and a mean per output, on 12a's two-output data)
+    ``fit`` P18_ICM_STEPS at 4096 and ``sample_q_v``, whose draws are the
+    functional draws of the same params with the mean at 0 plus
+    ``common.grid_mean`` (ROADMAP queue 3, item 14); (c) ``GP.gridded``
+    (phase 7's model) on SGPR_N points: ``fit``, ``q_v``, ``q_dv``,
+    ``solve_iterative``, ``q_v_mean_iterative``; (d) the full family with
+    11a's trained params (``models["full2d"]``): ``streaming`` of
+    P18_STREAM_CHUNKS chunks of STREAM_CHUNK and ``to_svgp().q_v()``. Every
+    launch must be at a shape held against the plain version before.
+    Returns (the facade's launches, timings, its launches by (name, m, n))."""
+    import tempfile
+
+    import torch
+
+    from vggp_tpu_torch import api, iterative, sampling, sgpr, streaming, svgp, train
+    from vggp_tpu_torch.models import common
+
+    P18_SHAPE_LAUNCHES.clear()
+    timings = {}
+    launches = dict(NO_LAUNCHES)
+    lims = ((0.0, 1.0), (0.0, 1.0))
+    f32 = torch.float32
+
+    def pair(what, facade, functional, want=None, no_grad=True, repeat=True):
+        nonlocal launches
+        got, ref, n, r = p18_pair(what, facade, functional, want, no_grad, repeat)
+        launches = add_launches(launches, n)
+        timings[f"p18 {what}"] = r
+        return got, ref
+
+    def gen():
+        g = torch.Generator(device=device)
+        g.manual_seed(P18_SEED)
+        return g
+
+    def fits(what, facade, loss, params, runs, X, y):
+        """Facade fits against train.fit_minibatch continuing from
+        ``params``, non-informatively initialised in the first fit as the
+        facade's fresh params are: ``runs`` of (n_steps, batch, the kernel
+        launched twice a step)."""
+        ref = {}
+
+        def functional(n_steps, batch):
+            if not ref:
+                ref["p"] = train.non_informative_init(params, X, y)
+            ref["p"], _ = train.fit_minibatch(loss, ref["p"], X, y, n_steps, batch, P18_LR,
+                                              seed=0)
+            return ref["p"]
+
+        for n_steps, batch, kernel in runs:
+            pair(f"{what} fit {n_steps} steps at batch {batch}",
+                 lambda n_steps=n_steps, batch=batch: facade.fit(
+                     X, y, n_iters=n_steps, batch_size=batch, learning_rate=P18_LR,
+                     seed=0).params,
+                 lambda n_steps=n_steps, batch=batch: functional(n_steps, batch),
+                 {kernel: 2 * n_steps}, no_grad=False, repeat=False)
+            losses = [float(v) for v in facade.history["loss"]]
+            print(f"{what} loss at batch {batch}: {losses[0]:.6g} -> {losses[-1]:.6g}")
+        return ref["p"]
+
+    # 18a: the main path through the facade
+    t0 = time.perf_counter()
+    m = api.SVGP.gridded((M_AXIS, M_AXIS), lims, num_data=NUM_DATA)
+    spec, own = m.spec, m.spec.features
+    check(m.device.type == device.type and spec.variational == "kron"
+          and spec.kinds == ("matern12",) * 2 and m.params["noise"].dtype == f32,
+          "18a: SVGP.gridded's spec, device or dtype")
+    p = fits("18a SVGP", m, lambda q, xb, yb: svgp.loss(spec, q, xb, yb),
+             spec.init_params(f32, device), ((P18_STEPS, TRAIN_BATCH, "cell_kuf_with_dl"),
+                                             (P18_FUSED_STEPS, FUSED_BATCH,
+                                              "fused_banded_whiten_kuf")), X, y)
+    state = {}
+    pair("18a precompute", lambda: m.precompute()._state,
+         lambda: state.setdefault("st", svgp.precompute(spec, p)), {})
+    st = state["st"]
+    pair(f"18a predict {SERVE_POINTS} points warm", lambda: m.predict(Xs),
+         lambda: svgp.posterior_from_state(spec, p, st, Xs), {"cell_kuf": 2})
+    pair("18a q_v warm", lambda: m.q_v(), lambda: svgp.q_v_from_state(spec, p, st, own), {})
+    pair("18a q_dv axis 0 warm", lambda: m.q_dv(axis=0),
+         lambda: svgp.q_dv_from_state(spec, p, st, own, 0), {"cell_kuf": 1})
+    cold = api.SVGP(spec, params=m.params)
+    pair("18a q_v cold", lambda: cold.q_v(), lambda: svgp.q_v(spec, p, own), {})
+    with tempfile.TemporaryDirectory() as root:
+        t1 = time.perf_counter()
+        m.save(root)
+        back = api.SVGP.gridded((M_AXIS, M_AXIS), lims, num_data=NUM_DATA).restore(root)
+        torch.cuda.synchronize()
+        timings["p18 18a save and restore ms"] = (time.perf_counter() - t1) * 1e3
+    same = all(torch.equal(a, b) and b.device.type == device.type for a, b in zip(
+        train.sorted_leaves(m.params), train.sorted_leaves(back.params), strict=True))
+    print(f"check 18a save and restore: bitwise {same}, "
+          f"{timings['p18 18a save and restore ms']:.3f} ms")
+    check(same, "18a: the restored params differ from the saved ones")
+    got, ref = pair(f"18a sample_q_v S={P18_SAMPLES} F={P18_FEATURES}",
+                    lambda: m.sample_q_v(gen(), n_samples=P18_SAMPLES, n_features=P18_FEATURES),
+                    lambda: sampling.pathwise_q_v(spec, p, gen(), own, n_samples=P18_SAMPLES,
+                                                  n_features=P18_FEATURES))
+    check(torch.equal(got, ref), "18a: sample_q_v is not the functional draws bit for bit")
+    timings["p18_18a_s"] = time.perf_counter() - t0
+
+    # 18b: the item-14 repair at the main path's width
+    t0 = time.perf_counter()
+    Xm, ym, _ = make_data_multioutput(device)
+    mo = api.SVGP.multioutput((M_AXIS, M_AXIS), lims, n_outputs=2, num_data=NUM_DATA,
+                              per_output_noise=True)
+    spec_mo = mo.spec
+    ref_spec = icm_svgp_spec()
+    check(spec_mo.kinds == ref_spec.kinds and spec_mo.learn_mean and spec_mo.per_output_noise
+          and spec_mo.variational == "kron" and spec_mo.axis_m == ref_spec.axis_m,
+          "18b: SVGP.multioutput is not 12a's model")
+    p_mo = fits("18b SVGP.multioutput", mo, lambda q, xb, yb: svgp.loss(spec_mo, q, xb, yb),
+                spec_mo.init_params(f32, device),
+                ((P18_ICM_STEPS, TRAIN_BATCH, "cell_kuf"),), Xm, ym)
+    p_zero = {**p_mo, "mean": torch.zeros_like(p_mo["mean"])}
+    offset = common.grid_mean(spec_mo, p_mo, spec_mo.features)
+    got, ref = pair(f"18b sample_q_v S={P18_SAMPLES} F={P18_FEATURES} against the zero-mean "
+                    "draws plus grid_mean",
+                    lambda: mo.sample_q_v(gen(), n_samples=P18_SAMPLES, n_features=P18_FEATURES),
+                    lambda: sampling.pathwise_q_v(spec_mo, p_zero, gen(), spec_mo.features,
+                                                  n_samples=P18_SAMPLES,
+                                                  n_features=P18_FEATURES) + offset)
+    print(f"18b learned means {p_mo['mean'].cpu().numpy().round(5).tolist()}: grid_mean in "
+          f"[{float(offset.min()):.4e}, {float(offset.max()):.4e}], draws in "
+          f"[{float(got.min()):.4e}, {float(got.max()):.4e}]")
+    timings["p18_18b_s"] = time.perf_counter() - t0
+
+    # 18c: the collapsed GriddedGP (phase 7's model) through api.GP
+    t0 = time.perf_counter()
+    Xn, yn = X[:SGPR_N], y[:SGPR_N]
+    gp = api.GP.gridded((SGPR_CELLS, SGPR_CELLS), lims)
+    spec_c = gp.spec
+    own_c = spec_c.features
+    fitted = {}
+
+    def collapsed_fit():
+        p0 = train.non_informative_init(spec_c.init_params(f32, device), Xn, yn)
+        fitted["p"], _ = train.fit(lambda q: sgpr.loss(spec_c, q, Xn, yn), p0,
+                                   P18_COLLAPSED_STEPS, P18_LR)
+        return fitted["p"]
+
+    pair(f"18c GP.fit {P18_COLLAPSED_STEPS} steps",
+         lambda: gp.fit(Xn, yn, n_iters=P18_COLLAPSED_STEPS, learning_rate=P18_LR).params,
+         collapsed_fit, {"cell_kuf_with_dl": 2 * P18_COLLAPSED_STEPS}, no_grad=False,
+         repeat=False)
+    pc = fitted["p"]
+    pair("18c q_v", lambda: gp.q_v(), lambda: sgpr.q_v(spec_c, pc, Xn, yn, own_c, full_cov=False),
+         {"cell_kuf": 2})
+    pair("18c q_dv axis 0", lambda: gp.q_dv(axis=0),
+         lambda: sgpr.q_dv(spec_c, pc, Xn, yn, own_c, 0, full_cov=False), {"cell_kuf": 3})
+    _, w = pair("18c solve_iterative", lambda: gp.solve_iterative()._w,
+                lambda: iterative.solve_w(spec_c, pc, Xn, yn))
+    pair("18c q_v_mean_iterative", lambda: gp.q_v_mean_iterative(),
+         lambda: iterative.q_v_mean_from_w(spec_c, pc, own_c, w), {})
+    timings["p18_18c_s"] = time.perf_counter() - t0
+
+    # 18d: streaming through the facade on 11a's trained model
+    t0 = time.perf_counter()
+    spec_f, p_f = models["full2d"]
+    full = api.SVGP.gridded((FULL_CELLS, FULL_CELLS), lims, num_data=NUM_DATA,
+                            variational="full", learn_mean=True)
+    check(full.spec.kinds == spec_f.kinds and full.spec.variational == "full"
+          and full.spec.learn_mean and full.spec.axis_m == spec_f.axis_m,
+          "18d: SVGP.gridded(variational='full') is not 11a's model")
+    stream = api.SVGP(full.spec, params=p_f).streaming()
+    chunks = [(X[lo:lo + STREAM_CHUNK], y[lo:lo + STREAM_CHUNK])
+              for lo in range(0, P18_STREAM_CHUNKS * STREAM_CHUNK, STREAM_CHUNK)]
+
+    def facade_stream():
+        for xc, yc in chunks:
+            stream.assimilate(xc, yc)
+        return stream.state
+
+    def functional_stream():
+        s = streaming.init_state(spec_f, f32, device)
+        for xc, yc in chunks:
+            s = streaming.assimilate(spec_f, p_f, s, xc, yc)
+        return s
+
+    _, s_ref = pair(f"18d Streaming.assimilate {P18_STREAM_CHUNKS} chunks of {STREAM_CHUNK}",
+                    facade_stream, functional_stream, {"cell_kuf": 2 * P18_STREAM_CHUNKS},
+                    repeat=False)
+    check(stream.n_seen == P18_STREAM_CHUNKS * STREAM_CHUNK, f"18d n_seen {stream.n_seen}")
+    pair("18d to_svgp().q_v()", lambda: stream.to_svgp().q_v(),
+         lambda: svgp.q_v(spec_f, streaming.to_params(spec_f, p_f, s_ref), spec_f.features,
+                          full_cov=False), {})
+    timings["p18_18d_s"] = time.perf_counter() - t0
+
+    at = dict(P18_SHAPE_LAUNCHES)
+    print(f"phase 18's launches by shape: {at}")
+    held = p18_held_shapes()
+    check(all(k in held for k in at), f"phase 18 launched a shape never held against plain: "
+          f"{sorted(k for k in at if k not in held)}")
+    check(sum(at.values()) == sum(launches.values()),
+          f"phase 18: launches by shape {at} vs {launches}")
+    check(all(launches[k] > 0 for k in launches), f"phase 18: a kernel never launched: {launches}")
+    return launches, timings, at
+
+
 PROFILE_STEPS = 3
 
 
@@ -5129,6 +5453,13 @@ def main() -> int:
     for name in ("cell_kuf", "cell_kuf_with_dl"):
         for m, n in P15_NEW_SHAPES:
             shapes[name][f"at_{m}_cells_{n}"] = time_kuf_shape(device, m, n, name=name)
+    # phase 15's HMC and marginalized heads run cell_kuf_with_dl at
+    # (64, SGPR_CUT_N), phase 3 held it there; its time and share of the bound
+    cut = time_kuf_shape(device, SGPR_CELLS, SGPR_CUT_N, name="cell_kuf_with_dl")
+    cut["share_of_bound"] = cut["bound_ms"] / cut["ms"]
+    print(f"cell_kuf_with_dl at ({SGPR_CELLS}, {SGPR_CUT_N}): {cut['share_of_bound']:.3f} of its "
+          f"bound")
+    shapes["cell_kuf_with_dl"][f"at_{SGPR_CELLS}_cells_{SGPR_CUT_N}"] = cut
     shapes["cell_kuf"]["cell_kuf_op_backward_at_512_cells_4096"] = {
         "max_abs_err_vs_cpu_f64": family_errs[("cell_kuf_op_backward", M_AXIS, TRAIN_BATCH)]}
     rows = measure_kernels(device, errs, launches, shapes)
@@ -5140,9 +5471,18 @@ def main() -> int:
     print(f"hyperpost_phase: {timings['hyperpost_phase_s']:.1f} s")
     launches = add_launches(launches, got)
     timings.update(phase_times)
+    t0 = time.perf_counter()
+    got, phase_times, p18_at = facade_phase(device, X, y, Xs, {"full2d": full2d})
+    timings["facade_phase_s"] = time.perf_counter() - t0
+    print(f"facade_phase: {timings['facade_phase_s']:.1f} s")
+    launches = add_launches(launches, got)
+    timings.update(phase_times)
     for row in rows:
         name = row["name"]
         row["launches"] = launches[name]
+        row["phase18_launches"] = got[name]
+        row["phase18_launches_by_shape"] = {
+            f"{m}x{n}": k for (kname, m, n), k in sorted(p18_at.items()) if kname == name}
         if name == "fused_banded_whiten_kuf":
             continue
         for m, n in P15_NEW_SHAPES:
@@ -5150,6 +5490,9 @@ def main() -> int:
                                             max_abs_err=p15_errs[(name, m, n)])
         row["phase15_launches_by_shape"] = {
             f"{m}x{n}": k for (kname, m, n), k in sorted(p15_at.items()) if kname == name}
+        if name == "cell_kuf_with_dl":
+            row[f"at_{SGPR_CELLS}_cells_{SGPR_CUT_N}"]["launches_phase15"] = p15_at.get(
+                (name, SGPR_CELLS, SGPR_CUT_N), 0)
     timings["card"] = card
     print(json.dumps({"steps": timings}))
     print(json.dumps({"kernels": rows, "card": card}))

@@ -795,3 +795,35 @@ def test_cuda_checkpoint_loads_with_map_location(cuda, tmp_path):
                        strict=True):
         assert b.device.type == "cpu" and c.device.type == "cuda"
         assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_cuda_facade_lands_on_the_card(cuda, tmp_path):
+    """An ``api.SVGP`` built with no ``device`` holds its params on the card
+    and fits there through the cell kernels; a checkpoint written from the
+    CPU restores onto the card (``restore`` maps to the facade's device),
+    bitwise, and the facade's ``q_v`` then equals the CPU facade's."""
+    from vggp_tpu_torch import api
+
+    rng = np.random.default_rng(23)
+    X = rng.random((2048, 2))
+    y = np.sin(6 * X[:, 0]) * np.cos(5 * X[:, 1]) + 0.1 * rng.standard_normal(2048)
+    m = api.SVGP.gridded((24, 24), (0.0, 1.0), num_data=2048, dtype=torch.float64)
+    assert m.device.type == "cuda"
+    assert all(v.device.type == "cuda" for v in train.tree_leaves(m.params))
+    ck.reset_launch_counts()
+    m.fit(X, y, n_iters=3, batch_size=512)
+    assert ck.LAUNCHES["cell_kuf_with_dl"] == 6
+    host = api.SVGP(m.spec, params=train.tree_map(lambda v: v.cpu(), m.params), device="cpu",
+                    dtype=torch.float64)
+    host.save(str(tmp_path))
+    back = api.SVGP.gridded((24, 24), (0.0, 1.0), num_data=2048,
+                            dtype=torch.float64).restore(str(tmp_path))
+    for a, b in zip(train.sorted_leaves(m.params), train.sorted_leaves(back.params),
+                    strict=True):
+        assert b.device.type == "cuda" and torch.equal(a, b)
+    got, want = back.q_v(), host.q_v()
+    torch.cuda.synchronize()
+    for g, w in ((got.mean, want.mean), (got.var, want.var)):
+        assert g.device.type == "cuda"
+        assert float((g.cpu() - w).abs().max() / w.abs().max()) < 1e-10

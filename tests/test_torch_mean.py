@@ -109,7 +109,7 @@ def test_full_family_fit_minibatch_and_module():
                                       30, 64, learning_rate=0.02)
     assert float(hist["loss"][-5:].mean()) < float(hist["loss"][:5].mean())
     assert abs(float(final["mean"]) - float(p0["mean"])) > 0
-    model = vggp_tpu_torch.SVGP(tspec, p0, dtype=torch.float64)
+    model = svgp.SVGP(tspec, p0, dtype=torch.float64)
     raw = model.raw_params()
     assert sorted(raw) == ["axes", "mean", "noise", "q"] and sorted(raw["q"]) == ["mu", "raw_L"]
     assert "z" in raw["axes"][0]

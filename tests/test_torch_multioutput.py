@@ -249,7 +249,7 @@ def test_icm_svgp_module_and_fit_match_jax():
     ``fit_minibatch`` on the ICM SVGP train (the loss falls)."""
     _, tspec = _svgp_icm(2, "kron")
     p = _to_torch(_svgp_icm_params(_svgp_icm(2, "kron")[0], 2))
-    model = vggp_tpu_torch.SVGP(tspec, p, dtype=torch.float64, device="cpu")
+    model = svgp.SVGP(tspec, p, dtype=torch.float64, device="cpu")
     assert model.noise.shape == (2,) and model.mean.shape == (2,)
     assert set(model.axes[2].keys()) == {"w", "kappa"}
     X, y = _icm_data(2, 200, 4)

@@ -456,7 +456,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'vggp_tpu', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"
-        "for m in ('hyperpost', 'lbfgs', 'train', 'convert'):\n"
+        "for m in ('hyperpost', 'lbfgs', 'train', 'convert', 'api', 'utils', 'utils.metrics',\n"
+        "          'utils.scalers', 'utils.datagen', 'utils.integrators'):\n"
         "    assert 'vggp_tpu_torch.' + m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules if k.startswith('vggp_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -11,7 +11,8 @@ each sampler one jitted program): the SVGP's Kronecker, full and ICM forms,
 the collapsed GP and its ICM form, the free points, the exact GP with a
 noise level per output, the additive model and an LMC sum, through the
 ``pathwise`` dispatch; ``pathwise_q_v`` on both SVGP families and the
-collapsed GP; the joint gradient draws of the SVGP and the collapsed GP at
+collapsed GP (the port adds the learned mean's cell integrals there, a
+departure); the joint gradient draws of the SVGP and the collapsed GP at
 integer axes and at order tuples. The dispatch errors, one float32 case
 against the JAX package's float32 error and the byte-budget split of the
 samples (``iterative.SAMPLER_CHUNK_BYTES``) complete the file.
@@ -378,10 +379,16 @@ def test_pathwise_matches_jax(name, monkeypatch):
 @pytest.mark.parametrize("name", ("svgp kron", "svgp full", "collapsed"))
 def test_pathwise_q_v_matches_jax(name, monkeypatch):
     """``pathwise_q_v`` on a 5×4 grid of cells for the SVGP's two families
-    and the collapsed GP (no mean added, as in JAX): rtol 1e-8."""
+    and the collapsed GP: rtol 1e-8 against JAX's draws plus JAX's
+    ``common.grid_mean`` of the learned mean, which the port adds and JAX
+    does not (ROADMAP queue 3, item 14)."""
+    from vggp_tpu.models import common as jcommon
+
     got, want = _run_both(name, "q_v", monkeypatch)
+    jspec, _, p, *_ = _case(name)
+    offset = np.asarray(jcommon.grid_mean(jspec, _both(p)[0], _cells(jf, 5, 4)))
     assert got.shape == (S, 20)
-    _close(got, want)
+    _close(got, want + offset)
 
 
 @pytest.mark.parametrize("grad_axes", [(0, 1), ((2, 0),), ((1, 1), 0)],
@@ -487,27 +494,27 @@ def test_chunked_samples_equal_one_batch(monkeypatch):
     assert math.isfinite(float(one.abs().max()))
 
 
-def test_pathwise_q_v_adds_no_learned_mean_as_jax():
-    """``pathwise_q_v`` adds no mean, as in the JAX package, where
-    ``svgp.q_v`` adds the mean's cell integrals (ROADMAP queue 3, item 14):
-    the draws of a model with a learned mean equal those with the mean at
-    0 from the same generator (rtol 1e-12) in both packages, while the
-    head's mean moves by ``common.grid_mean``."""
-    from vggp_tpu_torch.models import common
+def test_pathwise_q_v_adds_the_learned_mean(monkeypatch):
+    """``pathwise_q_v`` adds a learned mean's cell integrals, as ``q_v``
+    does: a recorded departure from the JAX package, whose draws leave the
+    mean out (ROADMAP queue 3, item 14). From one patched draw table, the
+    port's draws with the mean at 0.7 equal JAX's draws plus JAX's
+    ``common.grid_mean``, and with the mean at 0 JAX's draws, at rtol 1e-12."""
+    from vggp_tpu.models import common as jcommon
 
     jspec, tspec, p, _, _, _ = _case("svgp kron")
     grids = lambda pkg: _cells(pkg, 5, 4)
-    draws, heads = [], []
+    key = jax.random.PRNGKey(2)
     for mean in (0.7, 0.0):
-        q = {**p, "mean": np.asarray(mean)}
-        jp, tp = _both(q)
-        draws.append((
-            sampling.pathwise_q_v(tspec, tp, torch.Generator().manual_seed(2), grids(tf),
-                                  n_samples=3, n_features=F),
-            np.asarray(jax.jit(lambda p: jsampling.pathwise_q_v(
-                jspec, p, jax.random.PRNGKey(2), grids(jf), n_samples=3, n_features=F))(jp))))
-        heads.append((svgp.q_v(tspec, tp, grids(tf)).mean,
-                      common.grid_mean(tspec, tp, grids(tf))))
-    _close(draws[0][0], draws[1][0], 1e-12)
-    _close(draws[0][1], draws[1][1], 1e-12)
-    _close(heads[0][0] - heads[1][0], heads[0][1], 1e-12)
+        jp, tp = _both({**p, "mean": np.asarray(mean)})
+        _patch_draws(monkeypatch, "svgp kron", jspec, key, 3)
+        got = sampling.pathwise_q_v(tspec, tp, torch.Generator(), grids(tf), n_samples=3,
+                                    n_features=F)
+        want = np.asarray(jax.jit(lambda p: jsampling.pathwise_q_v(
+            jspec, p, key, grids(jf), n_samples=3, n_features=F))(jp))
+        offset = np.asarray(jcommon.grid_mean(jspec, jp, grids(jf)))
+        if mean == 0.0:
+            _close(got, want, 1e-12)
+        else:
+            assert np.abs(offset).min() > 0.0
+            _close(got, want + offset, 1e-12)

@@ -272,7 +272,7 @@ def test_dense_whitening_loss_and_gradients_match_jax(fitted, batch, monkeypatch
 def test_module_methods_call_the_heads(fitted):
     _, tspec = _specs()
     _, tp = _both(fitted)
-    model = vggp_tpu_torch.SVGP(tspec, tp, dtype=torch.float64, device="cpu")
+    model = svgp.SVGP(tspec, tp, dtype=torch.float64, device="cpu")
     xs = torch.tensor(_data(6, 10)[0])
     with torch.no_grad():
         p = model.params()

@@ -387,7 +387,7 @@ def test_svgp_module_and_fit_minibatch():
     loss as the functional form; fit_minibatch lowers the loss."""
     _, tspec = _specs()
     p_np = _params_np(4)
-    model = vggp_tpu_torch.SVGP(tspec, _torch_tree(p_np), device="cpu")
+    model = svgp.SVGP(tspec, _torch_tree(p_np), device="cpu")
     assert len(list(model.parameters())) == 2 * 2 + 1 + 3
     x, y = _batch(4)
     xt, yt = torch.tensor(x), torch.tensor(y)
@@ -406,7 +406,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tspec.init_params()
     with pytest.raises(RuntimeError, match="CUDA"):
-        vggp_tpu_torch.SVGP(tspec)
+        svgp.SVGP(tspec)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.params_from_jax(_params_np(5))
     assert tspec.init_params(device="cpu")["noise"].device.type == "cpu"

@@ -930,7 +930,12 @@ def pathwise_q_v(spec, params, gen: torch.Generator, grid_axes, n_samples: int =
     """Coherent joint draws of the gridded product v → (S, g), flat
     row-major (the ``numpy.kron`` order of ``q_v``), for the ``SVGPSpec``
     (either variational family) and the collapsed ``SGPRSpec`` (pass
-    ``data=(X, y)``). No mean is added, as in the JAX package."""
+    ``data=(X, y)``). A learned mean adds its cell integrals
+    (``common.grid_mean``, per output on a coregion axis), as ``q_v`` does,
+    and a coregion spec draws chol(B)-mixed path bundles (its grid's
+    output axis the model's ``OutputFeature``). Both depart from the JAX
+    package, whose draws leave the mean out and which raises on a coregion
+    axis."""
     from vggp_tpu_torch.models.iterative import _along_axes
     from vggp_tpu_torch.models.sgpr import SGPRSpec
     from vggp_tpu_torch.models.svgp import SVGPSpec
@@ -953,10 +958,17 @@ def pathwise_q_v(spec, params, gen: torch.Generator, grid_axes, n_samples: int =
     m = math.prod(b.shape[1] for b in r_blocks)
     z_shape = (m,) if collapsed else _z_shape(spec)
 
+    co, _ = _coregion_split(spec)
+
     def one():
-        om, ph, amp = prior_paths(gen, spec, params, n_features)
-        v = prior_grid_integral_sample(om, ph, amp, grid_axes)
-        u = prior_inducing_sample(om, ph, amp, spec, params)
+        if co is None:
+            om, ph, amp = prior_paths(gen, spec, params, n_features)
+            v = prior_grid_integral_sample(om, ph, amp, grid_axes)
+            u = prior_inducing_sample(om, ph, amp, spec, params)
+        else:
+            om, ph, amp, LBm, _ = prior_paths_multioutput(gen, spec, params, n_features)
+            v = prior_grid_integral_sample_multioutput(om, ph, amp, LBm, co, grid_axes)
+            u = prior_inducing_sample_multioutput(om, ph, amp, LBm, co, spec, params)
         return v, u, normal(gen, z_shape, v)
 
     V, U, Z = _stack_draws(n_samples, one)
@@ -966,4 +978,5 @@ def pathwise_q_v(spec, params, gen: torch.Generator, grid_axes, n_samples: int =
     else:
         diff = _svgp_diff_sample(spec, params, W, Z).reshape(W.shape)
     corr = _along_axes(diff, [lambda v, R=R: R @ v for R in r_blocks])
-    return V.reshape(n_samples, -1) + corr.reshape(n_samples, -1)
+    return (V.reshape(n_samples, -1) + corr.reshape(n_samples, -1)
+            + common.grid_mean(spec, params, grid_axes))

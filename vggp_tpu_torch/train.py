@@ -279,6 +279,11 @@ def fit(loss_fn: Callable[[Dict], torch.Tensor], params: Dict, n_iters: int,
     return final, history
 
 
+def _randint(gen: torch.Generator, n: int, size: int, device) -> torch.Tensor:
+    """``size`` uniform indices in [0, n) from ``gen``, on ``device``."""
+    return torch.randint(0, n, (size,), generator=gen, device=gen.device).to(device)
+
+
 def fit_minibatch(
     loss_fn: Callable[[Dict, torch.Tensor, torch.Tensor], torch.Tensor],
     params: Dict,
@@ -303,7 +308,7 @@ def fit_minibatch(
     gen.manual_seed(seed)
     losses = []
     for _ in range(n_iters):
-        idx = torch.randint(0, n, (batch_size,), generator=gen, device=X.device)
+        idx = _randint(gen, n, batch_size, X.device)
         losses.append(step(X[idx], y[idx]))
     losses = torch.stack(losses)
     with torch.no_grad():
@@ -314,11 +319,6 @@ def fit_minibatch(
 # --------------------------------------------------------------------------- #
 # multi-start fitting and L-BFGS
 # --------------------------------------------------------------------------- #
-
-def _randint(gen: torch.Generator, n: int, size: int, device) -> torch.Tensor:
-    """``size`` uniform indices in [0, n) from ``gen``, on ``device``."""
-    return torch.randint(0, n, (size,), generator=gen, device=gen.device).to(device)
-
 
 def init_restarts(params: Dict, gen: torch.Generator, n_restarts: int,
                   spread: float = 0.5) -> Dict:
