@@ -196,6 +196,17 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``solve_iterative``, ``q_v_mean_iterative``; (d) 11a's model streamed
    through ``Streaming`` (4 chunks of 16 384) and ``to_svgp().q_v()``; its
    launches read by shape, each at a shape held against plain before.
+19. the sharded main path (``vggp_tpu_torch.parallel``), after phase 18, on
+   a world-1 NCCL group started from a FileStore: each sharded call held
+   against the unsharded port call it stands for at 1e-6 relative (every
+   collective of a world of one is an identity), the same kernels launched
+   at shapes held before, both sides' host ms printed: (a) 4 steps at 4096
+   and 2 at 16 384 of ``make_sharded_svgp_step`` from phase 4's model on a
+   ("data", "model") mesh, (b) ``make_sharded_qv`` on the 512² cells, (c)
+   ``make_sharded_assimilate`` on 11a's model (4 chunks of 16 384), (d) the
+   sharded ``solve_w`` (the same iterations) and CG mean heads on 13a's
+   model at 65 536 points, (e) the sharded pathwise ``q_v`` and ``q_dv``
+   on phase 7's model at S = 16 from one generator seed; within 60 s.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -4784,28 +4795,30 @@ def _p18_tensors(out) -> list:
     return [out]
 
 
-def p18_pair(what, facade, functional, want=None, no_grad=True, repeat=True) -> tuple:
-    """The facade call and the functional calls it stands for (under
-    no_grad with ``no_grad``), each on the host clock (ending in
-    synchronize) with its launches counted (reset just before, read just
-    after), in turns facade, functional and, with ``repeat`` (a call that
-    can run twice), again, so the second pair's times are warm. Every
-    facade call's launches by shape join P18_SHAPE_LAUNCHES. Each call of
-    the pair launches the same kernels (``want`` where given); the last
-    outputs are finite and agree within TOL_FACADE (max|Δ|/max|ref| of each
-    tensor). Returns (the facade's output, the functional output, the
-    facade's launches over its calls, the readings)."""
+def hold_pair(phase, what, first, second, sides, shapes, tol, want=None, no_grad=True,
+              repeat=True) -> tuple:
+    """A call and the calls it stands for (``second``, under no_grad with
+    ``no_grad``), each on the host clock (ending in synchronize) with its
+    launches counted (reset just before, read just after), in turns first,
+    second and, with ``repeat`` (a call that can run twice), again, so the
+    second pair's times are warm. ``sides`` names the two; every ``first``
+    call's launches by shape join ``shapes``. Each call of the pair launches
+    the same kernels (``want`` where given); the last outputs are finite and
+    agree within ``tol`` (max|Δ|/max|ref| of each tensor). Returns (the
+    first's output, the second's, the first's launches over its calls, the
+    readings)."""
     import contextlib
 
     import torch
 
     from vggp_tpu_torch.ops import cell_kuf as ck
 
-    runs = {"facade": [], "functional": []}
+    a, b = sides
+    runs = {a: [], b: []}
     total = dict(NO_LAUNCHES)
     for _ in range(2 if repeat else 1):
-        for side, fn, ctx in (("facade", facade, contextlib.nullcontext()),
-                              ("functional", functional,
+        for side, fn, ctx in ((a, first, contextlib.nullcontext()),
+                              (b, second,
                                torch.no_grad() if no_grad else contextlib.nullcontext())):
             ck.reset_launch_counts()
             torch.cuda.synchronize()
@@ -4815,27 +4828,33 @@ def p18_pair(what, facade, functional, want=None, no_grad=True, repeat=True) -> 
             torch.cuda.synchronize()
             got = dict(ck.LAUNCHES)
             runs[side].append((out, (time.perf_counter() - t0) * 1e3, got))
-            if side == "facade":
-                P18_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
+            if side == a:
+                shapes.update(ck.SHAPE_LAUNCHES)
                 total = add_launches(total, got)
-        check(runs["facade"][-1][2] == runs["functional"][-1][2],
-              f"18 {what}: facade launches {runs['facade'][-1][2]}, functional "
-              f"{runs['functional'][-1][2]}")
-        check(want is None or runs["facade"][-1][2] == {**NO_LAUNCHES, **want},
-              f"18 {what}: launches {runs['facade'][-1][2]}, expected {want}")
-    got, ref = runs["facade"][-1][0], runs["functional"][-1][0]
+        check(runs[a][-1][2] == runs[b][-1][2],
+              f"{phase} {what}: {a} launches {runs[a][-1][2]}, {b} {runs[b][-1][2]}")
+        check(want is None or runs[a][-1][2] == {**NO_LAUNCHES, **want},
+              f"{phase} {what}: launches {runs[a][-1][2]}, expected {want}")
+    got, ref = runs[a][-1][0], runs[b][-1][0]
     gt, rt = _p18_tensors(got), _p18_tensors(ref)
     check(len(gt) == len(rt) and all(g.shape == r.shape for g, r in zip(gt, rt)),
-          f"18 {what}: the facade's output does not match the functional one's in structure")
+          f"{phase} {what}: the {a} output does not match the {b} one's in structure")
     err = max(rel_err(g.double(), r.double()) for g, r in zip(gt, rt))
     ms = {side: [r[1] for r in runs[side]] for side in runs}
-    print(f"check 18 {what}: host ms facade " + "/".join(f"{t:.3f}" for t in ms["facade"])
-          + ", functional " + "/".join(f"{t:.3f}" for t in ms["functional"])
-          + f", rel {err:.3e} (tol {TOL_FACADE:.0e}), launches {runs['facade'][-1][2]}")
-    check(all(bool(torch.isfinite(t).all()) for t in gt), f"18 {what}: not finite")
-    check(err <= TOL_FACADE, f"18 {what}: facade vs functional {err} > {TOL_FACADE}")
-    return got, ref, total, {"facade_ms": ms["facade"], "functional_ms": ms["functional"],
-                             "rel": err}
+    print(f"check {phase} {what}: host ms {a} " + "/".join(f"{t:.3f}" for t in ms[a])
+          + f", {b} " + "/".join(f"{t:.3f}" for t in ms[b])
+          + f", rel {err:.3e} (tol {tol:.0e}), launches {runs[a][-1][2]}")
+    check(all(bool(torch.isfinite(t).all()) for t in gt), f"{phase} {what}: not finite")
+    check(err <= tol, f"{phase} {what}: {a} vs {b} {err} > {tol}")
+    return got, ref, total, {f"{a}_ms": ms[a], f"{b}_ms": ms[b], "rel": err}
+
+
+def p18_pair(what, facade, functional, want=None, no_grad=True, repeat=True) -> tuple:
+    """:func:`hold_pair` of a facade call and the functional calls it stands
+    for, within TOL_FACADE, the facade's launches by shape into
+    P18_SHAPE_LAUNCHES."""
+    return hold_pair("18", what, facade, functional, ("facade", "functional"),
+                     P18_SHAPE_LAUNCHES, TOL_FACADE, want, no_grad, repeat)
 
 
 def facade_phase(device, X, y, Xs, models) -> tuple:
@@ -5042,6 +5061,223 @@ def facade_phase(device, X, y, Xs, models) -> tuple:
     check(sum(at.values()) == sum(launches.values()),
           f"phase 18: launches by shape {at} vs {launches}")
     check(all(launches[k] > 0 for k in launches), f"phase 18: a kernel never launched: {launches}")
+    return launches, timings, at
+
+
+# --------------------------------------------------------------------------- #
+# phase 19: the sharded main path (vggp_tpu_torch.parallel) at world size 1
+# --------------------------------------------------------------------------- #
+
+P19_STEPS = ((4, TRAIN_BATCH, "cell_kuf_with_dl"), (2, FUSED_BATCH, "fused_banded_whiten_kuf"))
+P19_STREAM_CHUNKS = 4     # 19c, chunks of STREAM_CHUNK
+P19_SEED = 19             # 19e's generator, and the step batches'
+# every collective of a world of one is an identity, so each sharded result
+# is expected to equal the unsharded one bit for bit; this bound leaves
+# float32 roundoff room
+TOL_P19 = 1e-6
+P19_MAX_S = 60.0
+P19_SHAPE_LAUNCHES = collections.Counter()
+
+
+def parallel_phase(device, X, y, models, card) -> tuple:
+    """Phase 19: the sharded main path through ``vggp_tpu_torch.parallel`` on
+    a world-1 NCCL group (a FileStore in a temporary directory: no network,
+    no port) with the meshes ("data",) and ("data", "model") on the card,
+    each sharded call held by :func:`hold_pair` against the unsharded port
+    call it stands for: (a) P19_STEPS of ``make_sharded_svgp_step`` from
+    phase 4's model (``models["main"]``) at its learning rate, on batches
+    drawn from one seed, the losses and every raw leaf; (b)
+    ``make_sharded_qv`` on its 512² cells; (c) ``make_sharded_assimilate``
+    on 11a's model (``models["full2d"]``), P19_STREAM_CHUNKS chunks of
+    STREAM_CHUNK; (d) ``make_sharded_solve_w`` (the same iterations) and
+    the CG mean heads on 13a's model at MF_N points in float32 at
+    MF_MAXITER; (e) ``make_sharded_pathwise_qv`` and ``_qdv`` on phase 7's
+    model (``models["collapsed"]``) at MF_SAMPLES draws of MF_FEATURES at
+    MF_DRAWS_N points and the samplers' MF_MAXITER, from one generator
+    seed. Every launch must be at a
+    shape an earlier phase launched and held against the plain version.
+    Returns (the sharded side's launches, timings, its launches by (name,
+    m, n))."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from vggp_tpu_torch import iterative, parallel, streaming, svgp, train
+
+    t_phase = time.perf_counter()
+    P19_SHAPE_LAUNCHES.clear()
+    timings, launches = {}, dict(NO_LAUNCHES)
+    f32 = torch.float32
+    c32 = cast_to(device, f32)
+
+    def pair(what, sharded, unsharded, want=None, no_grad=True, repeat=True):
+        nonlocal launches
+        got, ref, n, r = hold_pair("19", what, sharded, unsharded, ("sharded", "unsharded"),
+                                   P19_SHAPE_LAUNCHES, TOL_P19, want, no_grad, repeat)
+        launches = add_launches(launches, n)
+        timings[f"p19 {what}"] = r
+        return got, ref
+
+    backend = parallel.mesh.BACKENDS[device.type]    # nccl on the card
+    with tempfile.TemporaryDirectory() as root:
+        dist.init_process_group(backend, store=dist.FileStore(f"{root}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh_d = parallel.make_mesh(("data",), (1,), device.type)
+            mesh_dm = parallel.data_model_mesh(device_type=device.type)
+            check(dist.get_backend() == backend and mesh_dm.mesh_dim_names == ("data", "model")
+                  and mesh_dm.device_type == device.type,
+                  f"19: the meshes are not {backend} meshes on the {device.type} device")
+            print(f"19: a world-1 {dist.get_backend()} group, meshes {mesh_d.mesh_dim_names} "
+                  f"{tuple(mesh_d.shape)} and {mesh_dm.mesh_dim_names} {tuple(mesh_dm.shape)}")
+            # start each axis's communicator before the timed calls
+            for mesh in (mesh_d, mesh_dm):
+                for name in mesh.mesh_dim_names:
+                    dist.all_reduce(torch.zeros(1, device=device), group=mesh.get_group(name))
+
+            # 19a: the training step from phase 4's model
+            spec, model = models["main"]
+            own = spec.features
+            with torch.no_grad():
+                p0 = train.tree_map(lambda v: v.detach().clone(), model.params())
+            gen = torch.Generator(device=device).manual_seed(P19_SEED)
+            runs = [[torch.randint(0, X.shape[0], (batch,), generator=gen, device=device)
+                     for _ in range(n_steps)] for n_steps, batch, _ in P19_STEPS]
+            init_fn, step_fn = parallel.make_sharded_svgp_step(
+                spec, lambda ps: torch.optim.Adam(ps, lr=P18_LR), mesh_dm)
+            raw1, opt1 = init_fn(p0)
+            sh = {"raw": raw1, "opt": opt1}
+            raw0 = train.raw_leaves_from(p0)
+            step0 = train.make_step_fn(lambda q, xb, yb: svgp.loss(spec, q, xb, yb), raw0,
+                                       torch.optim.Adam(train.tree_leaves(raw0), lr=P18_LR))
+
+            def sharded_steps(idx):
+                losses = []
+                for i in idx:
+                    xb, yb = parallel.shard_batch(X[i], y[i], mesh_dm)
+                    sh["raw"], sh["opt"], loss = step_fn(sh["raw"], sh["opt"], xb, yb)
+                    losses.append(loss)
+                return [torch.stack(losses)] + [v.detach().clone()
+                                                for v in train.tree_leaves(sh["raw"])]
+
+            def unsharded_steps(idx):
+                losses = [step0(X[i], y[i]) for i in idx]
+                return [torch.stack(losses)] + [v.detach().clone()
+                                                for v in train.tree_leaves(raw0)]
+
+            for (n_steps, batch, kernel), idx in zip(P19_STEPS, runs):
+                what = f"19a {n_steps} sharded steps at batch {batch}"
+                got, _ = pair(what, lambda idx=idx: sharded_steps(idx),
+                              lambda idx=idx: unsharded_steps(idx), {kernel: 2 * n_steps},
+                              no_grad=False, repeat=False)
+                r = timings[f"p19 {what}"]
+                timings[f"p19_step_ms_batch{batch}"] = {
+                    "sharded": r["sharded_ms"][0] / n_steps,
+                    "unsharded": r["unsharded_ms"][0] / n_steps}
+                print(f"19a a step at batch {batch}: sharded "
+                      f"{r['sharded_ms'][0] / n_steps:.3f} ms, unsharded "
+                      f"{r['unsharded_ms'][0] / n_steps:.3f} ms (host clock, ending in "
+                      f"synchronize; {card}); losses {float(got[0][0]):.6g} -> "
+                      f"{float(got[0][-1]):.6g}")
+
+            # 19b: the gridded head over the sharded state
+            qv_fn = parallel.make_sharded_qv(spec, mesh_dm, own)
+            pair(f"19b make_sharded_qv on the {M_AXIS}² cells", lambda: qv_fn(sh["raw"]),
+                 lambda: svgp.q_v(spec, train.constrain(raw0), own), {})
+
+            # 19c: streaming on 11a's model
+            spec_f, p_f = models["full2d"]
+            fold = parallel.make_sharded_assimilate(spec_f, p_f, mesh_d)
+            chunks = [(X[lo:lo + STREAM_CHUNK], y[lo:lo + STREAM_CHUNK])
+                      for lo in range(0, P19_STREAM_CHUNKS * STREAM_CHUNK, STREAM_CHUNK)]
+
+            def sharded_stream():
+                s = streaming.init_state(spec_f, f32, device)
+                for xc, yc in chunks:
+                    s = fold(s, *parallel.shard_batch(xc, yc, mesh_d))
+                return s
+
+            def unsharded_stream():
+                s = streaming.init_state(spec_f, f32, device)
+                for xc, yc in chunks:
+                    s = streaming.assimilate(spec_f, p_f, s, xc, yc)
+                return s
+
+            got, _ = pair(f"19c make_sharded_assimilate {P19_STREAM_CHUNKS} chunks of "
+                          f"{STREAM_CHUNK}", sharded_stream, unsharded_stream,
+                          {"cell_kuf": 2 * P19_STREAM_CHUNKS})
+            check(float(got["n_seen"]) == P19_STREAM_CHUNKS * STREAM_CHUNK,
+                  f"19c n_seen {float(got['n_seen'])}")
+
+            # 19d: the CG heads on 13a's model
+            spec_m, params_m = mf_model((spec, model))
+            own_m = spec_m.features
+            pm, Xm, ym = c32(params_m), c32(X[:MF_N]), c32(y[:MF_N])
+            xb, yb = parallel.shard_batch(Xm, ym, mesh_d)
+            infos = {}
+            solve = parallel.make_sharded_solve_w(spec_m, mesh_d, maxiter=MF_MAXITER)
+
+            def with_info(side, fn):
+                w, infos[side] = fn()
+                return w
+
+            pair(f"19d make_sharded_solve_w n={MF_N}",
+                 lambda: with_info("sharded", lambda: solve(pm, xb, yb, return_info=True)),
+                 lambda: with_info("unsharded", lambda: iterative.solve_w(
+                     spec_m, pm, Xm, ym, maxiter=MF_MAXITER, return_info=True)),
+                 {"cell_kuf": spec_m.ndim}, repeat=False)
+            print(f"19d solve_w: sharded {infos['sharded']}, unsharded {infos['unsharded']}")
+            same = [(i["iterations"], i["preconditioner"]) for i in infos.values()]
+            check(same[0] == same[1], f"19d: the sharded solve's iterations differ: {infos}")
+            timings["p19_solve_w_info"] = infos
+            pair(f"19d make_sharded_qv_mean_cg n={MF_N}",
+                 lambda: parallel.make_sharded_qv_mean_cg(spec_m, mesh_d, own_m,
+                                                          maxiter=MF_MAXITER)(pm, xb, yb),
+                 lambda: iterative.q_v_mean_cg(spec_m, pm, Xm, ym, own_m, maxiter=MF_MAXITER),
+                 {"cell_kuf": spec_m.ndim}, repeat=False)
+            pair(f"19d make_sharded_qdv_mean_cg axis 0 n={MF_N}",
+                 lambda: parallel.make_sharded_qdv_mean_cg(spec_m, mesh_d, own_m, 0,
+                                                           maxiter=MF_MAXITER)(pm, xb, yb),
+                 lambda: iterative.q_dv_mean_from_w(spec_m, pm, own_m, 0, iterative.solve_w(
+                     spec_m, pm, Xm, ym, maxiter=MF_MAXITER)),
+                 {"cell_kuf": spec_m.ndim + 1}, repeat=False)
+
+            # 19e: the pathwise heads on phase 7's model
+            spec_c, params_c = models["collapsed"]
+            own_c = spec_c.features
+            pc, Xc, yc = c32(params_c), c32(X[:MF_DRAWS_N]), c32(y[:MF_DRAWS_N])
+            xbc, ybc = parallel.shard_batch(Xc, yc, mesh_d)
+            kw = dict(n_samples=MF_SAMPLES, n_features=MF_FEATURES, maxiter=MF_MAXITER)
+            seeded = lambda: torch.Generator(device=device).manual_seed(P19_SEED)
+            pair(f"19e make_sharded_pathwise_qv S={MF_SAMPLES} n={MF_DRAWS_N}",
+                 lambda: parallel.make_sharded_pathwise_qv(spec_c, mesh_d, own_c, **kw)(
+                     pc, xbc, ybc, seeded()),
+                 lambda: iterative.q_v_pathwise(spec_c, pc, Xc, yc, own_c, seeded(), **kw),
+                 {"cell_kuf": spec_c.ndim}, repeat=False)
+            pair(f"19e make_sharded_pathwise_qdv axis 0 S={MF_SAMPLES} n={MF_DRAWS_N}",
+                 lambda: parallel.make_sharded_pathwise_qdv(spec_c, mesh_d, own_c, 0, **kw)(
+                     pc, xbc, ybc, seeded()),
+                 lambda: iterative.q_dv_pathwise(spec_c, pc, Xc, yc, own_c, 0, seeded(), **kw),
+                 {"cell_kuf": spec_c.ndim + 1}, repeat=False)
+        finally:
+            dist.destroy_process_group()
+
+    at = dict(P19_SHAPE_LAUNCHES)
+    held = (p18_held_shapes() | set(MF_SHAPE_LAUNCHES) | set(P14_SHAPE_LAUNCHES)
+            | set(P18_SHAPE_LAUNCHES))
+    print(f"phase 19's launches: {launches}, by shape {at}")
+    check(all(k in held for k in at), f"phase 19 launched a shape never held against plain: "
+          f"{sorted(k for k in at if k not in held)}")
+    check(sum(at.values()) == sum(launches.values()),
+          f"phase 19: launches by shape {at} vs {launches}")
+    check(all(launches[k] > 0 for k in launches), f"phase 19: a kernel never launched: {launches}")
+    worst = max(r["rel"] for k, r in timings.items() if k.startswith("p19 "))
+    timings["p19_largest_rel"] = worst
+    took = time.perf_counter() - t_phase
+    print(f"phase 19: the largest gap of a sharded result from the unsharded one {worst:.3e} "
+          f"(tol {TOL_P19:.0e}); {took:.1f} s")
+    check(took <= P19_MAX_S, f"phase 19 took {took:.1f} s > {P19_MAX_S} s")
     return launches, timings, at
 
 
@@ -5477,10 +5713,20 @@ def main() -> int:
     print(f"facade_phase: {timings['facade_phase_s']:.1f} s")
     launches = add_launches(launches, got)
     timings.update(phase_times)
+    t0 = time.perf_counter()
+    got19, phase_times, p19_at = parallel_phase(device, X, y, {
+        "main": (spec, model), "full2d": full2d, "collapsed": collapsed}, card)
+    timings["parallel_phase_s"] = time.perf_counter() - t0
+    print(f"parallel_phase: {timings['parallel_phase_s']:.1f} s")
+    launches = add_launches(launches, got19)
+    timings.update(phase_times)
     for row in rows:
         name = row["name"]
         row["launches"] = launches[name]
         row["phase18_launches"] = got[name]
+        row["phase19_launches"] = got19[name]
+        row["phase19_launches_by_shape"] = {
+            f"{m}x{n}": k for (kname, m, n), k in sorted(p19_at.items()) if kname == name}
         row["phase18_launches_by_shape"] = {
             f"{m}x{n}": k for (kname, m, n), k in sorted(p18_at.items()) if kname == name}
         if name == "fused_banded_whiten_kuf":

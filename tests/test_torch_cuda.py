@@ -827,3 +827,51 @@ def test_cuda_facade_lands_on_the_card(cuda, tmp_path):
     for g, w in ((got.mean, want.mean), (got.var, want.var)):
         assert g.device.type == "cuda"
         assert float((g.cpu() - w).abs().max() / w.abs().max()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_cuda_world_one_sharded_step_equals_the_unsharded_step(cuda, tmp_path):
+    """On a world-1 NCCL group (a FileStore, no network) with a ("data",
+    "model") mesh on the card, three steps of ``make_sharded_svgp_step``
+    equal three of ``train.make_step_fn`` on the same batches: every
+    collective of a world of one is an identity, so the losses and every raw
+    leaf are expected bitwise (held at 1e-6 relative), through the same
+    kernel launches."""
+    import torch.distributed as dist
+
+    from vggp_tpu_torch import parallel
+
+    rng = np.random.default_rng(29)
+    X = torch.as_tensor(rng.random((4096, 2)), dtype=torch.float32, device=cuda)
+    y = torch.sin(6 * X[:, 0]) * torch.cos(5 * X[:, 1])
+    spec = SVGPSpec(kinds=("matern12", "matern12"),
+                    features=tuple(CellIntegralFeature.from_lims(64, 0.0, 1.0) for _ in range(2)),
+                    num_data=4096, variational="kron")
+    params = train.non_informative_init(spec.init_params(torch.float32, cuda), X, y)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh(("data", "model"), (1, 1))
+        init_fn, step_fn = parallel.make_sharded_svgp_step(
+            spec, lambda ps: torch.optim.Adam(ps, lr=1e-2), mesh)
+        raw, opt = init_fn(params)
+        raw0 = train.raw_leaves_from(params)
+        step0 = train.make_step_fn(lambda p, xb, yb: svgp.loss(spec, p, xb, yb), raw0,
+                                   torch.optim.Adam(train.tree_leaves(raw0), lr=1e-2))
+        for k in range(3):
+            idx = torch.arange(k * 1024, (k + 1) * 1024, device=cuda)
+            ck.reset_launch_counts()
+            raw, opt, loss = step_fn(raw, opt, *parallel.shard_batch(X[idx], y[idx], mesh))
+            torch.cuda.synchronize()
+            sharded = dict(ck.LAUNCHES)
+            ck.reset_launch_counts()
+            loss0 = step0(X[idx], y[idx])
+            torch.cuda.synchronize()
+            assert sharded == dict(ck.LAUNCHES) and sharded["cell_kuf_with_dl"] == 2
+            assert abs(float(loss) - float(loss0)) <= 1e-6 * abs(float(loss0))
+        for a, b in zip(train.tree_leaves(raw), train.tree_leaves(raw0), strict=True):
+            a, b = a.detach(), b.detach()
+            assert a.device.type == "cuda"
+            assert float((a - b).abs().max()) <= 1e-6 * max(float(b.abs().max()), 1e-30)
+    finally:
+        dist.destroy_process_group()

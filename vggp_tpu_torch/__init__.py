@@ -21,5 +21,5 @@ from vggp_tpu_torch.models.freesvgp import FreeSVGP, FreeSVGPSpec  # noqa: F401
 from vggp_tpu_torch.models.sgpr import SGPR, SGPRSpec  # noqa: F401
 from vggp_tpu_torch.models.sum import SumSGPR, SumSGPRSpec  # noqa: F401
 from vggp_tpu_torch.models.svgp import SVGPSpec  # noqa: F401
-from vggp_tpu_torch import api, utils  # noqa: F401,E402
+from vggp_tpu_torch import api, data, parallel, utils  # noqa: F401,E402
 from vggp_tpu_torch.api import GP, SVGP, Streaming  # noqa: F401,E402

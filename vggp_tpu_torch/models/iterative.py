@@ -31,12 +31,17 @@ package's ``while_loop`` is not reverse-differentiable either.
     w = iterative.solve_w(spec, params, X, y)
     fmean = iterative.posterior_mean_from_w(spec, params, xstar, w)
     vmean = iterative.q_v_mean_from_w(spec, params, grid_axes, w)
+
+The data axis may be split over processes (``parallel.cg``): the solves and
+samplers take a :class:`DataShard`, which sums each contraction over n
+across the processes; without one every result is the unsharded one, bit
+for bit.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -49,6 +54,27 @@ from vggp_tpu_torch.ops.chol import safe_cholesky
 from vggp_tpu_torch.ops.kms import kms_gamma_rho, kms_tinv_matvec
 
 Params = dict
+
+
+class DataShard(NamedTuple):
+    """This process's contiguous block of the data points when the data axis
+    is split over a process group (``parallel.cg``): rows [start, start + n
+    local) of the ``n`` points. ``reduce`` sums a tensor over the group; it
+    is applied after every sum over the data axis, so that every process
+    holds the whole contraction. ``gather`` concatenates the blocks along
+    the last axis in rank order. The solves run on the reduced, replicated
+    w-tensors, so every process takes the same iterates and the same host
+    decisions."""
+
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+    gather: Callable[[torch.Tensor], torch.Tensor]
+    n: int
+    start: int
+
+
+def _reduce(shard: DataShard | None, t: torch.Tensor) -> torch.Tensor:
+    """The sum over the whole data axis of a per-process partial sum ``t``."""
+    return t if shard is None else shard.reduce(t)
 
 
 def _check_spec(spec, pathwise: bool = False) -> None:
@@ -68,16 +94,16 @@ def _check_spec(spec, pathwise: bool = False) -> None:
             "sum-of-kernels, additive, and free-Z models")
 
 
-def _noise_weights(spec, params: Params, X: torch.Tensor):
+def _noise_weights(spec, params: Params, X: torch.Tensor, shard: DataShard | None = None):
     """(c, r) of the normal equations under noise D = diag(dᵢ):
     G = c·Kuu + Kuf R Kufᵀ, G w = Kuf R y, R = diag(c/dᵢ). A scalar noise
     gives (σ², None), the classic σ²Kuu + KufKufᵀ; a per-output vector gives
-    c = mean(dᵢ), which keeps the Jacobi diagonal balanced (any c > 0 gives
-    the same w)."""
+    c = mean(dᵢ) over all the points, which keeps the Jacobi diagonal
+    balanced (any c > 0 gives the same w)."""
     dvec = common.obs_noise(spec, params, X)
     if dvec.dim() == 0:
         return dvec, None
-    c = torch.mean(dvec)
+    c = torch.mean(dvec) if shard is None else shard.reduce(torch.sum(dvec)) / shard.n
     return c, c / dvec
 
 
@@ -228,7 +254,7 @@ def _kms_woodbury_precond(spec, params: Params, blocks):
     return _on_columns(shape, minv)
 
 
-def _g_apply(spec, params: Params, blocks, noise_c, weights):
+def _g_apply(spec, params: Params, blocks, noise_c, weights, shard: DataShard | None = None):
     """W ↦ G W = c·(⊗Kuu) W + Kuf R Kufᵀ W on w-tensors (…, m_1, …, m_d)."""
     kuu = _kuu_apply(spec, params)
 
@@ -236,11 +262,12 @@ def _g_apply(spec, params: Params, blocks, noise_c, weights):
         fw = _kufT_w(blocks, W)
         if weights is not None:
             fw = fw * weights
-        return noise_c * kuu(W) + _kuf_v(blocks, fw)
+        return noise_c * kuu(W) + _reduce(shard, _kuf_v(blocks, fw))
     return apply
 
 
-def _g_solver(spec, params: Params, blocks, tol, maxiter, noise_c=None, weights=None):
+def _g_solver(spec, params: Params, blocks, tol, maxiter, noise_c=None, weights=None,
+              shard: DataShard | None = None):
     """The preconditioned CG solver of G = c·Kuu + Kuf R Kufᵀ
     (:func:`_noise_weights`; homoscedastic R = I, c = σ²): a function of the
     flat right-hand sides (m, k) → G⁻¹ rhs (m, k) (``return_info`` as
@@ -253,10 +280,14 @@ def _g_solver(spec, params: Params, blocks, tol, maxiter, noise_c=None, weights=
     spec and selects with a device scalar; the selection is constant across
     a solve, so the gates are read to the host once here and only the
     chosen branch is built: the same iterates.
+
+    Under a ``shard`` the KMS gate reads the number of all the points, and
+    the Woodbury's S, which couples every pair of points, is built from the
+    gathered Kuf blocks and applied whole on every process.
     """
     p_noise = params["noise"] if noise_c is None else noise_c
     shape = _axis_shape(spec)
-    matvec = _on_columns(shape, _g_apply(spec, params, blocks, p_noise, weights))
+    matvec = _on_columns(shape, _g_apply(spec, params, blocks, p_noise, weights, shard))
 
     # Jacobi on the exact diagonal σ²·diag(Kuu) + rowsum(Kuf²): a Kuu·1
     # row-sum proxy fails the B1 spline Gram, whose rows cancel.
@@ -264,17 +295,21 @@ def _g_solver(spec, params: Params, blocks, tol, maxiter, noise_c=None, weights=
     if weights is not None:
         sq[0] = sq[0] * weights[None, :]
     ones = torch.ones_like(blocks[0][0])
-    rowsum = _kuf_v(sq, ones).reshape(-1)
+    rowsum = _reduce(shard, _kuf_v(sq, ones)).reshape(-1)
     d = p_noise * _kuu_diag_flat(spec, params) + rowsum
     d = torch.clamp(d, min=torch.finfo(blocks[0].dtype).tiny)[:, None]
 
-    if weights is None and _kms_precond_eligible(spec, blocks[0].shape[1]):
+    n = blocks[0].shape[1] if shard is None else shard.n
+    if weights is None and _kms_precond_eligible(spec, n):
         u_floor = _u_floor(blocks[0].dtype)
         _, _, u_min = _kms_axes(spec, params, u_floor)
         # float32 never takes the Woodbury (see config)
         use_kms = blocks[0].dtype != torch.float32 and bool(u_min >= u_floor)
-        precond, name = ((_kms_woodbury_precond(spec, params, blocks), "kms-woodbury")
-                         if use_kms else (lambda r: r / d, "jacobi-pcg"))
+        if use_kms:
+            every = blocks if shard is None else tuple(shard.gather(B) for B in blocks)
+            precond, name = _kms_woodbury_precond(spec, params, every), "kms-woodbury"
+        else:
+            precond, name = (lambda r: r / d), "jacobi-pcg"
 
         def solve(b, return_info=False):
             return pcg_solve(matvec, b, precond, tol=tol, maxiter=maxiter,
@@ -317,7 +352,8 @@ def _kuu_solver(spec, params: Params, kuu_tol, kuu_maxiter):
 @torch.no_grad()
 @highest_precision
 def solve_w(spec, params: Params, X: torch.Tensor, y: torch.Tensor,
-            tol: float | None = None, maxiter: int = 1000, return_info: bool = False):
+            tol: float | None = None, maxiter: int = 1000, return_info: bool = False,
+            shard: DataShard | None = None):
     """w = (σ² Kuu + Kuf Kufᵀ)⁻¹ Kuf y by preconditioned CG (:func:`_g_solver`).
 
     Any number of Kronecker axes; w is FLAT (m,) in the ``numpy.kron``
@@ -325,15 +361,18 @@ def solve_w(spec, params: Params, X: torch.Tensor, y: torch.Tensor,
     ``ops.cg``. Conditions on y − m(x) when a mean is learned; per-output
     noise solves the weighted system (:func:`_noise_weights`). With
     ``return_info`` returns (w, {"iterations", "rel_resid",
-    "preconditioner"}), reading the first two to the host.
+    "preconditioner"}), reading the first two to the host. Under a ``shard``
+    X and y are this process's block of the points and w is every
+    process's.
     """
     _check_spec(spec)
     y = y.reshape(-1) - common.mean_fn(spec, params, X)
     blocks = _kuf_blocks(spec, params, X)
-    noise_c, weights = _noise_weights(spec, params, X)
+    noise_c, weights = _noise_weights(spec, params, X, shard)
     yw = y if weights is None else y * weights
-    b = _kuf_v(blocks, yw).reshape(-1, 1)
-    solve = _g_solver(spec, params, blocks, tol, maxiter, noise_c=noise_c, weights=weights)
+    b = _reduce(shard, _kuf_v(blocks, yw)).reshape(-1, 1)
+    solve = _g_solver(spec, params, blocks, tol, maxiter, noise_c=noise_c, weights=weights,
+                      shard=shard)
     w, iters, rel = solve(b, return_info=True)
     if return_info:
         return w[:, 0], {"iterations": int(iters[0]), "rel_resid": float(rel[0]),
@@ -344,17 +383,18 @@ def solve_w(spec, params: Params, X: torch.Tensor, y: torch.Tensor,
 @torch.no_grad()
 @highest_precision
 def relative_residual(spec, params: Params, X: torch.Tensor, y: torch.Tensor,
-                      w: torch.Tensor) -> torch.Tensor:
+                      w: torch.Tensor, shard: DataShard | None = None) -> torch.Tensor:
     """‖Kuf R y − G w‖ / ‖Kuf R y‖ of a :func:`solve_w` result, in the
     dtype of ``params`` (pass float64 ones to read a float32 w's true
     residual)."""
     _check_spec(spec)
     y = y.reshape(-1) - common.mean_fn(spec, params, X)
     blocks = _kuf_blocks(spec, params, X)
-    noise_c, weights = _noise_weights(spec, params, X)
+    noise_c, weights = _noise_weights(spec, params, X, shard)
     yw = y if weights is None else y * weights
-    b = _kuf_v(blocks, yw)
-    r = b - _g_apply(spec, params, blocks, noise_c, weights)(w.to(b.dtype).reshape(b.shape))
+    b = _reduce(shard, _kuf_v(blocks, yw))
+    r = b - _g_apply(spec, params, blocks, noise_c, weights, shard)(
+        w.to(b.dtype).reshape(b.shape))
     return torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b)
 
 
@@ -442,7 +482,7 @@ def pathwise_q_v_samples(
     n_samples: int = 64, n_features: int = 1024,
     tol: float | None = None, maxiter: int = 1000,
     kuu_tol: float | None = None, kuu_maxiter: int = 2000,
-    antithetic: bool = False, return_prior: bool = False,
+    antithetic: bool = False, return_prior: bool = False, shard: DataShard | None = None,
 ):
     """(S, ∏g_i) joint posterior draws of the gridded product, matrix-free.
 
@@ -453,7 +493,10 @@ def pathwise_q_v_samples(
     so each pair mirrors around Kvu·w and the sample mean is exact for any
     S. ``return_prior=True`` also returns the (S, ∏g_i) prior-path grid
     functionals, whose exact second moment diag(Kvv) is the control variate
-    of :func:`q_v_pathwise`. Draws come from ``gen`` (see ``sampling``).
+    of :func:`q_v_pathwise`. Draws come from ``gen`` (see ``sampling``);
+    under a ``shard`` every process draws every point's ε from ``gen`` in
+    the same state and keeps its own block, so the draws are the unsharded
+    run's.
     """
     _check_spec(spec)
     kvu_blocks = common.grid_kvu(spec, params, grid_axes)
@@ -467,14 +510,14 @@ def pathwise_q_v_samples(
     samples, priors = _matheron_grid_samples(
         spec, params, X, y, gen, n_samples=n_samples, n_features=n_features, tol=tol,
         maxiter=maxiter, kuu_tol=kuu_tol, kuu_maxiter=kuu_maxiter, antithetic=antithetic,
-        kvu_blocks=kvu_blocks, prior_grid_fn=prior_grid_fn)
+        kvu_blocks=kvu_blocks, prior_grid_fn=prior_grid_fn, shard=shard)
     samples = samples + common.grid_mean(spec, params, grid_axes)
     return (samples, priors) if return_prior else samples
 
 
 def _matheron_grid_samples(spec, params: Params, X, y, gen, *, n_samples, n_features, tol,
                            maxiter, kuu_tol, kuu_maxiter, antithetic, kvu_blocks,
-                           prior_grid_fn):
+                           prior_grid_fn, shard=None):
     """The Matheron sampler over CG solves for any linear grid functional:
     (samples, priors), both (S, ∏g_i), in the zero-mean GP's space.
     ``kvu_blocks`` are the per-axis Cov(functional, u) factors;
@@ -492,9 +535,14 @@ def _matheron_grid_samples(spec, params: Params, X, y, gen, *, n_samples, n_feat
     blocks = _kuf_blocks(spec, params, X)
     shape = _axis_shape(spec)
     noise = common.obs_noise(spec, params, X)
-    noise_c, weights = _noise_weights(spec, params, X)
-    g_solve = _g_solver(spec, params, blocks, tol, maxiter, noise_c=noise_c, weights=weights)
+    noise_c, weights = _noise_weights(spec, params, X, shard)
+    g_solve = _g_solver(spec, params, blocks, tol, maxiter, noise_c=noise_c, weights=weights,
+                        shard=shard)
     kuu_solve = _kuu_solver(spec, params, kuu_tol, kuu_maxiter)
+    # ε of every point, so that the generator stays in step with the
+    # unsharded run's; this process keeps its block
+    eps_shape = y.shape if shard is None else (shard.n,)
+    rows = slice(None) if shard is None else slice(shard.start, shard.start + y.shape[0])
 
     u_ps, v_ps, epss = [], [], []
     for _ in range(n_samples // 2 if antithetic else n_samples):
@@ -507,7 +555,7 @@ def _matheron_grid_samples(spec, params: Params, X, y, gen, *, n_samples, n_feat
             u_ps.append(sampling.prior_inducing_sample_multioutput(om, ph, amp, LB, co, spec,
                                                                    params))
             v_ps.append(prior_grid_fn(om, ph, amp, LB).reshape(-1))
-        epss.append(torch.sqrt(noise) * sampling.normal(gen, y.shape, y))
+        epss.append(torch.sqrt(noise) * sampling.normal(gen, eps_shape, y)[rows])
     v_p, eps = torch.stack(v_ps), torch.stack(epss)
 
     def project(U):
@@ -519,7 +567,7 @@ def _matheron_grid_samples(spec, params: Params, X, y, gen, *, n_samples, n_feat
         """Kvu G⁻¹ Kuf R resid for rows of residuals (k, n)."""
         if weights is not None:
             resid = resid * weights
-        rhs = _kuf_v(blocks, resid).reshape(resid.shape[0], -1)
+        rhs = _reduce(shard, _kuf_v(blocks, resid)).reshape(resid.shape[0], -1)
         alpha = g_solve(rhs.T).T.reshape(-1, *shape)
         return _along_axes(alpha, _matmul_along(kvu_blocks)).reshape(resid.shape[0], -1)
 
@@ -590,7 +638,7 @@ def pathwise_q_dv_samples(
     n_samples: int = 64, n_features: int = 1024,
     tol: float | None = None, maxiter: int = 1000,
     kuu_tol: float | None = None, kuu_maxiter: int = 2000,
-    antithetic: bool = False, return_prior: bool = False,
+    antithetic: bool = False, return_prior: bool = False, shard: DataShard | None = None,
 ):
     """(S, ∏g_i) joint posterior draws of the gridded-gradient product
     ∫_cell ∂f/∂x_axis: the sampler of :func:`pathwise_q_v_samples` with
@@ -613,7 +661,7 @@ def pathwise_q_dv_samples(
     samples, priors = _matheron_grid_samples(
         spec, params, X, y, gen, n_samples=n_samples, n_features=n_features, tol=tol,
         maxiter=maxiter, kuu_tol=kuu_tol, kuu_maxiter=kuu_maxiter, antithetic=antithetic,
-        kvu_blocks=kvu_blocks, prior_grid_fn=prior_grid_fn)
+        kvu_blocks=kvu_blocks, prior_grid_fn=prior_grid_fn, shard=shard)
     return (samples, priors) if return_prior else samples
 
 

@@ -14,11 +14,12 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import numpy as np
-from scipy import integrate as _integrate
 
 
 def integrate_1d(function: Callable, mesh: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """scipy ``quad`` of ``function`` over each [mesh[i-1], mesh[i]] interval."""
+    from scipy import integrate as _integrate
+
     areas, errors = [], []
     mesh = np.asarray(mesh)
     for i in range(1, len(mesh)):
@@ -120,5 +121,7 @@ def simpson_grid_2d(field: np.ndarray, xs: np.ndarray, ys: np.ndarray, n_grids: 
     """Per-cell Simpson double integral (reference ``dataloaders.py:513-539``
     semantics, with shared-edge cells and per-axis spacings — see
     :func:`_cell_slices`)."""
+    from scipy import integrate as _integrate
+
     return _grid_2d(field, np.asarray(xs), np.asarray(ys), n_grids,
                     lambda v, c, axis: _integrate.simpson(v, x=c, axis=axis))
