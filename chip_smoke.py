@@ -168,12 +168,15 @@ Phases (each asserts; any failure exits non-zero before the result line):
    (f) ``fit_restarts`` on phase 8's exact GP, a checkpoint round trip of
    phase 4's model and a resumed ``fit_minibatch``, a ``profile_trace`` of
    training steps that names the ``cell_kuf_with_dl`` kernel; the launches
-   read by shape, every shape held against plain. It runs last, after 16
-   and 17: after it, late in a long process, the profiler's windows kept
-   only a few of their launches, and 17's timings need them;
+   read by shape, every shape held against plain. It runs after 17's
+   rows are assembled;
 16. profile three steps at each batch (device busy share, the ops with the
-   most host and device time);
-17. time each kernel and its plain version (device time from the profiler's
+   most host and device time), at the very end: late in a long process,
+   after these two windows, every later window kept only 8 of 20 launches
+   (H100 runs);
+17. time each kernel and its plain version right after phase 3 (early in
+   the process, where the profiler's trace keeps every launch; the rows
+   are assembled after phase 14) (device time from the profiler's
    CUDA trace, call time from CUDA events), ``cell_kuf`` also at the
    serving grid's (512, 65 536) beside one warm cold ``posterior`` and one
    ``posterior_from_state`` on that grid and at the face difference's
@@ -207,6 +210,23 @@ Phases (each asserts; any failure exits non-zero before the result line):
    sharded ``solve_w`` (the same iterations) and CG mean heads on 13a's
    model at 65 536 points, (e) the sharded pathwise ``q_v`` and ``q_dv``
    on phase 7's model at S = 16 from one generator seed; within 60 s.
+20. the experiment layer (``vggp_tpu_torch.experiments``), last: (a) every
+   ported ``run()`` (``univariate.run`` and ``run_orders``,
+   ``kronecker``, ``simtracks``, ``gulfstream`` with its CV sweeps,
+   ``northsea``, ``parity``) at its default widths and 5 iterations on the
+   CPU, those with a roundoff-set member (``P20_ROUNDOFF``: the learned
+   Matérn-1/2 inducing points at lr 0.05 and 0.1) at 1 iteration too, the kernel
+   wrappers' calls recorded by (name, m, n); every recorded shape held on
+   the card against the plain version (float64 and float32) before (b)
+   and (c) launch it; its most-called shapes, ``P20_TIMED_SHAPES``, held
+   and timed in phase 17, before phase 15 (which 20a checks); (b)
+   each ``run()`` on the card at 20 iterations (parity at 10), each model's
+   steps a second and final loss printed beside the card line; (c) each
+   again at 5 iterations against (a)'s CPU run: final losses within 5e-3,
+   q(v) means, variances, posteriors and metric rows within 1e-3 of their
+   largest magnitude, parity's oracle column bitwise; the roundoff-set
+   members so at 1 iteration; launches counted by shape; (a) + (b) + (c)
+   within 150 s. No file is written.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -5281,6 +5301,340 @@ def parallel_phase(device, X, y, models, card) -> tuple:
     return launches, timings, at
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: the experiment layer (vggp_tpu_torch.experiments)
+# --------------------------------------------------------------------------- #
+
+P20_ITERS = 20           # 20b: each run() at its default widths, iterations cut to 20
+P20_PARITY_ITERS = 10    # 20b: parity's, cut further (its CPU oracle, ~0.5 s an iteration)
+P20_HOLD_ITERS = 5       # 20a and 20c: each run() on the CPU and on the card
+P20_MAX_S = 150.0        # 20a + 20b + 20c
+# phase 17 times these, each kernel's three most-called shapes in 20a (by
+# its calls, then the shape; experiments_phase checks that they still are)
+P20_TIMED_SHAPES = (("cell_kuf", 20, 4400), ("cell_kuf", 20, 696), ("cell_kuf", 10, 15),
+                    ("cell_kuf_with_dl", 20, 4400), ("cell_kuf_with_dl", 15, 625),
+                    ("cell_kuf_with_dl", 20, 696))
+P20_METRICS = ("mse", "mae", "rmse", "r2", "nlpd", "msll")
+# Members whose float32 result after a few Adam steps is set by roundoff
+# (ROADMAP queue 3, item 19), by run and model-name prefix: learned
+# Matérn-1/2 inducing points, whose kernel has a kink at d = 0. The zoo's
+# point SVGP at lr 0.05 (Adam's first step moves each z by ±lr, half the
+# zoo's z spacing, onto its neighbour or a data point) and the CV sweep's
+# free points at lr 0.1: which side of a kink roundoff puts a point on
+# decides its next step. A 1-ulp change of the inputs on the CPU moves their
+# 5-step results by 0.7–5% and their 1-step results by at most 1e-6
+# (tools/torch_experiments_roundoff.py), as far as the card's 5-step results
+# moved from the CPU's on an H100. They are held where their trajectory is still
+# determined, after one step (P20_FIRST_STEP_ITERS), at the same floors;
+# every other result at P20_HOLD_ITERS. (run_orders' Matérn-3/2 and 5/2
+# point SVGPs, smooth at d = 0, are held at P20_HOLD_ITERS: after one step
+# their points still coincide and the 5/2 Kuu is too near singular there.)
+P20_ROUNDOFF = {"univariate": ("svgp",), "univariate.run_orders": ("matern12/svgp",),
+                "kronecker": ("svgp",), "simtracks": ("svgp",),
+                "gulfstream": ("cv svgp_n_inducing=",)}
+P20_FIRST_STEP_ITERS = 1
+P20_SHAPE_LAUNCHES = collections.Counter()
+
+
+def p20_runs(iters: int, parity_iters=None) -> dict:
+    """Each ported experiment ``run()`` at its default widths with its
+    iterations (``cv_iters`` too) set to ``iters`` (parity's to
+    ``parity_iters`` where given), as {name: run(device)}. None writes files
+    (no ``outdir``)."""
+    from vggp_tpu_torch.experiments import (gulfstream, kronecker, northsea, parity,
+                                            simtracks, univariate)
+
+    parity_iters = iters if parity_iters is None else parity_iters
+    return {
+        "univariate": lambda d: univariate.run(n_iters=iters, device=d),
+        "univariate.run_orders": lambda d: univariate.run_orders(n_iters=iters, device=d),
+        "kronecker": lambda d: kronecker.run(n_iters=iters, device=d),
+        "simtracks": lambda d: simtracks.run(n_iters=iters, device=d),
+        "gulfstream": lambda d: gulfstream.run(n_iters=iters, run_cv=True, cv_iters=iters,
+                                               device=d),
+        "northsea": lambda d: northsea.run(n_iters=iters, device=d),
+        "parity": lambda d: parity.run(n_iters=parity_iters, device=d),
+    }
+
+
+def p20_roundoff(name: str, model: str) -> bool:
+    """Whether ``model`` of run ``name`` is one of P20_ROUNDOFF's members."""
+    return any(model.startswith(prefix) for prefix in P20_ROUNDOFF.get(name, ()))
+
+
+def p20_records(name: str, out) -> tuple:
+    """A run's results as ({(model, quantity): value}, {model: steps a
+    second}): the final losses (floats), and the q(v) means and variances,
+    posterior means and stddevs and metric rows (float64 arrays). For
+    ``parity`` the port's column; its oracle column is held apart."""
+    import numpy as np
+
+    q, rates = {}, {}
+
+    def add(model, rec, heads=(), loss=True):
+        if loss:
+            q[model, "final_loss"] = float(rec["final_loss"])
+        rates[model] = float(rec["steps_per_sec"])
+        for label, value in heads:
+            q[model, label] = np.asarray(value, np.float64).reshape(-1)
+
+    if name == "univariate":
+        for m, r in out["models"].items():
+            add(m, r, (("metrics", r["metrics"]), ("posterior mean", r["posterior"][0]),
+                       ("posterior std", r["posterior"][1])))
+    elif name == "univariate.run_orders":
+        for kind, models in out.items():
+            for m, r in models.items():
+                add(f"{kind}/{m}", r, (("metrics", [r[k] for k in P20_METRICS]),))
+    elif name == "kronecker":
+        for m, r in out["models"].items():
+            add(m, r, (("q_v mean", r["qv_grid"]), ("q_v var", r["qv_var"]),
+                       ("metrics", r["metrics"])))
+    elif name == "simtracks":
+        for m, r in out["models"].items():
+            add(m, r, (("q_v mean", r["qv_mean"]), ("metrics", r["metrics"])))
+    elif name == "northsea":
+        for m, r in out["models"].items():
+            add(m, r, (("q_v mean", r["qv_mean"]), ("q_v var", r["qv_var"])))
+    elif name == "gulfstream":
+        for split in ("train", "test"):
+            for m, r in out[split].items():
+                add(f"{split}/{m}", r, (("q_v mean", r["qv"].mean), ("q_v var", r["qv"].var),
+                                        ("metrics", r["metrics"])))
+        for sweep, cv in out["cv"].items():
+            for i, setting in enumerate(cv["setting"]):
+                add(f"cv {sweep}={setting}", {"steps_per_sec": cv["steps_per_sec"][i]},
+                    (("train metrics", cv["train_metrics"][i]),
+                     ("val metrics", cv["val_metrics"][i])), loss=False)
+    elif name == "parity":
+        for split, rec in out["splits"].items():
+            for m, impls in rec["models"].items():
+                r = impls["vggp_tpu_torch_f32"]
+                add(f"{split}/{m}", r, (("metrics", list(r["metrics"].values())),))
+                rates[f"{split}/{m} oracle"] = float(impls["reference_f64_cpu"]["steps_per_sec"])
+    else:
+        raise ValueError(name)
+    return q, rates
+
+
+def p20_oracle(out) -> dict:
+    """parity's oracle column without its wall-clock rate."""
+    return {(split, m): {k: v for k, v in impls["reference_f64_cpu"].items()
+                         if k != "steps_per_sec"}
+            for split, rec in out["splits"].items() for m, impls in rec["models"].items()}
+
+
+def p20_gap(got, want) -> float:
+    """|Δ|/|want| of a loss; max|Δ|/max|want| of an array."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def p20_cases(device, shapes) -> list:
+    """:func:`check_kernels_at`'s cases for each (kernel, m, n) of ``shapes``:
+    m uniform cells, n points from a seed over [−0.05, 1.05]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(20)
+    return [(m, torch.as_tensor(rng.random(n) * 1.1 - 0.05, device=device), None)
+            for m, n in sorted({(m, n) for _, m, n in shapes})]
+
+
+def experiments_cpu_part(device) -> dict:
+    """Phase 20a, the phase's start: every ``run()`` of :func:`p20_runs` at
+    P20_HOLD_ITERS on the CPU in float32, and those with a member of
+    P20_ROUNDOFF at P20_FIRST_STEP_ITERS too — 20c's references — with every
+    call of the three kernel wrappers recorded by (name, m, n) (the CPU
+    takes the plain versions, which launch nothing); then every recorded
+    shape held on the card against the plain version in float64 and
+    float32 (:func:`check_kernels_at`, both cell kernels at each (m, n))
+    before the phase launches it. Returns {"cpu", "cpu_first_step",
+    "calls", "errs", "seconds"}."""
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    t0 = time.perf_counter()
+    calls = collections.Counter()
+    originals = {name: getattr(ck, name) for name in NO_LAUNCHES}
+
+    def recording(name, fn):
+        def call(*args, **kwargs):
+            mesh, x = args[1:3] if name == "fused_banded_whiten_kuf" else args[:2]
+            calls[name, mesh.shape[0] - 1, x.reshape(-1).shape[0]] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    cpu, first = {}, {}
+    for name, fn in originals.items():
+        setattr(ck, name, recording(name, fn))
+    try:
+        for iters, runs, into in ((P20_HOLD_ITERS, p20_runs(P20_HOLD_ITERS), cpu),
+                                  (P20_FIRST_STEP_ITERS, p20_runs(P20_FIRST_STEP_ITERS), first)):
+            for name, run in runs.items():
+                if into is first and name not in P20_ROUNDOFF:
+                    continue
+                t1 = time.perf_counter()
+                into[name] = run("cpu")
+                print(f"20a {name} on the CPU at {iters} iterations: "
+                      f"{time.perf_counter() - t1:.1f} s")
+    finally:
+        for name, fn in originals.items():
+            setattr(ck, name, fn)
+    print(f"20a kernel calls by (name, m, n): {dict(sorted(calls.items()))}")
+    check(not any(k[0] == "fused_banded_whiten_kuf" for k in calls),
+          f"20a: the fused kernel was called ({calls}); no experiment has 128·k cells")
+    cases = p20_cases(device, calls)
+    errs = check_kernels_at(device, cases, "20")
+    took = time.perf_counter() - t0
+    print(f"20a: {len(cases)} shapes held on the card; {took:.1f} s")
+    return {"cpu": cpu, "cpu_first_step": first, "calls": calls, "errs": errs,
+            "seconds": took}
+
+
+def p20_timed_shapes(calls) -> tuple:
+    """(kernel, m, n) of each cell kernel's three most-called shapes in
+    ``calls`` (by the count, then the shape)."""
+    out = []
+    for kernel in ("cell_kuf", "cell_kuf_with_dl"):
+        ranked = sorted(((k, c) for k, c in calls.items() if k[0] == kernel),
+                        key=lambda kc: (-kc[1], kc[0]))
+        out += [k for k, _ in ranked[:3]]
+    return tuple(out)
+
+
+def experiments_phase(device, card) -> tuple:
+    """Phase 20, last: the experiment layer on the card. (a)
+    :func:`experiments_cpu_part`, whose most-called shapes must be
+    P20_TIMED_SHAPES (phase 17 held and timed them); (b) each ``run()``
+    of :func:`p20_runs` at its default widths and P20_ITERS (parity at
+    P20_PARITY_ITERS): each model's steps a second and final loss printed
+    beside the card's name and power limit, every number finite; (c) each
+    again at P20_HOLD_ITERS against 20a's CPU run: every final loss within
+    TOL_E2E_LOSS, every q(v) mean, variance, posterior and metric row within
+    TOL_E2E_POST of its largest magnitude, parity's oracle column equal bit
+    for bit; the members of P20_ROUNDOFF so at P20_FIRST_STEP_ITERS (their
+    gaps at P20_HOLD_ITERS printed). Every launch is counted by (name, m,
+    n) and must be at a shape 20a held against the plain version. 20a + 20b
+    + 20c take at most P20_MAX_S. Returns (the launches, timings, the
+    launches by shape)."""
+    import numpy as np
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    part = experiments_cpu_part(device)
+    t_phase = time.perf_counter()
+    check(p20_timed_shapes(part["calls"]) == P20_TIMED_SHAPES,
+          f"20a: the most-called shapes {p20_timed_shapes(part['calls'])} are not "
+          f"P20_TIMED_SHAPES, which phase 17 timed")
+    P20_SHAPE_LAUNCHES.clear()
+    launches, timings = dict(NO_LAUNCHES), {"experiments_cpu_part_s": part["seconds"]}
+
+    def counted_run(name, run):
+        nonlocal launches
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(ck.LAUNCHES)
+        P20_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
+        launches = add_launches(launches, got)
+        return out, seconds, got
+
+    # 20b: the default widths at P20_ITERS
+    for name, run in p20_runs(P20_ITERS, P20_PARITY_ITERS).items():
+        out, seconds, got = counted_run(name, run)
+        quantities, rates = p20_records(name, out)
+        bad = [k for k, v in quantities.items() if not np.all(np.isfinite(v))]
+        check(not bad, f"20b {name}: not finite: {bad}")
+        check(all(np.isfinite(r) and r > 0 for r in rates.values()),
+              f"20b {name}: steps a second {rates}")
+        for model, rate in rates.items():
+            loss = quantities.get((model, "final_loss"))
+            print(f"20b {name} {model}: {rate:.1f} steps/s"
+                  + ("" if loss is None else f", final loss {loss:.6g}") + f" ({card})")
+        timings[f"p20b {name}"] = {"seconds": seconds, "launches": got, "steps_per_sec": rates,
+                                   "final_loss": {m: v for (m, k), v in quantities.items()
+                                                  if k == "final_loss"}}
+        print(f"20b {name}: {seconds:.1f} s, launches {got}")
+
+    # 20c: the card against 20a's CPU runs
+    misses, worst = [], {}
+
+    def hold(name, what, card_q, cpu_q, members):
+        """Hold ``members`` (a predicate on the model name) of a run's
+        records at the floors; returns the largest gap by kind."""
+        check(sorted(card_q) == sorted(cpu_q), f"20c {name}: the card's results differ in keys")
+        gaps = {}
+        for key, want in cpu_q.items():
+            model, quantity = key
+            if not members(model):
+                continue
+            kind = "losses" if quantity == "final_loss" else "heads"
+            floor = TOL_E2E_LOSS if kind == "losses" else TOL_E2E_POST
+            gap = p20_gap(card_q[key], want)
+            gaps[kind] = max(gaps.get(kind, 0.0), gap)
+            if not gap <= floor:
+                misses.append(f"{name} {what} {model} {quantity}: {gap} > {floor}")
+        return gaps
+
+    for name, run in p20_runs(P20_HOLD_ITERS).items():
+        out, seconds, got = counted_run(name, run)
+        card_q, cpu_q = p20_records(name, out)[0], p20_records(name, part["cpu"][name])[0]
+        gaps = hold(name, f"{P20_HOLD_ITERS} steps", card_q, cpu_q,
+                    lambda m, n=name: not p20_roundoff(n, m))
+        worst.update({(name, k): v for k, v in gaps.items()})
+        line = (f"check 20c {name}: the largest gap card vs CPU at {P20_HOLD_ITERS} steps, "
+                f"losses {gaps.get('losses', 0.0):.3e} (floor {TOL_E2E_LOSS:.0e}), heads "
+                f"{gaps.get('heads', 0.0):.3e} (floor {TOL_E2E_POST:.0e})")
+        if name in P20_ROUNDOFF:
+            loose = {}
+            for key, want in cpu_q.items():
+                if p20_roundoff(name, key[0]):
+                    kind = "losses" if key[1] == "final_loss" else "heads"
+                    loose[kind] = max(loose.get(kind, 0.0), p20_gap(card_q[key], want))
+            first, s1, _ = counted_run(name, p20_runs(P20_FIRST_STEP_ITERS)[name])
+            gaps1 = hold(name, f"{P20_FIRST_STEP_ITERS} step", p20_records(name, first)[0],
+                         p20_records(name, part["cpu_first_step"][name])[0],
+                         lambda m, n=name: p20_roundoff(n, m))
+            worst.update({(name, f"roundoff {k}"): v for k, v in gaps1.items()})
+            line += (f"; its roundoff-set members ({', '.join(P20_ROUNDOFF[name])}) at "
+                     f"{P20_FIRST_STEP_ITERS} step: losses {gaps1.get('losses', 0.0):.3e}, heads "
+                     f"{gaps1.get('heads', 0.0):.3e} (at {P20_HOLD_ITERS}: losses "
+                     f"{loose.get('losses', 0.0):.3e}, heads {loose.get('heads', 0.0):.3e}, "
+                     f"not held)")
+            seconds += s1
+        if name == "parity":
+            same = p20_oracle(out) == p20_oracle(part["cpu"][name])
+            line += f"; the oracle column equals the CPU run's bit for bit: {same}"
+            if not same:
+                misses.append("parity: the oracle columns differ")
+        print(line + f"; {seconds:.1f} s")
+    timings["p20c_largest_gap"] = {f"{n} {k}": v for (n, k), v in worst.items()}
+    check(not misses, f"20c: {len(misses)} results off: {misses}")
+
+    at = dict(P20_SHAPE_LAUNCHES)
+    held = {k for k in part["errs"]}
+    print(f"phase 20's launches: {launches}, by shape {dict(sorted(at.items()))}")
+    check(all(k in held for k in at), f"phase 20 launched a shape never held against plain: "
+          f"{sorted(k for k in at if k not in held)}")
+    check(sum(at.values()) == sum(launches.values()),
+          f"phase 20: launches by shape {at} vs {launches}")
+    check(launches["cell_kuf"] > 0 and launches["cell_kuf_with_dl"] > 0
+          and launches["fused_banded_whiten_kuf"] == 0,
+          f"phase 20: launches {launches}")
+    took = part["seconds"] + time.perf_counter() - t_phase
+    timings["experiments_phase_total_s"] = took
+    print(f"phase 20: 20a {part['seconds']:.1f} s + 20b/20c "
+          f"{time.perf_counter() - t_phase:.1f} s = {took:.1f} s")
+    check(took <= P20_MAX_S, f"phase 20 took {took:.1f} s > {P20_MAX_S} s")
+    return launches, timings, at
+
+
 PROFILE_STEPS = 3
 
 
@@ -5403,6 +5757,9 @@ def time_kuf_shape(device, m, n, x_is_mesh=False, name="cell_kuf", edges=None) -
 
     from vggp_tpu_torch.ops import cell_kuf as ck
 
+    key = (name, m, n, x_is_mesh, edges is not None)
+    if key in KERNEL_TIMES:
+        return dict(KERNEL_TIMES[key])
     mesh, x, v, ell, _ = kernel_inputs(m, n, torch.float32, device, seed=7, mesh=edges)
     if x_is_mesh:
         x = mesh.clone()
@@ -5418,7 +5775,8 @@ def time_kuf_shape(device, m, n, x_is_mesh=False, name="cell_kuf", edges=None) -
           f"{'' if edges is None else ' stretched mesh'}: device ms kernel "
           f"{k1:.5f}/{k2:.5f}, plain {p1:.5f}/{p2:.5f}; bound {out['bound_ms']:.5f} ms "
           f"({out['bound_by']})")
-    return out
+    KERNEL_TIMES[key] = out
+    return dict(out)
 
 
 def time_fused_shape(device, m, n) -> dict:
@@ -5429,6 +5787,9 @@ def time_fused_shape(device, m, n) -> dict:
 
     from vggp_tpu_torch.ops import cell_kuf as ck
 
+    key = ("fused_banded_whiten_kuf", m, n)
+    if key in KERNEL_TIMES:
+        return dict(KERNEL_TIMES[key])
     mesh, x, v, ell, finv = kernel_inputs(m, n, torch.float32, device, seed=8)
     kern = lambda: ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell, *MAIN_PRECISIONS)
     plain = lambda: ck.fused_banded_whiten_kuf_plain(finv, mesh, x, v, ell, *MAIN_PRECISIONS)
@@ -5440,7 +5801,8 @@ def time_fused_shape(device, m, n) -> dict:
            **fused_bounds(m, n, MAIN_PRECISIONS)}
     print(f"time fused_banded_whiten_kuf at ({m}, {n}): device ms kernel {k1:.5f}/{k2:.5f}, "
           f"plain {p1:.5f}/{p2:.5f}; bound {out['bound_ms']:.5f} ms ({out['bound_by']})")
-    return out
+    KERNEL_TIMES[key] = out
+    return dict(out)
 
 
 def time_serving_grid(device, spec, model, state) -> dict:
@@ -5513,14 +5875,18 @@ def measure_kernels(device, errs, launches, shapes) -> list:
     for name, kern, plain, bound in cases:
         dev_kernel = _DEVICE_KERNELS[name]
         fused = name == "fused_banded_whiten_kuf"
-        # in turns: plain, kernel, (unfused, unfused,) kernel, plain
-        p1, pc1 = time_ms(plain)
-        k1, kc1 = time_ms(kern, kernel=dev_kernel)
-        if fused:
-            u1, _ = time_ms(unfused)
-            u2, _ = time_ms(unfused)
-        k2, kc2 = time_ms(kern, kernel=dev_kernel)
-        p2, pc2 = time_ms(plain)
+        key = ("main row", name)
+        if key not in KERNEL_TIMES:
+            # in turns: plain, kernel, (unfused, unfused,) kernel, plain
+            p1, pc1 = time_ms(plain)
+            k1, kc1 = time_ms(kern, kernel=dev_kernel)
+            u1, u2 = (time_ms(unfused)[0], time_ms(unfused)[0]) if fused else (None, None)
+            k2, kc2 = time_ms(kern, kernel=dev_kernel)
+            p2, pc2 = time_ms(plain)
+            KERNEL_TIMES[key] = (p1, pc1, k1, kc1, u1, u2, k2, kc2, p2, pc2)
+        p1, pc1, k1, kc1, u1, u2, k2, kc2, p2, pc2 = KERNEL_TIMES[key]
+        if errs is None:
+            continue
         row = {
             "name": name, "route": "cuda", "source": _SOURCES[name],
             "replaces": _REPLACES[name], "launches": launches[name],
@@ -5539,6 +5905,60 @@ def measure_kernels(device, errs, launches, shapes) -> list:
               f"call ms kernel {kc1:.5f}/{kc2:.5f}, plain {pc1:.5f}/{pc2:.5f}; "
               f"bound {row['bound_ms']:.5f} ms" + extra)
     return rows
+
+
+# Phase 17's kernel timings, taken early (right after phase 3) by
+# time_kernels_early and read back when phase 17 assembles its rows: late in
+# a long process torch.profiler's trace kept 8 of 20 launches a window (and
+# then none) from the first timing after phase 16 on, in whole-script runs on
+# an H100, where a short process kept them all. Keyed by the timing's
+# arguments.
+KERNEL_TIMES = {}
+
+
+def phase17_shapes() -> list:
+    """The (name, m, n, x_is_mesh, stretched) of every kernel shape phase 17
+    times, in its order (the serving grid's, the face differences', the
+    collapsed, zoo, family, phase 14, 15 and 20 shapes)."""
+    cuts = [(SGPR_CELLS, SGPR_CUT_N, "cell_kuf_with_dl")]
+    return ([("cell_kuf", M_AXIS, SERVE_GRID ** 2, False, False),
+             ("cell_kuf", M_AXIS, M_AXIS + 1, True, False),
+             ("cell_kuf", 16384, 256, False, False),
+             ("cell_kuf", SGPR_CELLS, SGPR_N, False, False),
+             ("cell_kuf", FULL_CELLS, TRAIN_BATCH, False, False),
+             ("cell_kuf", SGPR_CELLS, SGPR_CELLS + 1, True, False),
+             ("cell_kuf", M_AXIS, SERVE_POINTS, False, True),
+             ("cell_kuf", M_AXIS, M_AXIS + 1, True, True),
+             ("cell_kuf", ZOO_CELLS, ZOO_N, False, False),
+             ("cell_kuf_with_dl", SGPR_CELLS, SGPR_N, False, False),
+             ("cell_kuf_with_dl", M_AXIS, TRAIN_BATCH, False, True),
+             ("cell_kuf_with_dl", FULL_CELLS, TRAIN_BATCH, False, False),
+             ("cell_kuf_with_dl", ZOO_CELLS, ZOO_N, False, False)]
+            + [(k, m, n, False, False) for k, m, n in (
+                ("cell_kuf", M_AXIS, FUSED_BATCH), ("cell_kuf", ICM_CELLS, SGPR_N),
+                ("cell_kuf", SUM_CELLS[0], SGPR_N), ("cell_kuf", SUM_CELLS[1], SGPR_N),
+                ("cell_kuf", ADD_CELLS, SGPR_N), ("cell_kuf_with_dl", ADD_CELLS, SGPR_N))]
+            + [("cell_kuf", m, n, False, False) for m, n in P14_NEW_SHAPES]
+            + [(k, m, n, False, False) for k in ("cell_kuf", "cell_kuf_with_dl")
+               for m, n in P15_NEW_SHAPES]
+            + [(k, m, n, False, False) for m, n, k in cuts]
+            + [(k, m, n, False, False) for k, m, n in P20_TIMED_SHAPES])
+
+
+def time_kernels_early(device) -> dict:
+    """Phase 17's timings, right after phase 3, into KERNEL_TIMES: every
+    shape of :func:`phase17_shapes` (phase 20's ``P20_TIMED_SHAPES`` held
+    against plain first), the fused kernel at the additive model's shape,
+    and the main path's rows of :func:`measure_kernels`. Returns phase 20's
+    shapes' float32 errors against plain."""
+    p20_errs = check_kernels_at(device, p20_cases(device, P20_TIMED_SHAPES), "20")
+    edges = stretched_mesh(M_AXIS)
+    for name, m, n, x_is_mesh, stretched in phase17_shapes():
+        time_kuf_shape(device, m, n, x_is_mesh=x_is_mesh, name=name,
+                       edges=edges if stretched else None)
+    time_fused_shape(device, ADD_CELLS, SGPR_N)
+    measure_kernels(device, None, None, {})
+    return p20_errs
 
 
 def main() -> int:
@@ -5562,8 +5982,13 @@ def main() -> int:
     errs = check_kernels(device)
     check_goldens(device)
     check_finv(device)
+    t0 = time.perf_counter()
+    p20_errs = time_kernels_early(device)
+    kernel_timings_s = time.perf_counter() - t0
+    print(f"phase 17's kernel timings, taken after phase 3: {kernel_timings_s:.1f} s")
     X, y, Xs = make_data(device)
     spec, model, post, launches, timings, step, gen = drive_main_path(device, X, y, Xs)
+    timings["kernel_timings_s"] = kernel_timings_s
     check_against_cpu_f64(spec, model, post, X, y, Xs)
     check_fused_against_cpu_f64(spec, model, X, y)
     got, edge_launches, serve_times, state = serve_heads(device, spec, model, Xs)
@@ -5607,8 +6032,6 @@ def main() -> int:
     print(f"sampler_stream_phase: {timings['sampler_stream_phase_s']:.1f} s")
     launches = add_launches(launches, got)
     timings.update(phase_times)
-    for batch in (TRAIN_BATCH, FUSED_BATCH):
-        timings.update(profile_steps(step, X, y, batch, gen))
     serving_grid = time_serving_grid(device, spec, model, state)
     timings["posterior_ms_grid65536"] = serving_grid["posterior_ms"]
     timings["posterior_from_state_ms_grid65536"] = serving_grid["posterior_from_state_ms"]
@@ -5682,10 +6105,8 @@ def main() -> int:
         shapes["cell_kuf"][f"at_{m}_cells_{n}"] = {
             **time_kuf_shape(device, m, n), "launches": p14_at[m, n],
             "max_abs_err": p14_errs[("cell_kuf", m, n)]}
-    # phase 15's new shape, timed here with the others: phase 15 runs after
-    # the timings (after it, late in a long process, the profiler kept only
-    # 3–5 of 20 launches a window for tens of shapes in a row, on an H100);
-    # its launches and error join the row once it has run
+    # phase 15's new shape, timed with the others after phase 3; its
+    # launches and error join the row once phase 15 has run
     for name in ("cell_kuf", "cell_kuf_with_dl"):
         for m, n in P15_NEW_SHAPES:
             shapes[name][f"at_{m}_cells_{n}"] = time_kuf_shape(device, m, n, name=name)
@@ -5696,6 +6117,14 @@ def main() -> int:
     print(f"cell_kuf_with_dl at ({SGPR_CELLS}, {SGPR_CUT_N}): {cut['share_of_bound']:.3f} of its "
           f"bound")
     shapes["cell_kuf_with_dl"][f"at_{SGPR_CELLS}_cells_{SGPR_CUT_N}"] = cut
+    # phase 20's most-called shapes, held against plain and timed with the
+    # others after phase 3; their launches join the rows once phase 20 has run
+    for kernel, m, n in P20_TIMED_SHAPES:
+        entry = time_kuf_shape(device, m, n, name=kernel)
+        entry.update(share_of_bound=entry["bound_ms"] / entry["ms"],
+                     max_abs_err=p20_errs[(kernel, m, n)])
+        print(f"{kernel} at ({m}, {n}), phase 20: {entry['share_of_bound']:.3f} of its bound")
+        shapes[kernel][f"phase20_at_{m}_cells_{n}"] = entry
     shapes["cell_kuf"]["cell_kuf_op_backward_at_512_cells_4096"] = {
         "max_abs_err_vs_cpu_f64": family_errs[("cell_kuf_op_backward", M_AXIS, TRAIN_BATCH)]}
     rows = measure_kernels(device, errs, launches, shapes)
@@ -5720,9 +6149,25 @@ def main() -> int:
     print(f"parallel_phase: {timings['parallel_phase_s']:.1f} s")
     launches = add_launches(launches, got19)
     timings.update(phase_times)
+    t0 = time.perf_counter()
+    got20, phase_times, p20_at = experiments_phase(device, card)
+    timings["experiments_phase_s"] = time.perf_counter() - t0
+    print(f"experiments_phase: {timings['experiments_phase_s']:.1f} s")
+    launches = add_launches(launches, got20)
+    timings.update(phase_times)
+    # phase 16 last: in whole-script runs on an H100 every profiler window
+    # after its two windows (about 6000 launches each) kept 8 of 20 launches
+    for batch in (TRAIN_BATCH, FUSED_BATCH):
+        timings.update(profile_steps(step, X, y, batch, gen))
     for row in rows:
         name = row["name"]
         row["launches"] = launches[name]
+        row["phase20_launches"] = got20[name]
+        row["phase20_launches_by_shape"] = {
+            f"{m}x{n}": k for (kname, m, n), k in sorted(p20_at.items()) if kname == name}
+        for key, entry in row.items():
+            if key.startswith("phase20_at_"):
+                entry["launches"] = p20_at.get((name, entry["shape"][0], entry["shape"][1]), 0)
         row["phase18_launches"] = got[name]
         row["phase19_launches"] = got19[name]
         row["phase19_launches_by_shape"] = {

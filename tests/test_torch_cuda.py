@@ -875,3 +875,29 @@ def test_cuda_world_one_sharded_step_equals_the_unsharded_step(cuda, tmp_path):
             assert float((a - b).abs().max()) <= 1e-6 * max(float(b.abs().max()), 1e-30)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_kronecker_experiment_matches_cpu(cuda):
+    """``experiments.kronecker.run`` at its default widths on the card
+    against the same run on the CPU, by phase 20's holds: at 5 iterations
+    every final loss within 5e-3, every q(v) mean, variance and metric row
+    within 1e-3 of its largest magnitude; the zoo's point SVGP, whose
+    float32 trajectory is set by roundoff at lr 0.05
+    (``chip_smoke.P20_ROUNDOFF``), so after its first step. The GriddedGP
+    member goes through both cell kernels."""
+    from chip_smoke import TOL_E2E_LOSS, TOL_E2E_POST, p20_gap, p20_records, p20_roundoff
+    from vggp_tpu_torch.experiments import kronecker
+
+    for iters in (5, 1):
+        ck.reset_launch_counts()
+        card, _ = p20_records("kronecker", kronecker.run(n_iters=iters, device=cuda))
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["cell_kuf"] > 0 and ck.LAUNCHES["cell_kuf_with_dl"] > 0
+        cpu, _ = p20_records("kronecker", kronecker.run(n_iters=iters, device="cpu"))
+        assert sorted(card) == sorted(cpu)
+        for key, want in cpu.items():
+            assert np.all(np.isfinite(card[key])), key
+            if p20_roundoff("kronecker", key[0]) == (iters == 1):
+                floor = TOL_E2E_LOSS if key[1] == "final_loss" else TOL_E2E_POST
+                assert p20_gap(card[key], want) <= floor, key

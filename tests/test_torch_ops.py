@@ -459,7 +459,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in ('hyperpost', 'lbfgs', 'train', 'convert', 'api', 'utils', 'utils.metrics',\n"
         "          'utils.scalers', 'utils.datagen', 'utils.integrators', 'parallel',\n"
         "          'parallel.mesh', 'parallel.dp', 'parallel.cg', 'data', 'data.transforms',\n"
-        "          'data.simulation', 'data.missions', 'data.gulfstream'):\n"
+        "          'data.simulation', 'data.missions', 'data.gulfstream', 'experiments',\n"
+        "          'experiments.configs', 'experiments.loaders', 'experiments.misc',\n"
+        "          'experiments.plotting', 'experiments.zoo', 'experiments.univariate',\n"
+        "          'experiments.kronecker', 'experiments.simtracks', 'experiments.gulfstream',\n"
+        "          'experiments.northsea', 'experiments.torch_oracle', 'experiments.parity',\n"
+        "          'experiments.__main__'):\n"
         "    assert 'vggp_tpu_torch.' + m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules if k.startswith('vggp_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -118,9 +118,14 @@ def kdiff0(kind: str, r: torch.Tensor, variance, lengthscale) -> torch.Tensor:
 
 def gram_1d(kind: str, x1: torch.Tensor, x2: torch.Tensor, variance,
             lengthscale) -> torch.Tensor:
-    """Dense Gram K[i, j] = k(|x1_i − x2_j|) for 1-D inputs."""
-    r = torch.abs(x1.reshape(-1)[:, None] - x2.reshape(-1)[None, :])
-    return k_r(kind, r, variance, lengthscale)
+    """Dense Gram K[i, j] = k(|x1_i − x2_j|) for 1-D inputs.
+
+    |d| is taken as ``where(d >= 0, d, −d)``: its derivative at d = 0 is +1,
+    as ``jnp.abs``'s in the JAX package (``torch.abs`` takes 0 there). A
+    learned inducing point that lands exactly on a data point (an Adam step
+    of ±lr from a point on a uniform grid does) then steps as in JAX."""
+    d = x1.reshape(-1)[:, None] - x2.reshape(-1)[None, :]
+    return k_r(kind, torch.where(d >= 0, d, -d), variance, lengthscale)
 
 
 # The multi-output (ICM) coregion axis (``kernels.py:291-366``): a discrete
