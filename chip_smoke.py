@@ -227,6 +227,23 @@ Phases (each asserts; any failure exits non-zero before the result line):
    largest magnitude, parity's oracle column bitwise; the roundoff-set
    members so at 1 iteration; launches counted by shape; (a) + (b) + (c)
    within 150 s. No file is written.
+21. the last eight experiments (``spacetime``, ``poisson``, ``exceedance``,
+   ``streaming``, ``velocity``, ``evidence``, ``multioutput``,
+   ``multiscale``), after phase 20: (a) each ``run()`` at its default widths
+   and 5 iterations on the CPU, the kernel wrappers' calls recorded by
+   (name, m, n) (spacetime's three-axis Matérn-1/2 SVGP alone calls one:
+   ``cell_kuf_with_dl`` once an axis a step at (32, 1024)), every recorded
+   shape held on the card against the plain version before (b) and (c)
+   launch it; its most-called shapes, ``P21_TIMED_SHAPES``, held and timed
+   in phase 17; (b) each on the card at 20 iterations, steps a second and
+   final loss printed beside the card line; (c) each again at 5 iterations
+   against (a)'s CPU run: final losses and log
+   evidences within 5e-3, heads, metric rows and the sampled functionals
+   (CPU generators, so the same draws) within 1e-3 of their largest
+   magnitude (the stream's drift-segment NLPDs within P21_DRIFT_NLPD_FLOOR),
+   errors against a truth within 1e-3 of the truth's scale, fractions of
+   points within two points; launches counted by shape; (a) + (b) + (c)
+   within 150 s.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -235,6 +252,7 @@ script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -5443,19 +5461,13 @@ def p20_cases(device, shapes) -> list:
             for m, n in sorted({(m, n) for _, m, n in shapes})]
 
 
-def experiments_cpu_part(device) -> dict:
-    """Phase 20a, the phase's start: every ``run()`` of :func:`p20_runs` at
-    P20_HOLD_ITERS on the CPU in float32, and those with a member of
-    P20_ROUNDOFF at P20_FIRST_STEP_ITERS too — 20c's references — with every
-    call of the three kernel wrappers recorded by (name, m, n) (the CPU
-    takes the plain versions, which launch nothing); then every recorded
-    shape held on the card against the plain version in float64 and
-    float32 (:func:`check_kernels_at`, both cell kernels at each (m, n))
-    before the phase launches it. Returns {"cpu", "cpu_first_step",
-    "calls", "errs", "seconds"}."""
+@contextlib.contextmanager
+def recorded_kernel_calls():
+    """Within the block, every call of the three kernel wrappers is counted
+    by (name, m, n) in the Counter it yields (the callers look the wrappers
+    up at call time)."""
     from vggp_tpu_torch.ops import cell_kuf as ck
 
-    t0 = time.perf_counter()
     calls = collections.Counter()
     originals = {name: getattr(ck, name) for name in NO_LAUNCHES}
 
@@ -5466,10 +5478,28 @@ def experiments_cpu_part(device) -> dict:
             return fn(*args, **kwargs)
         return call
 
-    cpu, first = {}, {}
     for name, fn in originals.items():
         setattr(ck, name, recording(name, fn))
     try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(ck, name, fn)
+
+
+def experiments_cpu_part(device) -> dict:
+    """Phase 20a, the phase's start: every ``run()`` of :func:`p20_runs` at
+    P20_HOLD_ITERS on the CPU in float32, and those with a member of
+    P20_ROUNDOFF at P20_FIRST_STEP_ITERS too — 20c's references — with every
+    call of the three kernel wrappers recorded by (name, m, n) (the CPU
+    takes the plain versions, which launch nothing); then every recorded
+    shape held on the card against the plain version in float64 and
+    float32 (:func:`check_kernels_at`, both cell kernels at each (m, n))
+    before the phase launches it. Returns {"cpu", "cpu_first_step",
+    "calls", "errs", "seconds"}."""
+    t0 = time.perf_counter()
+    cpu, first = {}, {}
+    with recorded_kernel_calls() as calls:
         for iters, runs, into in ((P20_HOLD_ITERS, p20_runs(P20_HOLD_ITERS), cpu),
                                   (P20_FIRST_STEP_ITERS, p20_runs(P20_FIRST_STEP_ITERS), first)):
             for name, run in runs.items():
@@ -5479,9 +5509,6 @@ def experiments_cpu_part(device) -> dict:
                 into[name] = run("cpu")
                 print(f"20a {name} on the CPU at {iters} iterations: "
                       f"{time.perf_counter() - t1:.1f} s")
-    finally:
-        for name, fn in originals.items():
-            setattr(ck, name, fn)
     print(f"20a kernel calls by (name, m, n): {dict(sorted(calls.items()))}")
     check(not any(k[0] == "fused_banded_whiten_kuf" for k in calls),
           f"20a: the fused kernel was called ({calls}); no experiment has 128·k cells")
@@ -5632,6 +5659,324 @@ def experiments_phase(device, card) -> tuple:
     print(f"phase 20: 20a {part['seconds']:.1f} s + 20b/20c "
           f"{time.perf_counter() - t_phase:.1f} s = {took:.1f} s")
     check(took <= P20_MAX_S, f"phase 20 took {took:.1f} s > {P20_MAX_S} s")
+    return launches, timings, at
+
+
+# --------------------------------------------------------------------------- #
+# phase 21: the last eight experiments (spacetime, poisson, exceedance,
+# streaming, velocity, evidence, multioutput, multiscale)
+# --------------------------------------------------------------------------- #
+
+P21_ITERS = 20           # 21b: each run() at its default widths, iterations cut to 20
+P21_HOLD_ITERS = 5       # 21a and 21c: each run() on the CPU and on the card
+P21_MAX_S = 150.0        # 21a + 21b + 21c
+# phase 17 times these: spacetime's most-called shapes in 21a, up to three
+# (its three axes share one: 32 cells, batch 1024; experiments_phase21
+# checks that they still are the most-called)
+P21_TIMED_SHAPES = (("cell_kuf_with_dl", 32, 1024),)
+P21_SHAPE_LAUNCHES = collections.Counter()
+# 21c's bounds on the fractions that float32 roundoff can move by whole
+# points (a sample value across τ, a test point across its interval's
+# edge): two such flips, in the fraction's own units
+P21_FLIPS = 2
+# 21c's floor for the stream's drift-segment NLPDs (after forget, anchored
+# and reanchored), the one head that misses TOL_E2E_POST: float32 roundoff
+# grows through the stream's 16 passes, the drift and the 200-step refit
+# (ROADMAP queue 3, item 15), and card vs CPU read 1.153e-3 at 5 iterations
+# and 1.847e-3 at 20 on an H100 80GB HBM3 at 700 W, the same in every run.
+# About 5× the larger reading, as the gradient floors of phases 7–9 are set.
+P21_DRIFT_NLPD_FLOOR = 1e-2
+
+
+def p21_runs(iters: int) -> dict:
+    """Each of the eight ``run()`` s at its default widths with its
+    iterations (streaming's hyperparameter fit) set to ``iters``, as
+    {name: run(device)}. None writes files."""
+    from vggp_tpu_torch.experiments import (evidence, exceedance, multioutput, multiscale,
+                                            poisson, spacetime, streaming, velocity)
+
+    return {
+        "spacetime": lambda d: spacetime.run(n_iters=iters, device=d),
+        "poisson": lambda d: poisson.run(n_iters=iters, device=d),
+        "exceedance": lambda d: exceedance.run(n_iters=iters, device=d),
+        "streaming": lambda d: streaming.run(n_hyper_iters=iters, device=d),
+        "velocity": lambda d: velocity.run(n_iters=iters, device=d),
+        "evidence": lambda d: evidence.run(n_iters=iters, device=d),
+        "multioutput": lambda d: multioutput.run(n_iters=iters, device=d),
+        "multiscale": lambda d: multiscale.run(n_iters=iters, device=d),
+    }
+
+
+def _default(run, arg: str):
+    """The default of ``run``'s argument ``arg``."""
+    import inspect
+
+    return inspect.signature(run).parameters[arg].default
+
+
+def p21_records(name: str, out, iters: int) -> tuple:
+    """A run's results as ({(model, quantity): (value, hold)}, {model: steps
+    a second}). ``hold`` says how 21c holds the value (a float or float64
+    array) against the CPU's: ``"losses"`` and ``"heads"`` by
+    :func:`p20_gap` at TOL_E2E_LOSS and TOL_E2E_POST; ``("scaled", s)``, an
+    error of a mean against its truth, by max|Δ|/s at TOL_E2E_POST (it moves
+    by at most max|Δmean|; s the truth's largest magnitude); ``("flips",
+    b)``, a fraction of points, by max|Δ| ≤ b (P21_FLIPS points);
+    ``("below", b)``, a roundoff-level gap, by its own value ≤ b on each
+    side; ``("floor", b)``, a head by :func:`p20_gap` at b. ``iters`` is the run's iterations (streaming's rate reads it)."""
+    import numpy as np
+
+    from vggp_tpu_torch.experiments import evidence, exceedance, streaming, velocity
+
+    q, rates = {}, {}
+    arr = lambda v: np.asarray(v, np.float64).reshape(-1)
+    dist = lambda d: arr([d["mean"], d["std"], d["q05"], d["q95"]])
+    flips = lambda n: ("flips", P21_FLIPS / n)
+
+    def add(model, quantity, value, hold="heads"):
+        q[model, quantity] = (float(value) if hold == "losses" else arr(value), hold)
+
+    if name == "spacetime":
+        add("svgp", "final_loss", out["final_loss"], "losses")
+        add("svgp", "q_v mean", out["qv_mean"])
+        add("svgp", "q_v var", out["qv_var"])
+        add("svgp", "metrics", out["metrics"])
+        rates["svgp"] = out["steps_per_sec"]
+    elif name == "poisson":
+        add("svgp", "final_loss", out["final_loss"], "losses")
+        add("svgp", "metrics", out["metrics"])
+        add("svgp", "intensity median rel err", out["intensity_median_rel_err"])
+        rc = out["region_counts"]
+        for k in ("lambda_pathwise", "lambda_independent", "counts_predictive"):
+            add("svgp", k, dist(rc[k]))
+        rates["svgp"] = out["steps_per_sec"]
+    elif name == "exceedance":
+        add("svgp", "final_loss", out["final_loss"], "losses")
+        add("svgp", "sampler errors", [out["sampler_mean_err"], out["sampler_var_med_rel_err"]])
+        n_eval, n_cells = _default(exceedance.run, "n_eval"), out["product"]["n_cells"]
+        for k in ("max_pathwise", "max_independent"):
+            add("svgp", k, dist(out[k]))
+            add("svgp", f"product {k}", dist(out["product"][k]))
+        for k in ("area_pathwise", "area_independent"):
+            add("svgp", k, dist(out[k]), flips(n_eval ** 2))
+            add("svgp", f"product {k}", dist(out["product"][k]), flips(n_cells ** 2))
+        add("svgp", "product errors", [out["product"]["qv_mean_rmse"],
+                                       out["product"]["sampler_mean_err"]])
+        rates["svgp"] = out["steps_per_sec"]
+    elif name == "streaming":
+        # the RMSEs of the cell means against their truth, by the truth's
+        # largest magnitude (before and after the drift)
+        n_cells, drift = _default(streaming.run, "n_cells"), out["drift"]
+        scale = lambda phase: float(np.abs(streaming.truth_cell_means(n_cells, phase)).max())
+        add("stream", "per pass qv_rmse", [r["qv_rmse"] for r in out["per_pass"]],
+            ("scaled", scale(0.0)))
+        for k in ("qv_nlpd", "mean_std"):
+            add("stream", f"per pass {k}", [r[k] for r in out["per_pass"]])
+        add("stream", "drift rmse", [drift[k] for k in ("rmse_forget", "rmse_anchored",
+                                                       "rmse_reanchored")],
+            ("scaled", scale(drift["phase"])))
+        add("stream", "drift nlpd", [drift[k] for k in ("nlpd_forget", "nlpd_anchored",
+                                                       "nlpd_reanchored")],
+            ("floor", P21_DRIFT_NLPD_FLOOR))
+        # the exactness contract: streamed q(v) = batch q(v) to roundoff (the
+        # JAX package's smoke bound on the mean gap)
+        for k in ("stream_vs_batch_qv_mean_gap", "stream_vs_batch_qv_var_gap"):
+            add("stream", k, out[k], ("below", 1e-2))
+        rates["hyperparameter fit"] = iters / out["hyper_fit_seconds"]
+        rates["assimilation (passes)"] = out["assimilation_passes_per_sec"]
+    elif name == "velocity":
+        add("sgpr", "final_loss", out["final_loss"], "losses")
+        for ax in (0, 1):
+            g = out[f"grad{ax}"]
+            add("sgpr", f"grad{ax} metrics", [g["rmse"], g["r2"], g["nlpd"]])
+            add("sgpr", f"grad{ax} coverage", g["coverage_2sigma"],
+                flips(_default(velocity.run, "n_grid") ** 2))
+        add("sgpr", "velocity", list(out["velocity"].values()))
+        s = out["speed"]
+        add("sgpr", "speed", [s["speed_rmse_m_s"], s["speed_corr"]])
+        # a Brier score over the cells of exceedance fractions of 96 draws:
+        # one draw across the threshold moves it by under 3/96/cells
+        cells = _default(velocity.run, "n_grid") ** 2
+        add("sgpr", "speed exceed brier", s["exceed_brier"],
+            ("flips", P21_FLIPS * 3 / 96 / cells))
+        rates["sgpr"] = out["steps_per_sec"]
+    elif name == "evidence":
+        for kind, r in out["models"].items():
+            add(kind, "final_loss", r["final_loss"], "losses")
+            add(kind, "log evidence", r["log_evidence"], "losses")
+            for head in ("plugin", "marginalized"):
+                add(kind, f"{head} nlpd crps", [r[head]["nlpd"], r[head]["crps"]])
+                add(kind, f"{head} coverage90", r[head]["coverage90"],
+                    flips(_default(evidence.run, "n_test")))
+            rates[kind] = r["steps_per_sec"]
+    elif name == "multioutput":
+        add("icm", "final_loss", out["final_loss"], "losses")
+        for model, row in out["sparse_output_test"].items():
+            add("icm", f"{model} sparse-output test", list(row.values()))
+        add("icm", "q_v errors", [out["qv_err_output0"], out["qv_err_output1"]],
+            ("scaled", out["qv_scale"]))
+        add("icm", "learned B", out["learned_B"])
+        add("icm", "learned corr and means", [out["learned_corr"], *out["learned_means"]])
+        rates["icm"] = out["steps_per_sec"]
+    elif name == "multiscale":
+        add("sum", "final_loss", out["final_loss"], "losses")
+        scale = max(out["slow_scale"], out["fast_scale"])
+        add("sum", "rmses", [out[k] for k in ("total_rmse_sum_model", "total_rmse_single_kernel",
+                                             "slow_component_rmse", "fast_component_rmse")],
+            ("scaled", scale))
+        add("sum", "component vars", out["component_vars"])
+        rates["sum"] = out["steps_per_sec"]
+    else:
+        raise ValueError(name)
+    return q, {m: float(r) for m, r in rates.items()}
+
+
+def p21_gap(card, cpu, hold) -> tuple:
+    """(gap, floor) of one 21c quantity by its ``hold`` (:func:`p21_records`)."""
+    import numpy as np
+
+    if hold == "losses":
+        return p20_gap(card, cpu), TOL_E2E_LOSS
+    if hold == "heads":
+        return p20_gap(card, cpu), TOL_E2E_POST
+    kind, b = hold
+    if kind == "floor":
+        return p20_gap(card, cpu), b
+    if kind == "scaled":
+        return float(np.abs(np.asarray(card) - np.asarray(cpu)).max()) / b, TOL_E2E_POST
+    if kind == "flips":
+        return float(np.abs(np.asarray(card) - np.asarray(cpu)).max()), b
+    return float(max(np.abs(card).max(), np.abs(cpu).max())), b      # "below"
+
+
+def experiments21_cpu_part(device) -> dict:
+    """Phase 21a, the phase's start: each ``run()`` of :func:`p21_runs` at
+    P21_HOLD_ITERS on the CPU in float32 (21c's references), every
+    call of the kernel wrappers recorded by (name, m, n) (the CPU takes the
+    plain versions, which launch nothing); then every recorded shape held on
+    the card against the plain version in float64 and float32
+    (:func:`check_kernels_at`) before the phase launches it. Returns {"cpu",
+    "calls", "errs", "seconds"}."""
+    t0 = time.perf_counter()
+    cpu = {}
+    with recorded_kernel_calls() as calls:
+        for name, run in p21_runs(P21_HOLD_ITERS).items():
+            t1 = time.perf_counter()
+            cpu[name] = run("cpu")
+            print(f"21a {name} on the CPU at {P21_HOLD_ITERS} iterations: "
+                  f"{time.perf_counter() - t1:.1f} s")
+    print(f"21a kernel calls by (name, m, n): {dict(sorted(calls.items()))}")
+    check(not any(k[0] == "fused_banded_whiten_kuf" for k in calls),
+          f"21a: the fused kernel was called ({calls}); spacetime's batch is below its gate")
+    check(all(k[0] == "cell_kuf_with_dl" for k in calls) and calls,
+          f"21a: spacetime's three-axis steps should call cell_kuf_with_dl alone: {calls}")
+    cases = p20_cases(device, calls)
+    errs = check_kernels_at(device, cases, "21")
+    took = time.perf_counter() - t0
+    print(f"21a: {len(cases)} shapes held on the card; {took:.1f} s")
+    return {"cpu": cpu, "calls": calls, "errs": errs, "seconds": took}
+
+
+def p21_timed_shapes(calls) -> tuple:
+    """(kernel, m, n) of the three most-called shapes in ``calls`` (by the
+    count, then the shape)."""
+    ranked = sorted(calls.items(), key=lambda kc: (-kc[1], kc[0]))
+    return tuple(k for k, _ in ranked[:3])
+
+
+def experiments_phase21(device, card) -> tuple:
+    """Phase 21, after phase 20: the last eight experiments on the card. (a)
+    :func:`experiments21_cpu_part`, whose most-called shapes must be
+    P21_TIMED_SHAPES (phase 17 held and timed them); (b) each ``run()`` of
+    :func:`p21_runs` at its default widths and P21_ITERS: steps a second and
+    final loss printed beside the card's name and power limit, every number
+    finite; (c) each again at P21_HOLD_ITERS against 21a's CPU run by
+    :func:`p21_gap` (losses TOL_E2E_LOSS, heads and metric rows
+    TOL_E2E_POST, the sampled functionals too: the draws come from CPU
+    generators; the stream's drift-segment NLPDs at P21_DRIFT_NLPD_FLOOR).
+    Every launch is counted by (name, m, n) and must be at a shape 21a held.
+    21a + 21b + 21c take at most P21_MAX_S. Returns (the launches, timings,
+    the launches by shape)."""
+    import numpy as np
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    part = experiments21_cpu_part(device)
+    t_phase = time.perf_counter()
+    check(p21_timed_shapes(part["calls"]) == P21_TIMED_SHAPES,
+          f"21a: the most-called shapes {p21_timed_shapes(part['calls'])} are not "
+          f"P21_TIMED_SHAPES, which phase 17 timed")
+    P21_SHAPE_LAUNCHES.clear()
+    launches, timings = dict(NO_LAUNCHES), {"experiments21_cpu_part_s": part["seconds"]}
+
+    def counted_run(run):
+        nonlocal launches
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(ck.LAUNCHES)
+        P21_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
+        launches = add_launches(launches, got)
+        return out, seconds, got
+
+    # 21b: the default widths at P21_ITERS
+    for name, run in p21_runs(P21_ITERS).items():
+        out, seconds, got = counted_run(run)
+        quantities, rates = p21_records(name, out, P21_ITERS)
+        bad = [k for k, (v, _) in quantities.items() if not np.all(np.isfinite(v))]
+        check(not bad, f"21b {name}: not finite: {bad}")
+        check(all(np.isfinite(r) and r > 0 for r in rates.values()),
+              f"21b {name}: steps a second {rates}")
+        for model, rate in rates.items():
+            loss = quantities.get((model, "final_loss"), (None,))[0]
+            print(f"21b {name} {model}: {rate:.1f} steps/s"
+                  + ("" if loss is None else f", final loss {loss:.6g}") + f" ({card})")
+        timings[f"p21b {name}"] = {
+            "seconds": seconds, "launches": got, "steps_per_sec": rates,
+            "final_loss": {m: v for (m, k), (v, _) in quantities.items() if k == "final_loss"}}
+        print(f"21b {name}: {seconds:.1f} s, launches {got}")
+
+    # 21c: the card against 21a's CPU runs
+    misses, worst = [], {}
+    for name, run in p21_runs(P21_HOLD_ITERS).items():
+        out, seconds, _ = counted_run(run)
+        card_q = p21_records(name, out, P21_HOLD_ITERS)[0]
+        cpu_q = p21_records(name, part["cpu"][name], P21_HOLD_ITERS)[0]
+        check(sorted(card_q) == sorted(cpu_q), f"21c {name}: the card's results differ in keys")
+        gaps = {}
+        for key, (want, hold) in cpu_q.items():
+            gap, floor = p21_gap(card_q[key][0], want, hold)
+            kind = hold if isinstance(hold, str) else hold[0]
+            if kind == "floor":
+                print(f"21c {name} {key[1]}: card vs CPU {gap:.3e} (floor {floor:.0e})")
+            gaps[kind] = max(gaps.get(kind, 0.0), gap / floor)
+            if not gap <= floor:
+                misses.append(f"{name} {key[0]} {key[1]}: {gap} > {floor}")
+        worst.update({(name, k): v for k, v in gaps.items()})
+        print(f"check 21c {name}: the largest gap card vs CPU at {P21_HOLD_ITERS} steps as a "
+              f"share of its floor, " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(gaps.items()))
+              + f"; {seconds:.1f} s")
+    timings["p21c_largest_share_of_floor"] = {f"{n} {k}": v for (n, k), v in worst.items()}
+    check(not misses, f"21c: {len(misses)} results off: {misses}")
+
+    at = dict(P21_SHAPE_LAUNCHES)
+    held = set(part["errs"])
+    print(f"phase 21's launches: {launches}, by shape {dict(sorted(at.items()))}")
+    check(all(k in held for k in at), f"phase 21 launched a shape never held against plain: "
+          f"{sorted(k for k in at if k not in held)}")
+    check(sum(at.values()) == sum(launches.values()),
+          f"phase 21: launches by shape {at} vs {launches}")
+    check(launches["cell_kuf_with_dl"] > 0 and launches["fused_banded_whiten_kuf"] == 0,
+          f"phase 21: launches {launches}")
+    took = part["seconds"] + time.perf_counter() - t_phase
+    timings["experiments_phase21_total_s"] = took
+    print(f"phase 21: 21a {part['seconds']:.1f} s + 21b/21c "
+          f"{time.perf_counter() - t_phase:.1f} s = {took:.1f} s")
+    check(took <= P21_MAX_S, f"phase 21 took {took:.1f} s > {P21_MAX_S} s")
     return launches, timings, at
 
 
@@ -5942,23 +6287,26 @@ def phase17_shapes() -> list:
             + [(k, m, n, False, False) for k in ("cell_kuf", "cell_kuf_with_dl")
                for m, n in P15_NEW_SHAPES]
             + [(k, m, n, False, False) for m, n, k in cuts]
-            + [(k, m, n, False, False) for k, m, n in P20_TIMED_SHAPES])
+            + [(k, m, n, False, False) for k, m, n in P20_TIMED_SHAPES]
+            + [(k, m, n, False, False) for k, m, n in P21_TIMED_SHAPES])
 
 
-def time_kernels_early(device) -> dict:
+def time_kernels_early(device) -> tuple:
     """Phase 17's timings, right after phase 3, into KERNEL_TIMES: every
-    shape of :func:`phase17_shapes` (phase 20's ``P20_TIMED_SHAPES`` held
-    against plain first), the fused kernel at the additive model's shape,
-    and the main path's rows of :func:`measure_kernels`. Returns phase 20's
-    shapes' float32 errors against plain."""
+    shape of :func:`phase17_shapes` (phase 20's ``P20_TIMED_SHAPES`` and
+    phase 21's ``P21_TIMED_SHAPES`` held against plain first), the fused
+    kernel at the additive model's shape, and the main path's rows of
+    :func:`measure_kernels`. Returns phase 20's and phase 21's shapes'
+    float32 errors against plain."""
     p20_errs = check_kernels_at(device, p20_cases(device, P20_TIMED_SHAPES), "20")
+    p21_errs = check_kernels_at(device, p20_cases(device, P21_TIMED_SHAPES), "21")
     edges = stretched_mesh(M_AXIS)
     for name, m, n, x_is_mesh, stretched in phase17_shapes():
         time_kuf_shape(device, m, n, x_is_mesh=x_is_mesh, name=name,
                        edges=edges if stretched else None)
     time_fused_shape(device, ADD_CELLS, SGPR_N)
     measure_kernels(device, None, None, {})
-    return p20_errs
+    return p20_errs, p21_errs
 
 
 def main() -> int:
@@ -5983,7 +6331,7 @@ def main() -> int:
     check_goldens(device)
     check_finv(device)
     t0 = time.perf_counter()
-    p20_errs = time_kernels_early(device)
+    p20_errs, p21_errs = time_kernels_early(device)
     kernel_timings_s = time.perf_counter() - t0
     print(f"phase 17's kernel timings, taken after phase 3: {kernel_timings_s:.1f} s")
     X, y, Xs = make_data(device)
@@ -6125,6 +6473,13 @@ def main() -> int:
                      max_abs_err=p20_errs[(kernel, m, n)])
         print(f"{kernel} at ({m}, {n}), phase 20: {entry['share_of_bound']:.3f} of its bound")
         shapes[kernel][f"phase20_at_{m}_cells_{n}"] = entry
+    # phase 21's most-called shapes (spacetime's three-axis steps), so
+    for kernel, m, n in P21_TIMED_SHAPES:
+        entry = time_kuf_shape(device, m, n, name=kernel)
+        entry.update(share_of_bound=entry["bound_ms"] / entry["ms"],
+                     max_abs_err=p21_errs[(kernel, m, n)])
+        print(f"{kernel} at ({m}, {n}), phase 21: {entry['share_of_bound']:.3f} of its bound")
+        shapes[kernel][f"phase21_at_{m}_cells_{n}"] = entry
     shapes["cell_kuf"]["cell_kuf_op_backward_at_512_cells_4096"] = {
         "max_abs_err_vs_cpu_f64": family_errs[("cell_kuf_op_backward", M_AXIS, TRAIN_BATCH)]}
     rows = measure_kernels(device, errs, launches, shapes)
@@ -6155,6 +6510,12 @@ def main() -> int:
     print(f"experiments_phase: {timings['experiments_phase_s']:.1f} s")
     launches = add_launches(launches, got20)
     timings.update(phase_times)
+    t0 = time.perf_counter()
+    got21, phase_times, p21_at = experiments_phase21(device, card)
+    timings["experiments_phase21_s"] = time.perf_counter() - t0
+    print(f"experiments_phase21: {timings['experiments_phase21_s']:.1f} s")
+    launches = add_launches(launches, got21)
+    timings.update(phase_times)
     # phase 16 last: in whole-script runs on an H100 every profiler window
     # after its two windows (about 6000 launches each) kept 8 of 20 launches
     for batch in (TRAIN_BATCH, FUSED_BATCH):
@@ -6165,9 +6526,14 @@ def main() -> int:
         row["phase20_launches"] = got20[name]
         row["phase20_launches_by_shape"] = {
             f"{m}x{n}": k for (kname, m, n), k in sorted(p20_at.items()) if kname == name}
+        row["phase21_launches"] = got21[name]
+        row["phase21_launches_by_shape"] = {
+            f"{m}x{n}": k for (kname, m, n), k in sorted(p21_at.items()) if kname == name}
         for key, entry in row.items():
             if key.startswith("phase20_at_"):
                 entry["launches"] = p20_at.get((name, entry["shape"][0], entry["shape"][1]), 0)
+            if key.startswith("phase21_at_"):
+                entry["launches"] = p21_at.get((name, entry["shape"][0], entry["shape"][1]), 0)
         row["phase18_launches"] = got[name]
         row["phase19_launches"] = got19[name]
         row["phase19_launches_by_shape"] = {

@@ -901,3 +901,27 @@ def test_cuda_kronecker_experiment_matches_cpu(cuda):
             if p20_roundoff("kronecker", key[0]) == (iters == 1):
                 floor = TOL_E2E_LOSS if key[1] == "final_loss" else TOL_E2E_POST
                 assert p20_gap(card[key], want) <= floor, key
+
+
+@pytest.mark.cuda
+def test_cuda_spacetime_experiment_matches_cpu(cuda):
+    """``experiments.spacetime.run`` at its default widths (32³ Matérn-1/2
+    cells, batch 1024) on the card against the same run on the CPU, by
+    phase 21's holds at 5 iterations: the final loss within 5e-3, the q(v)
+    mean, variance and metric row within 1e-3 of their largest magnitude.
+    The minibatches come from one CPU generator, so both runs see the same
+    batches; each step launches ``cell_kuf_with_dl`` once an axis, at
+    (32, 1024)."""
+    from chip_smoke import p21_gap, p21_records
+    from vggp_tpu_torch.experiments import spacetime
+
+    ck.reset_launch_counts()
+    card, _ = p21_records("spacetime", spacetime.run(n_iters=5, device=cuda), 5)
+    torch.cuda.synchronize()
+    assert dict(ck.SHAPE_LAUNCHES) == {("cell_kuf_with_dl", 32, 1024): 15}
+    cpu, _ = p21_records("spacetime", spacetime.run(n_iters=5, device="cpu"), 5)
+    assert sorted(card) == sorted(cpu)
+    for key, (want, hold) in cpu.items():
+        assert np.all(np.isfinite(card[key][0])), key
+        gap, floor = p21_gap(card[key][0], want, hold)
+        assert gap <= floor, (key, gap, floor)

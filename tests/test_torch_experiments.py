@@ -54,6 +54,8 @@ from vggp_tpu.utils import gen_1d, integrate_1d
 from vggp_tpu_torch.experiments import configs, kronecker, loaders, misc, torch_oracle
 from vggp_tpu_torch.experiments import gulfstream, northsea, parity, plotting, simtracks
 from vggp_tpu_torch.experiments import univariate, zoo
+from vggp_tpu_torch.experiments import (evidence, exceedance, multioutput, multiscale, poisson,
+                                        spacetime, streaming, velocity)
 from vggp_tpu_torch.models.common import Gaussian
 
 RTOL = 1e-3          # float32's tolerance of the port against the JAX package
@@ -293,7 +295,8 @@ class _Ran(Exception):
 
 
 @pytest.mark.parametrize("module", [univariate, kronecker, simtracks, gulfstream, northsea,
-                                    parity])
+                                    parity, spacetime, poisson, exceedance, streaming,
+                                    velocity, evidence, multioutput, multiscale])
 def test_cli_defaults_write_under_results_torch(module, monkeypatch):
     """Each CLI's default ``--outdir`` lies under results/torch/ (never the
     JAX package's committed results/<name>), and ``--device`` reaches run()."""
@@ -310,13 +313,35 @@ def test_cli_defaults_write_under_results_torch(module, monkeypatch):
     assert kwargs["device"] == "cpu"
 
 
-def test_runs_default_to_cuda():
+# each run() at its smallest call
+_SMALLEST_RUNS = {
+    "univariate": lambda: univariate.run(n_iters=1),
+    "kronecker": lambda: kronecker.run(n_side=10, n_grid=5, n_iters=1),
+    "simtracks": lambda: simtracks.run(n_iters=1, n_grid=8, observation_sparsity=40),
+    "gulfstream": lambda: gulfstream.run(n_iters=1),
+    "northsea": lambda: northsea.run(n_iters=1, n_grid=8, max_obs=800),
+    "parity": lambda: parity.run(n_iters=1),
+    "spacetime": lambda: spacetime.run(m_side=8, n_grid=4, n_iters=1, batch_size=512),
+    "poisson": lambda: poisson.run(m_side=8, n_grid=4, n_obs=600, n_iters=1, batch_size=256),
+    "exceedance": lambda: exceedance.run(m_side=8, n_eval=16, n_obs=600, n_iters=1,
+                                         batch_size=256, n_samples=8, n_features=64),
+    "streaming": lambda: streaming.run(m_side=6, n_cells=8, n_passes=3, n_tracks=3,
+                                       n_per_track=24, n_hyper_iters=1),
+    "velocity": lambda: velocity.run(n_iters=1, n_features=8, n_grid=6),
+    "evidence": lambda: evidence.run(n_train=60, n_test=80, n_iters=1, n_marg_samples=8),
+    "multioutput": lambda: multioutput.run(n_iters=1),
+    "multiscale": lambda: multiscale.run(n_iters=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SMALLEST_RUNS))
+def test_runs_default_to_cuda(name):
     """A run() with no device names ``cuda``, and raises without a card rather than
     carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        univariate.run(n_iters=1)
+        _SMALLEST_RUNS[name]()
 
 
 # --------------------------------------------------------------------------- #

@@ -464,6 +464,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'experiments.plotting', 'experiments.zoo', 'experiments.univariate',\n"
         "          'experiments.kronecker', 'experiments.simtracks', 'experiments.gulfstream',\n"
         "          'experiments.northsea', 'experiments.torch_oracle', 'experiments.parity',\n"
+        "          'experiments.spacetime', 'experiments.poisson', 'experiments.exceedance',\n"
+        "          'experiments.streaming', 'experiments.velocity', 'experiments.evidence',\n"
+        "          'experiments.multioutput', 'experiments.multiscale',\n"
         "          'experiments.__main__'):\n"
         "    assert 'vggp_tpu_torch.' + m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules if k.startswith('vggp_tpu_torch')]))\n")

@@ -15,6 +15,14 @@ arrays and floats in its results. The CLIs write under ``results/torch/``.
 - :mod:`vggp_tpu_torch.experiments.simtracks`   — notebook 6
 - :mod:`vggp_tpu_torch.experiments.gulfstream`  — notebooks 6 & 61
 - :mod:`vggp_tpu_torch.experiments.northsea`    — notebook 7
+- :mod:`vggp_tpu_torch.experiments.spacetime`   — 3-D lon × lat × time products
+- :mod:`vggp_tpu_torch.experiments.poisson`     — gridded Poisson intensity
+- :mod:`vggp_tpu_torch.experiments.exceedance`  — joint functionals by pathwise draws
+- :mod:`vggp_tpu_torch.experiments.streaming`   — sequential pass assimilation
+- :mod:`vggp_tpu_torch.experiments.velocity`    — geostrophic velocities (q(dv))
+- :mod:`vggp_tpu_torch.experiments.evidence`    — Laplace-evidence kernel choice
+- :mod:`vggp_tpu_torch.experiments.multioutput` — ICM cross-output transfer
+- :mod:`vggp_tpu_torch.experiments.multiscale`  — sum-of-kernels scale split
 - :mod:`vggp_tpu_torch.experiments.parity`      — the reference-style f64
   oracle (:mod:`~vggp_tpu_torch.experiments.torch_oracle`, CPU) beside the port
 """

@@ -29,6 +29,19 @@ def host(v) -> np.ndarray:
     return np.asarray(v)
 
 
+def generator(seed: int) -> torch.Generator:
+    """A CPU generator seeded with ``seed``, where the JAX run takes
+    ``PRNGKey(seed)``: the samplers make their draws on the generator's
+    device and cast them, so a card run and a CPU run draw the same."""
+    return torch.Generator(device="cpu").manual_seed(seed)
+
+
+def dist(v) -> Dict:
+    """{mean, std, q05, q95} of a sample (the sampled functionals' summary)."""
+    return {"mean": float(np.mean(v)), "std": float(np.std(v)),
+            "q05": float(np.quantile(v, 0.05)), "q95": float(np.quantile(v, 0.95))}
+
+
 def make_training_history_dict(n_iter: int) -> Dict:
     """Pre-sized history record for an ``n_iter`` fit (nb61 cell 27)."""
     return {
@@ -112,11 +125,25 @@ def check_tensors_equal(*arrays, atol: float = 0.0) -> bool:
     return True
 
 
-def timed_fit(loss_fn, params: Dict, n_iters: int, learning_rate: float):
+def timed_fit(loss_fn, params: Dict, n_iters: int, learning_rate: float, trainable=None):
     """:func:`vggp_tpu_torch.train.fit` on the wall clock: (final params,
     history, final loss, seconds). The clock stops after the final loss is
     read to the host, so an asynchronous launch queue cannot end it early."""
     t0 = time.time()
-    p_fit, hist = train.fit(loss_fn, params, n_iters, learning_rate)
+    p_fit, hist = train.fit(loss_fn, params, n_iters, learning_rate, trainable=trainable)
+    final_loss = float(hist["loss"][-1])
+    return p_fit, hist, final_loss, time.time() - t0
+
+
+def timed_fit_minibatch(loss_fn, params: Dict, X, y, n_iters: int, batch_size: int,
+                        learning_rate: float, seed: int):
+    """:func:`vggp_tpu_torch.train.fit_minibatch` on the wall clock, as
+    :func:`timed_fit`: (final params, history, final loss, seconds). The
+    batches come from a CPU generator, so a card run and a CPU run see the
+    same ones."""
+    t0 = time.time()
+    p_fit, hist = train.fit_minibatch(loss_fn, params, X, y, n_iters=n_iters,
+                                      batch_size=batch_size, learning_rate=learning_rate,
+                                      seed=seed, generator_device="cpu")
     final_loss = float(hist["loss"][-1])
     return p_fit, hist, final_loss, time.time() - t0

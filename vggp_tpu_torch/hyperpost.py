@@ -68,11 +68,15 @@ def laplace(loss_fn, params, min_eig_rel: float = 1e-8) -> LaplaceState:
     minimized; the curvature is taken in the raw space. The saddle-free
     treatment of the JAX package: |eigenvalues| floored at ``min_eig_rel``
     of the spectral radius (a no-op on a clean positive float64 spectrum).
-    ``chol_cov`` is V·w^−½ — a square root, not triangular.
+    ``chol_cov`` is V·w^−½ — a square root, not triangular. The (p, p)
+    eigendecomposition runs on the CPU whatever the device: cuSOLVER's
+    eigenvectors can take other signs than LAPACK's, and V's signs carry
+    into every draw of :func:`sample_params`, so one generator seed gives
+    the card and the CPU the same draws only through one LAPACK.
     """
     H, flat, unravel = raw_hessian(loss_fn, params)
     H = 0.5 * (H + H.T)
-    w, V = torch.linalg.eigh(H)
+    w, V = (t.to(H.device) for t in torch.linalg.eigh(H.cpu()))
     w = torch.maximum(torch.abs(w), min_eig_rel * torch.max(torch.abs(w)))
     half = V * (1.0 / torch.sqrt(w))[None, :]
     return LaplaceState(mean=flat, chol_cov=half, logdet_h=torch.sum(torch.log(w)),

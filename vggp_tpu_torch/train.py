@@ -293,18 +293,21 @@ def fit_minibatch(
     batch_size: int,
     learning_rate: float = 0.01,
     seed: int = 0,
+    generator_device=None,
 ) -> Tuple[Dict, Dict]:
     """Stochastic fit with ``torch.optim.Adam``: each step draws a uniform
     minibatch (with replacement) from a ``torch.Generator`` seeded with
-    ``seed`` on the data's device. Returns (final constrained params,
-    history of per-step losses and ELBOs).
+    ``seed`` on ``generator_device`` (the data's device by default). With
+    ``generator_device="cpu"`` the indices are copied to the data's device
+    each step, and one seed gives the same batches on every device. Returns
+    (final constrained params, history of per-step losses and ELBOs).
     """
     raw = raw_leaves_from(params)
     opt = torch.optim.Adam(tree_leaves(raw), lr=learning_rate)
     step = make_step_fn(loss_fn, raw, opt)
     y = y.reshape(-1)
     n = y.shape[0]
-    gen = torch.Generator(device=X.device)
+    gen = torch.Generator(device=X.device if generator_device is None else generator_device)
     gen.manual_seed(seed)
     losses = []
     for _ in range(n_iters):
