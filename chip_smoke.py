@@ -11,12 +11,12 @@ Phases (each asserts; any failure exits non-zero before the result line):
    float64 and float32, at the main path's shapes and at a ragged shape (the
    fused kernel at the main path's precisions ("highest", "high") and with
    a one-pass TF32 ``t`` ("highest", "default");
-   ``cell_kuf`` also at the serving grid's (512, 65 536), at the face
-   difference's (512, 513) with every point on a cell edge, a ragged row
-   length, one cell and an x that is a view at an offset; both cell kernels
-   at the collapsed and exact models' 64-cell shapes (64, 65 536),
-   (64, 4096) and a ragged (64, 65 531), and ``cell_kuf`` at (64, 65) on the
-   mesh),
+   both cell kernels also at the serving grid's (512, 65 536), at the face
+   differences' (512, 513) and (64, 65) with every point on a cell edge, a
+   ragged row length, one cell, an x that is a view at an offset (the
+   scalar instances) and spacetime's (32, 1024), and at the collapsed and
+   exact models' 64-cell shapes (64, 65 536), (64, 4096) and a ragged
+   (64, 65 531)),
    and the float32 and float64 results against the cell-Kuf goldens of
    ``bench.py`` (copied here; the port imports nothing of the JAX package),
    and the float32 closed-form F⁻¹ with and without its Newton–Schulz step
@@ -182,7 +182,9 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``posterior_from_state`` on that grid and at the face difference's
    (512, 513), both cell kernels at the collapsed model's (64, 65 536) and
    on the stretched mesh, ``cell_kuf`` at (64, 4096), (64, 65) and the CG
-   case's (16 384, 256), ``cell_kuf_with_dl`` at phase 15's (64, 8192),
+   case's (16 384, 256), ``cell_kuf_with_dl`` at phase 15's (64, 8192)
+   and at every phase 20 shape (``P20_TIMED_SHAPES`` and
+   ``P20_DL_TIMED_SHAPES``),
    and the fused kernel beside the unfused route it replaces, and print
    them and the steady-state step and serving times with the card's name
    and power limit;
@@ -573,21 +575,31 @@ def check_kernels(device) -> dict:
             for name, g, w in zip(("Kuf", "dKuf"), ck.cell_kuf_with_dl(mesh, x, v, ell),
                                   ck.cell_kuf_with_dl_plain(mesh, x, v, ell)):
                 compare("cell_kuf_with_dl", name, g, w, tol, tag, shape)
-        # cell_kuf alone: the serving grid's shape, a ragged row length
-        # (n % 4 = 3), one cell, and x as a view at a 4-byte offset
+        # the edges of both kernels' traversal: the serving grid's shape, a
+        # ragged row length (n % 4 = 3), one cell, x as a view at a 4-byte
+        # offset (the scalar instances), and spacetime's (32, 1024)
         for shape, offset in (((M_AXIS, SERVE_GRID ** 2), 0), ((37, 1023), 0), ((1, 5), 0),
-                              ((64, 1001), 1)):
+                              ((64, 1001), 1), ((32, 1024), 0)):
             mesh, x, v, ell, _ = kernel_inputs(shape[0], shape[1] + offset, dtype, device,
                                                seed=6)
             x = x[offset:]
+            label = shape + (("x at +1",) if offset else ())
             compare("cell_kuf", "Kuf", ck.cell_kuf(mesh, x, v, ell),
-                    ck.cell_kuf_plain(mesh, x, v, ell), tol, tag,
-                    shape + (("x at +1",) if offset else ()))
-        # q_dv's face difference: every point on a cell edge, n % 4 = 1
+                    ck.cell_kuf_plain(mesh, x, v, ell), tol, tag, label)
+            for name, g, w in zip(("Kuf", "dKuf"), ck.cell_kuf_with_dl(mesh, x, v, ell),
+                                  ck.cell_kuf_with_dl_plain(mesh, x, v, ell)):
+                compare("cell_kuf_with_dl", name, g, w, tol, tag, label)
+        # q_dv's face difference: every point on a cell edge, n % 4 = 1 (not
+        # a shape of cell_kuf_with_dl on the main path: its error is not
+        # recorded for the kernel's row)
         for m in (M_AXIS, SGPR_CELLS):
             mesh, _, v, ell, _ = kernel_inputs(m, 1, dtype, device, seed=8)
             compare("cell_kuf", "Kuf at the edges", ck.cell_kuf(mesh, mesh, v, ell),
                     ck.cell_kuf_plain(mesh, mesh, v, ell), tol, tag, (m, m + 1))
+            for name, g, w in zip(("Kuf", "dKuf"), ck.cell_kuf_with_dl(mesh, mesh, v, ell),
+                                  ck.cell_kuf_with_dl_plain(mesh, mesh, v, ell)):
+                compare("cell_kuf_with_dl", f"{name} at the edges", g, w, tol, tag, (m, m + 1),
+                        record=False)
         for shape in ((M_AXIS, FUSED_BATCH), (256, 301)):
             mesh, x, v, ell, finv = kernel_inputs(*shape, dtype, device, seed=2)
             for precs in (MAIN_PRECISIONS, ("highest", "default")):
@@ -5332,6 +5344,10 @@ P20_MAX_S = 150.0        # 20a + 20b + 20c
 P20_TIMED_SHAPES = (("cell_kuf", 20, 4400), ("cell_kuf", 20, 696), ("cell_kuf", 10, 15),
                     ("cell_kuf_with_dl", 20, 4400), ("cell_kuf_with_dl", 15, 625),
                     ("cell_kuf_with_dl", 20, 696))
+# and cell_kuf_with_dl's other three shapes in 20a, so that phase 17 times
+# every shape phase 20 launches it at
+P20_DL_TIMED_SHAPES = (("cell_kuf_with_dl", 10, 15), ("cell_kuf_with_dl", 10, 40),
+                       ("cell_kuf_with_dl", 20, 20000))
 P20_METRICS = ("mse", "mae", "rmse", "r2", "nlpd", "msll")
 # Members whose float32 result after a few Adam steps is set by roundoff
 # (ROADMAP queue 3, item 19), by run and model-name prefix: learned
@@ -6287,18 +6303,19 @@ def phase17_shapes() -> list:
             + [(k, m, n, False, False) for k in ("cell_kuf", "cell_kuf_with_dl")
                for m, n in P15_NEW_SHAPES]
             + [(k, m, n, False, False) for m, n, k in cuts]
-            + [(k, m, n, False, False) for k, m, n in P20_TIMED_SHAPES]
+            + [(k, m, n, False, False) for k, m, n in P20_TIMED_SHAPES + P20_DL_TIMED_SHAPES]
             + [(k, m, n, False, False) for k, m, n in P21_TIMED_SHAPES])
 
 
 def time_kernels_early(device) -> tuple:
     """Phase 17's timings, right after phase 3, into KERNEL_TIMES: every
     shape of :func:`phase17_shapes` (phase 20's ``P20_TIMED_SHAPES`` and
-    phase 21's ``P21_TIMED_SHAPES`` held against plain first), the fused
-    kernel at the additive model's shape, and the main path's rows of
-    :func:`measure_kernels`. Returns phase 20's and phase 21's shapes'
-    float32 errors against plain."""
-    p20_errs = check_kernels_at(device, p20_cases(device, P20_TIMED_SHAPES), "20")
+    ``P20_DL_TIMED_SHAPES`` and phase 21's ``P21_TIMED_SHAPES`` held
+    against plain first), the fused kernel at the additive model's shape,
+    and the main path's rows of :func:`measure_kernels`. Returns phase 20's
+    and phase 21's shapes' float32 errors against plain."""
+    p20_shapes = P20_TIMED_SHAPES + P20_DL_TIMED_SHAPES
+    p20_errs = check_kernels_at(device, p20_cases(device, p20_shapes), "20")
     p21_errs = check_kernels_at(device, p20_cases(device, P21_TIMED_SHAPES), "21")
     edges = stretched_mesh(M_AXIS)
     for name, m, n, x_is_mesh, stretched in phase17_shapes():
@@ -6465,9 +6482,10 @@ def main() -> int:
     print(f"cell_kuf_with_dl at ({SGPR_CELLS}, {SGPR_CUT_N}): {cut['share_of_bound']:.3f} of its "
           f"bound")
     shapes["cell_kuf_with_dl"][f"at_{SGPR_CELLS}_cells_{SGPR_CUT_N}"] = cut
-    # phase 20's most-called shapes, held against plain and timed with the
-    # others after phase 3; their launches join the rows once phase 20 has run
-    for kernel, m, n in P20_TIMED_SHAPES:
+    # phase 20's most-called shapes and cell_kuf_with_dl's others, held
+    # against plain and timed with the others after phase 3; their launches
+    # join the rows once phase 20 has run
+    for kernel, m, n in P20_TIMED_SHAPES + P20_DL_TIMED_SHAPES:
         entry = time_kuf_shape(device, m, n, name=kernel)
         entry.update(share_of_bound=entry["bound_ms"] / entry["ms"],
                      max_abs_err=p20_errs[(kernel, m, n)])

@@ -456,7 +456,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'vggp_tpu', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"
-        "for m in ('hyperpost', 'lbfgs', 'train', 'convert', 'api', 'utils', 'utils.metrics',\n"
+        "for m in ('ops', 'models', 'hyperpost', 'lbfgs', 'train', 'convert', 'api', 'utils',\n"
+        "          'utils.metrics',\n"
         "          'utils.scalers', 'utils.datagen', 'utils.integrators', 'parallel',\n"
         "          'parallel.mesh', 'parallel.dp', 'parallel.cg', 'data', 'data.transforms',\n"
         "          'data.simulation', 'data.missions', 'data.gulfstream', 'experiments',\n"

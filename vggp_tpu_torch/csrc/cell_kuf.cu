@@ -63,7 +63,8 @@ using namespace vggp_tile;
 
 constexpr int KUF_THREADS = 256;
 constexpr int KUF_WARPS = KUF_THREADS / 32;
-constexpr int KUF_MIN_CHUNKS = 4;   // per warp, where the shape allows (see the launch)
+constexpr int KUF_MIN_CHUNKS = 4;   // per warp, where the shape allows (plan_wave)
+constexpr int DL_MIN_CHUNKS = 1;    // the same for cell_kuf_with_dl (see its launch)
 
 template <typename T> struct Vec16;
 template <> struct Vec16<float> { using V = float4; static constexpr int n = 4; };
@@ -149,40 +150,56 @@ cell_kuf_primal_kernel(const T* __restrict__ mesh, const T* __restrict__ x,
   }
 }
 
-template <typename T, bool VEC>
-int launch_cell_kuf_primal(const T* mesh, const T* x, const T* scal, T* out, int m, int n,
-                           cudaStream_t stream) {
-  // the SMs and the blocks of this instance one SM holds, by device
-  static int sms[64], per_sm_max[64];
+// The wave a kernel of KUF_THREADS threads launches over `chunks` chunks:
+// `grid` blocks, each warp `per_warp` chunks and the first `extra` warps one
+// more. Blocks per SM: as many as fit (`per_sm_max`, the occupancy query,
+// made once per device and kernel instance), but no more than leave each warp
+// about `min_chunks` chunks, so that a small shape does not pay the
+// per-warp set-up (1/ℓ, the row's series, the run's start) for one or two
+// chunks; the same count on every SM keeps their shares even.
+struct Wave {
+  int grid, per_warp, extra;
+};
+
+template <typename Kernel>
+cudaError_t plan_wave(Kernel kernel, long long chunks, int min_chunks, int (&sms)[64],
+                      int (&per_sm_max)[64], Wave* wave) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
   if (per_sm_max[dev] == 0) {
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm_max[dev], cell_kuf_primal_kernel<T, VEC>, KUF_THREADS, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_max[dev], kernel,
+                                                          KUF_THREADS, 0);
+    if (err != cudaSuccess) return err;
   }
-  constexpr int CHUNK = 32 * Vec16<T>::n;
-  const long long per_row = (n + CHUNK - 1) / CHUNK;
-  const long long chunks = per_row * m;
-  if (chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  // Blocks per SM: as many as fit, but no more than leave each warp about
-  // KUF_MIN_CHUNKS chunks, so that a small shape does not pay the per-warp
-  // set-up (1/ℓ, the row's series, the run's start) for one or two chunks;
-  // the same count on every SM keeps their shares even.
+  if (chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const long long per_sm_need =
-      (chunks + static_cast<long long>(sms[dev]) * KUF_WARPS * KUF_MIN_CHUNKS - 1) /
-      (static_cast<long long>(sms[dev]) * KUF_WARPS * KUF_MIN_CHUNKS);
+      (chunks + static_cast<long long>(sms[dev]) * KUF_WARPS * min_chunks - 1) /
+      (static_cast<long long>(sms[dev]) * KUF_WARPS * min_chunks);
   const long long per_sm = per_sm_need < per_sm_max[dev] ? per_sm_need : per_sm_max[dev];
   const long long need = (chunks + KUF_WARPS - 1) / KUF_WARPS;
-  const int grid = static_cast<int>(need < sms[dev] * per_sm ? need : sms[dev] * per_sm);
-  const int warps = grid * KUF_WARPS;
-  cell_kuf_primal_kernel<T, VEC><<<grid, KUF_THREADS, 0, stream>>>(
-      mesh, x, scal, out, n, static_cast<int>(per_row), static_cast<int>(chunks / warps),
-      static_cast<int>(chunks % warps));
+  wave->grid = static_cast<int>(need < sms[dev] * per_sm ? need : sms[dev] * per_sm);
+  const int warps = wave->grid * KUF_WARPS;
+  wave->per_warp = static_cast<int>(chunks / warps);
+  wave->extra = static_cast<int>(chunks % warps);
+  return cudaSuccess;
+}
+
+template <typename T, bool VEC>
+int launch_cell_kuf_primal(const T* mesh, const T* x, const T* scal, T* out, int m, int n,
+                           cudaStream_t stream) {
+  static int sms[64], per_sm_max[64];   // by device
+  constexpr int CHUNK = 32 * Vec16<T>::n;
+  const long long per_row = (n + CHUNK - 1) / CHUNK;
+  Wave w;
+  const cudaError_t err = plan_wave(cell_kuf_primal_kernel<T, VEC>, per_row * m,
+                                    KUF_MIN_CHUNKS, sms, per_sm_max, &w);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cell_kuf_primal_kernel<T, VEC><<<w.grid, KUF_THREADS, 0, stream>>>(
+      mesh, x, scal, out, n, static_cast<int>(per_row), w.per_warp, w.extra);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -196,55 +213,141 @@ int launch_cell_kuf(const T* mesh, const T* x, const T* scal, T* out, int m, int
              : launch_cell_kuf_primal<T, false>(mesh, x, scal, out, m, n, stream);
 }
 
+// c / d for 0 ≤ c < 2^31 and d ≥ 1 as one wide product and a shift
+// (Granlund and Montgomery, 1994: with l = ⌈log2 d⌉ and m = ⌈2^(32+l) / d⌉,
+// c / d = ⌊c·m / 2^(32+l)⌋ for every c < 2^32; m < 2^33, so c·m < 2^64 for
+// c < 2^31, which plan_wave checks): an integer division would be the
+// longest dependent chain before a warp's first load.
+struct Divider {
+  unsigned long long m;
+  int shift;
+};
+
+inline Divider make_divider(unsigned d) {
+  int l = 0;
+  while ((1ull << l) < d) ++l;
+  return {((1ull << (32 + l)) + d - 1) / d, 32 + l};
+}
+
+__device__ __forceinline__ int divide(int c, const Divider& dv) {
+  return static_cast<int>((static_cast<unsigned long long>(c) * dv.m) >> dv.shift);
+}
+
 // ---------------------------------------------------------------------------
 // Kernel 2: cell_kuf_with_dl, (Kuf, ∂Kuf/∂ℓ) in one pass (training below the
 // fused kernel's batch).
 //
-// Bound on the H100: the output writes, 2·m·n values; with two divisions
-// and two exps per element its instruction issue is of the same order
-// (left as it was, PERF.md §6). Design: each thread
-// takes one cell row and KUF_COLS points of it, so the row's series
-// (cell_row) runs once per KUF_COLS elements; the 32 threads of a warp take
-// 32 neighbouring points, so every store is one coalesced 128-byte line
-// (float). The inputs (m + 1 edges, n points, 2 scalars) are tiny and stay
-// in L1/L2.
+// Bound on the H100: the output writes, 2·m·n values once (8 bytes an
+// element in float32) at 3.35 TB/s, about 0.42e12 elements a second. The
+// function needs 22 fp32 instructions an element (chip_smoke.OPS_KUF_DL)
+// against the ~80 that the card's ~33e12 lane-instructions a second leave
+// at that rate, so the writes bound it: the element's work is kept near
+// the 22 (no division, one exp outside the cell, the row's series once a
+// row) and each lane stores 16 bytes an output.
+//
+// Design: kernel 1's traversal with two outputs. One wave of blocks
+// (plan_wave, one chunk a warp where the card holds the blocks) over the
+// m·⌈n / CHUNK⌉ chunks in row-major order, each warp on a contiguous run of
+// them; 16 bytes of points a lane, loaded during the previous chunk's math,
+// and each output stored 16 bytes a lane (VEC; the scalar instance for
+// ragged n, an x that is a view at an offset, or an unaligned output). Per
+// element outside the cell (all but one row of a point): one exp and no
+// division (kuf_dl_points), from the row's DlCoef, computed when a run
+// enters a row. c0 = σ²(1 − (1 + δ/ℓ)e^{−δ/ℓ}) takes a short series below
+// δ/ℓ = 1 (one_minus_1pd_emd): the JAX form's two terms of size
+// σ²e^{−near}·δ/ℓ, which cancel to σ²e^{−near}·(near·δ/ℓ + (δ/ℓ)²/2), are
+// taken in one rounded number a row. Inside the cell, the far exp and the
+// product identity, under a branch. The stores are plain (not evict-first):
+// the banded apply reads both outputs right after, and at the main path's
+// (512, 4096) their 16.8 MB stay in the 50 MB L2.
+//
+// At the small shapes (a few hundred chunks) a launch is one chunk a warp,
+// so its time is the latency of a warp's chain before its first load and
+// its first store. That chain has no IEEE division (1/ℓ by recip_, δ/ℓ a
+// product: each division's check for its slow path is a branch that the
+// loads and math after it waited behind) and no integer division (c / per_row
+// by Divider). On an H100 the two took 0.00016–0.00019 and 0.00006–0.00008
+// ms off a launch of about 0.0015 ms (tools/torch_cell_kuf_ab.py; PERF.md §6).
 // ---------------------------------------------------------------------------
 
-constexpr int KUF_TX = 32;     // points per warp (one store line)
-constexpr int KUF_TY = 8;      // cell rows per block
-constexpr int KUF_COLS = 4;    // points per thread, KUF_TX apart
-
-template <typename T>
-__global__ void __launch_bounds__(KUF_TX * KUF_TY)
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(KUF_THREADS)
 cell_kuf_with_dl_kernel(const T* __restrict__ mesh, const T* __restrict__ x,
                         const T* __restrict__ scal, T* __restrict__ out,
-                        T* __restrict__ dl, int m, int n) {
-  const int i = blockIdx.y * KUF_TY + threadIdx.y;
-  if (i >= m) return;
+                        T* __restrict__ dl, int n, int per_row, Divider by_row, int per_warp,
+                        int extra) {
+  constexpr int VN = Vec16<T>::n;
+  constexpr int CHUNK = 32 * VN;
+  const int warp = blockIdx.x * KUF_WARPS + threadIdx.x / 32;
+  int left = per_warp + (warp < extra ? 1 : 0);
+  if (left == 0) return;
+  const int c = warp * per_warp + min(warp, extra);
+  const int lane = threadIdx.x % 32;
+  int i = divide(c, by_row);   // c / per_row
+  int j = (c - i * per_row) * CHUNK + lane * VN;
+
+  // the first chunk's points and row edges are loaded first, alongside the
+  // scalars; 1/ℓ and δ/ℓ take no IEEE division (recip_, cell_row_inv)
+  T xv[VN];
+  load_points<T, VEC>(x, j, n, xv);
+  const T a0 = mesh[i], b0 = mesh[i + 1];
   const T var = scal[0];
   const T ell = scal[1];
-  const Row<T> row = cell_row(mesh[i], mesh[i + 1], ell);
-  const size_t base = static_cast<size_t>(i) * n;
-  const int j0 = blockIdx.x * (KUF_TX * KUF_COLS) + threadIdx.x;
+  const T var_ell = var * ell;
+  const T inv_ell = recip_(ell);
+  Row<T> row = cell_row_inv(a0, b0, inv_ell);
+  DlCoef<T> coef = dl_coef(row, var, var_ell);
+  for (;;) {
+    int jn = j + CHUNK;
+    const bool next_row = jn - lane * VN >= n;
+    if (next_row) jn = lane * VN;
+    T xn[VN], f[VN], g[VN];
+    load_points<T, VEC>(x, jn, n, xn);
+    kuf_dl_points(row, xv, inv_ell, var, var_ell, coef, f, g);
+    const size_t base = static_cast<size_t>(i) * n;
+    store_points<T, VEC>(out + base, j, n, f);
+    store_points<T, VEC>(dl + base, j, n, g);
+    if (--left == 0) break;
+    j = jn;
 #pragma unroll
-  for (int c = 0; c < KUF_COLS; ++c) {
-    const int j = j0 + c * KUF_TX;
-    if (j < n) {
-      T kuf, dkuf;
-      tile_kuf_dkuf<T, true>(row, x[j], var, ell, &kuf, &dkuf);
-      out[base + j] = kuf;
-      dl[base + j] = dkuf;
+    for (int k = 0; k < VN; ++k) xv[k] = xn[k];
+    if (next_row) {   // the run enters the next row
+      ++i;
+      row = cell_row_inv(mesh[i], mesh[i + 1], inv_ell);
+      coef = dl_coef(row, var, var_ell);
     }
   }
+}
+
+// One chunk a warp where the card holds the blocks (DL_MIN_CHUNKS = 1): the
+// shapes that fill less than a wave at 4 chunks a warp ran faster with more
+// warps on shorter runs (at (15, 20 000) 0.00246 against 0.00285 ms on an
+// H100, tools/torch_cell_kuf_ab.py), and the others fill the card either way.
+template <typename T, bool VEC>
+int launch_cell_kuf_with_dl_wave(const T* mesh, const T* x, const T* scal, T* out, T* dl,
+                                 int m, int n, cudaStream_t stream) {
+  static int sms[64], per_sm_max[64];   // by device
+  constexpr int CHUNK = 32 * Vec16<T>::n;
+  const long long per_row = (n + CHUNK - 1) / CHUNK;
+  Wave w;
+  const cudaError_t err = plan_wave(cell_kuf_with_dl_kernel<T, VEC>, per_row * m,
+                                    DL_MIN_CHUNKS, sms, per_sm_max, &w);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cell_kuf_with_dl_kernel<T, VEC><<<w.grid, KUF_THREADS, 0, stream>>>(
+      mesh, x, scal, out, dl, n, static_cast<int>(per_row),
+      make_divider(static_cast<unsigned>(per_row)), w.per_warp, w.extra);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_cell_kuf_with_dl(const T* mesh, const T* x, const T* scal, T* out, T* dl,
                             int m, int n, cudaStream_t stream) {
-  dim3 block(KUF_TX, KUF_TY);
-  dim3 grid((n + KUF_TX * KUF_COLS - 1) / (KUF_TX * KUF_COLS), (m + KUF_TY - 1) / KUF_TY);
-  cell_kuf_with_dl_kernel<T><<<grid, block, 0, stream>>>(mesh, x, scal, out, dl, m, n);
-  return static_cast<int>(cudaGetLastError());
+  constexpr int VN = Vec16<T>::n;
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dl) % 16 == 0 && n % VN == 0;
+  return vec ? launch_cell_kuf_with_dl_wave<T, true>(mesh, x, scal, out, dl, m, n, stream)
+             : launch_cell_kuf_with_dl_wave<T, false>(mesh, x, scal, out, dl, m, n, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -305,12 +408,12 @@ fused_whiten_kernel(const T* __restrict__ finv, const T* __restrict__ mesh,
       const int col = j0 + c;
       const T xv = x[col < n ? col : n - 1];   // masked columns are never stored
       const int rc = static_cast<int>(row0) + k0 + k;
-      tile_kuf_dkuf<T, true>(cell_row(mesh[rc], mesh[rc + 1], ell), xv, var, ell,
-                             &kc_s[k][c], &dkc_s[k][c]);
+      tile_kuf_dkuf<T>(cell_row(mesh[rc], mesh[rc + 1], ell), xv, var, ell, &kc_s[k][c],
+                       &dkc_s[k][c]);
       if (has_prev) {
         const int rp = rc - BB;
-        tile_kuf_dkuf<T, true>(cell_row(mesh[rp], mesh[rp + 1], ell), xv, var, ell,
-                               &kp_s[k][c], &dkp_s[k][c]);
+        tile_kuf_dkuf<T>(cell_row(mesh[rp], mesh[rp + 1], ell), xv, var, ell, &kp_s[k][c],
+                         &dkp_s[k][c]);
       }
     }
     // (BB, KC) slices of D = F⁻¹[band, band] and S = F⁻¹[band, band − 1].

@@ -11,7 +11,8 @@ namespace vggp_tile {
 constexpr int BB = 128;  // band block of the structured F⁻¹ (ops/kms.BAND_BLOCK)
 
 // e^x − 1 − x for |x| < 1: Horner series over 1/k!, k = 2.. (10 terms in
-// float, all 17 in double) — the coefficients of ops/stablemath._INV_FACT.
+// float, all 17 in double) — the coefficients of ops/stablemath._INV_FACT;
+// one_minus_1pd_emd's series takes one term more (1/19! below).
 // A constexpr function, so that in the unrolled loop every coefficient is a
 // compile-time immediate of the working type (no constant-memory loads and
 // no double-to-float conversions per element).
@@ -24,7 +25,7 @@ __host__ __device__ constexpr double inv_fact(int k) {  // 1/(k + 2)!
        : k == 10 ? 2.0876756987868100e-09 : k == 11 ? 1.6059043836821613e-10
        : k == 12 ? 1.1470745597729725e-11 : k == 13 ? 7.6471637318198164e-13
        : k == 14 ? 4.7794773323873853e-14 : k == 15 ? 2.8114572543455206e-15
-       : 1.5619206968586226e-16;
+       : k == 16 ? 1.5619206968586226e-16 : 8.2206352466243297e-18;
 }
 
 template <typename T> struct Terms;
@@ -57,14 +58,33 @@ __device__ __forceinline__ Row<T> cell_row(T a, T b, T ell) {
   return {a, b, dd, expm1s(-dd)};
 }
 
+// 1/v for a positive normal v without the IEEE division's check for its slow
+// path, a branch that holds back the loads and math after it: in float the
+// approximate reciprocal and one Newton step (within an ulp of the
+// quotient), in double the division.
+__device__ __forceinline__ float recip_(float v) {
+  const float r = __fdividef(1.0f, v);
+  return fmaf(fmaf(-v, r, 1.0f), r, r);
+}
+__device__ __forceinline__ double recip_(double v) { return 1.0 / v; }
+
+// cell_row with δ/ℓ a product by inv_ell = recip_(ℓ) (within an ulp of the
+// quotient): no division.
+template <typename T>
+__device__ __forceinline__ Row<T> cell_row_inv(T a, T b, T inv_ell) {
+  const T dd = (b - a) * inv_ell;
+  return {a, b, dd, expm1s(-dd)};
+}
+
 // One element of (Kuf, ∂Kuf/∂ℓ) for a cell row and a point x:
 //   Kuf = σ²ℓ·F,  ∂Kuf/∂ℓ = σ²(F + G)
 // with F the 3-case closed form. Inside the cell the identity
 // expm1(−u) + expm1(−w) = expm1(−δ/ℓ) − expm1(−u)·expm1(−w) leaves two
 // plain exps per element; the series runs once per row (cell_row).
-// `inv_ell` = 1/ℓ multiplies instead of dividing by ℓ (within an ulp of the
-// quotient); the cell_kuf_with_dl kernel divides, the fused kernel multiplies.
-template <typename T, bool WITH_DL, bool RECIP = false>
+// The fused kernels' form: `inv_ell` = 1/ℓ multiplies instead of dividing by
+// ℓ (within an ulp of the quotient) in the float32 one, the float64 one
+// divides.
+template <typename T, bool RECIP = false>
 __device__ __forceinline__ void tile_kuf_dkuf(const Row<T>& r, T x, T var, T ell,
                                               T* kuf, T* dkuf, T inv_ell = T(0)) {
   const T u = RECIP ? fabs(x - r.a) * inv_ell : fabs(x - r.a) / ell;
@@ -75,12 +95,10 @@ __device__ __forceinline__ void tile_kuf_dkuf(const Row<T>& r, T x, T var, T ell
   const T enear = fmax(e_u, e_w);
   const T F = inside ? -r.em_dd + (e_u - T(1)) * (e_w - T(1)) : enear * (-r.em_dd);
   *kuf = var * ell * F;
-  if constexpr (WITH_DL) {
-    const T near = fmin(u, w);
-    const T e_dd = T(1) + r.em_dd;
-    const T G = inside ? -(e_u * u + e_w * w) : enear * (near * (-r.em_dd) - e_dd * r.dd);
-    *dkuf = var * (F + G);
-  }
+  const T near = fmin(u, w);
+  const T e_dd = T(1) + r.em_dd;
+  const T G = inside ? -(e_u * u + e_w * w) : enear * (near * (-r.em_dd) - e_dd * r.dd);
+  *dkuf = var * (F + G);
 }
 
 // Kuf = σ²ℓ·F at K points of one cell row, for the cell_kuf kernel: the
@@ -116,6 +134,78 @@ __device__ __forceinline__ void kuf_points(const Row<T>& r, const T (&x)[K], T i
         const T efar = exp_(-fmax(u[k], w[k]));
         kuf[k] = var_ell * (-r.em_dd + (enear[k] - T(1)) * (efar - T(1)));
       }
+    }
+  }
+}
+
+// 1 − (1 + d)·e^{−d} = Σ_k (−1)^k (k + 1)/(k + 2)!·d^{k+2} for d = δ/ℓ ≥ 0,
+// with om = −expm1(−d). Its two terms are each about d, and on the main
+// path d ≈ 1.8e-3 (ℓ/δ ≈ 550), so their difference would keep only the
+// rounding of the larger; below d = 1 the series (Terms<T>::n + 1 terms,
+// the first left out under an ulp of the sum) gives it to an ulp or two.
+// Above, the two terms no longer cancel.
+template <typename T>
+__device__ __forceinline__ T one_minus_1pd_emd(T d, T om) {
+  if (d < T(1)) {
+    constexpr int N = Terms<T>::n + 1;
+    const T xs = -d;
+    T acc = T(N * inv_fact(N - 1));
+#pragma unroll
+    for (int k = N - 2; k >= 0; --k) acc = acc * xs + T((k + 1) * inv_fact(k));
+    return acc * d * d;
+  }
+  return om - (T(1) - om) * d;
+}
+
+// The per-row coefficients of (Kuf, ∂Kuf/∂ℓ) outside the cell, where
+// F = e^{−near}·(−expm1(−δ/ℓ)) and
+// G = e^{−near}·(near·(−expm1(−δ/ℓ)) − e^{−δ/ℓ}·δ/ℓ):
+//   Kuf = e^{−near}·k,   ∂Kuf/∂ℓ = σ²(F + G) = e^{−near}·(c0 + c1·near),
+//   k = σ²ℓ·(−expm1(−δ/ℓ)),  c1 = σ²·(−expm1(−δ/ℓ)),
+//   c0 = σ²·(1 − (1 + δ/ℓ)e^{−δ/ℓ}).
+template <typename T>
+struct DlCoef {
+  T k, c0, c1;
+};
+
+template <typename T>
+__device__ __forceinline__ DlCoef<T> dl_coef(const Row<T>& r, T var, T var_ell) {
+  const T om = -r.em_dd;
+  return {var_ell * om, var * one_minus_1pd_emd(r.dd, om), var * om};
+}
+
+// (Kuf, ∂Kuf/∂ℓ) at K points of one cell row, for the cell_kuf_with_dl
+// kernel: kuf_points with the second output. Outside the cell one exp and no
+// division an element, from the row's DlCoef: near = min(|x − a|, |x − b|)/ℓ
+// is one product by inv_ell (min and a positive product commute, so it is
+// the same number as min(u, w)). Inside, under the branch a lane takes only
+// where one of its points lies in the row's cell, the far exp, the product
+// identity for F and G = −(e^{−near}·near + e^{−far}·far), as tile_kuf_dkuf,
+// for all K points at once, each kept where it lies in the cell.
+template <typename T, int K>
+__device__ __forceinline__ void kuf_dl_points(const Row<T>& r, const T (&x)[K], T inv_ell,
+                                              T var, T var_ell, const DlCoef<T>& c,
+                                              T (&kuf)[K], T (&dl)[K]) {
+  T near[K], enear[K];
+  bool in[K];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    near[k] = fmin(fabs(x[k] - r.a), fabs(x[k] - r.b)) * inv_ell;
+    enear[k] = exp_(-near[k]);
+    kuf[k] = enear[k] * c.k;
+    dl[k] = enear[k] * (c.c0 + c.c1 * near[k]);
+    in[k] = (x[k] >= r.a) && (x[k] <= r.b);
+    any |= in[k];
+  }
+  if (__builtin_expect(any, 0)) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const T far = fmax(fabs(x[k] - r.a), fabs(x[k] - r.b)) * inv_ell;
+      const T efar = exp_(-far);
+      const T F = -r.em_dd + (enear[k] - T(1)) * (efar - T(1));
+      kuf[k] = in[k] ? var_ell * F : kuf[k];
+      dl[k] = in[k] ? var * (F - (enear[k] * near[k] + efar * far)) : dl[k];
     }
   }
 }

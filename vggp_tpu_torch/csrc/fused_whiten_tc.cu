@@ -334,10 +334,10 @@ fused_whiten_tc_kernel(const float* __restrict__ finv, const float* __restrict__
       const int k = 8 * kg + 2 * gq;
       const float4 p0 = rp[k], p1 = rp[k + 1];
       float k0v, d0v, k1v, d1v;
-      tile_kuf_dkuf<float, true, true>(Row<float>{p0.x, p0.y, p0.z, p0.w}, xv, var, ell, &k0v,
-                                       &d0v, inv_ell);
-      tile_kuf_dkuf<float, true, true>(Row<float>{p1.x, p1.y, p1.z, p1.w}, xv, var, ell, &k1v,
-                                       &d1v, inv_ell);
+      tile_kuf_dkuf<float, true>(Row<float>{p0.x, p0.y, p0.z, p0.w}, xv, var, ell, &k0v, &d0v,
+                                 inv_ell);
+      tile_kuf_dkuf<float, true>(Row<float>{p1.x, p1.y, p1.z, p1.w}, xv, var, ell, &k1v, &d1v,
+                                 inv_ell);
       put_pair<PA, TN>(op, k, gp, k0v, k1v);
       put_pair<PT, TN>(op + C::K_BYTES, k, gp, d0v, d1v);
     }

@@ -1,9 +1,9 @@
-"""Kernel primitives of the port (the part of ``vggp_tpu/kernels.py`` the
-ported heads read): k(r), the Matérn decay rate, dense 1-D Grams, the
-per-axis Gram dispatch, the stable k(0) − k(r), the derivative kernels of
-the gradient heads, and the spectral densities and Markov-state constants
-behind the VFF and spline-RKHS Kuu closed forms, and the coregion axis of
-the multi-output (ICM) models."""
+"""Kernel primitives of the port (of ``vggp_tpu/kernels.py``): the kinds,
+k(r), the Matérn decay rate, dense 1-D Grams and the separable 2-D product
+and their diagonals, the per-axis Gram dispatch, the stable k(0) − k(r), the
+derivative kernels of the gradient heads, and the spectral densities and
+Markov-state constants behind the VFF and spline-RKHS Kuu closed forms, and
+the coregion axis of the multi-output (ICM) models."""
 
 from __future__ import annotations
 
@@ -14,14 +14,16 @@ import torch
 
 from vggp_tpu_torch.ops.stablemath import expm1mx, expm1s
 
-STATIONARY_KINDS = ("matern12", "matern32", "matern52", "rbf")
+KINDS = ("matern12", "matern32", "matern52", "rbf")
+STATIONARY_KINDS = KINDS
 
 SQRT3 = math.sqrt(3.0)
 SQRT5 = math.sqrt(5.0)
 
+
 def validate_kind(kind: str) -> str:
-    if kind not in STATIONARY_KINDS:
-        raise ValueError(f"unknown kernel kind {kind!r}; expected one of {STATIONARY_KINDS}")
+    if kind not in KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}; expected one of {KINDS}")
     return kind
 
 
@@ -126,6 +128,27 @@ def gram_1d(kind: str, x1: torch.Tensor, x2: torch.Tensor, variance,
     of ±lr from a point on a uniform grid does) then steps as in JAX."""
     d = x1.reshape(-1)[:, None] - x2.reshape(-1)[None, :]
     return k_r(kind, torch.where(d >= 0, d, -d), variance, lengthscale)
+
+
+def gram_product_2d(kinds: tuple, x1: torch.Tensor, x2: torch.Tensor, params1: Dict,
+                    params2: Dict) -> torch.Tensor:
+    """Separable product kernel k((s, t), (s′, t′)) = k1(s, s′)·k2(t, t′) on
+    (n, 2) inputs: the elementwise product of two 1-D Grams."""
+    k1 = gram_1d(kinds[0], x1[:, 0], x2[:, 0], params1["variance"], params1["lengthscale"])
+    k2 = gram_1d(kinds[1], x1[:, 1], x2[:, 1], params2["variance"], params2["lengthscale"])
+    return k1 * k2
+
+
+def kdiag_1d(kind: str, x: torch.Tensor, variance, lengthscale) -> torch.Tensor:
+    """diag(K(x, x)): the constant ``variance`` of a stationary kernel."""
+    n = x.reshape(-1).shape[0]
+    return torch.ones(n, dtype=x.dtype, device=x.device) * variance
+
+
+def kdiag_product_2d(kinds: tuple, x: torch.Tensor, params1: Dict, params2: Dict) -> torch.Tensor:
+    """diag of :func:`gram_product_2d`: the product of the two variances."""
+    one = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    return one * (params1["variance"] * params2["variance"])
 
 
 # The multi-output (ICM) coregion axis (``kernels.py:291-366``): a discrete

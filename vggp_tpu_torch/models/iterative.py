@@ -45,7 +45,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from vggp_tpu_torch import config, kernels, sampling
+from vggp_tpu_torch import config, kernels
 from vggp_tpu_torch.config import highest_precision
 from vggp_tpu_torch.features import CellIntegralFeature
 from vggp_tpu_torch.models import common
@@ -498,6 +498,8 @@ def pathwise_q_v_samples(
     the same state and keeps its own block, so the draws are the unsharded
     run's.
     """
+    from vggp_tpu_torch import sampling   # it imports this package back
+
     _check_spec(spec)
     kvu_blocks = common.grid_kvu(spec, params, grid_axes)
     co = spec.kinds.index(kernels.COREGION_KIND) if kernels.COREGION_KIND in spec.kinds else None
@@ -528,6 +530,8 @@ def _matheron_grid_samples(spec, params: Params, X, y, gen, *, n_samples, n_feat
     batched Kuu solve, and the G solves of every sample (both signs of an
     antithetic pair) as the columns of one CG.
     """
+    from vggp_tpu_torch import sampling
+
     if antithetic and n_samples % 2:
         raise ValueError(f"antithetic needs an even n_samples, got {n_samples}")
     co = spec.kinds.index(kernels.COREGION_KIND) if kernels.COREGION_KIND in spec.kinds else None
@@ -645,6 +649,8 @@ def pathwise_q_dv_samples(
     face differences on ``axis`` (``common.grad_grid_kvu``,
     ``sampling.prior_grid_grad_sample``). A constant mean has no
     derivative, so nothing adds back."""
+    from vggp_tpu_torch import sampling
+
     _check_spec(spec)
     axis = common.canonical_axis(spec, axis)
     if spec.kinds[axis] == kernels.COREGION_KIND:

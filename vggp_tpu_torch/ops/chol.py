@@ -66,6 +66,11 @@ def solve_psd(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tri_solve(chol, tri_solve(chol, b), trans=True)
 
 
+def logdet_from_chol(chol: torch.Tensor) -> torch.Tensor:
+    """log|A| from its lower Cholesky factor."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+
+
 # Relative eigenvalue floors of the clamped-eigh factor, by dtype
 # (``chol.py:160-168``): a condition-number cap in place of a failure.
 EIG_FLOOR_F32 = 1e-6
