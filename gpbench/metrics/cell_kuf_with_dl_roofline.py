@@ -1,0 +1,7 @@
+"""The least time of every cell_kuf_with_dl launch in the traced window over its device time, %."""
+
+from gpbench.readers import roofline
+
+
+def read(rec):
+    return roofline(rec, "cell_kuf_with_dl")

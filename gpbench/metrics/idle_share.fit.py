@@ -1,0 +1,7 @@
+"""The share of the traced window of a fit cell in which no operation ran on the device, %."""
+
+from gpbench.readers import idle_share
+
+
+def read(rec):
+    return idle_share(rec, "fit")
