@@ -33,6 +33,7 @@ from vggp_tpu_torch import config, kernels
 from vggp_tpu_torch.ops import cell_kuf as ck
 from vggp_tpu_torch.ops import diag_lowrank, toeplitz
 from vggp_tpu_torch.ops.stablemath import expm1mx, expm1s, gamma2_lower, gamma3_lower
+from vggp_tpu_torch.tracing import span, traced
 
 Params = Dict
 
@@ -1063,6 +1064,7 @@ class CellIntegralFeature(AxisFeature):
 
         return m12_geometric_ratio(self.delta, p["lengthscale"], rel_jitter)
 
+    @traced("vggp.dispatch.kuf")
     def Kuf(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
         """(m, n) cross-covariance, differentiable in σ² and ℓ: the
         ``cell_kuf`` kernel for Matérn-1/2 on any mesh, plain torch for the
@@ -1079,6 +1081,7 @@ class CellIntegralFeature(AxisFeature):
         return _cell_cell_cov(kind, grid.mesh_j(p), self.mesh_j(p), p["variance"],
                               p["lengthscale"])
 
+    @traced("vggp.dispatch.kuf")
     def Kuf_with_dl(self, kind: str, p: Params, x: torch.Tensor):
         """(Kuf, ∂Kuf/∂ℓ) as values: one ``cell_kuf_with_dl`` pass for
         Matérn-1/2 on any mesh, the forward-mode tangent of :meth:`Kuf` in ℓ
@@ -1098,10 +1101,10 @@ class CellIntegralFeature(AxisFeature):
         (``models.common._whitened_kuf_tangent``).
 
         At or above the ``ratio < 0.7`` gate the factor is not banded: the
-        unfused pass and two dense products are taken instead. The gate is a
-        Python branch and reads ``ratio`` back to the host.
+        unfused pass and two dense products are taken instead. The gate is
+        ``ops.kms.below_band_gate``, a read back to the host.
         """
-        from vggp_tpu_torch.ops.kms import BAND_BLOCK
+        from vggp_tpu_torch.ops.kms import BAND_BLOCK, below_band_gate
 
         x = x.reshape(-1).contiguous()
         n = x.shape[0]
@@ -1110,14 +1113,17 @@ class CellIntegralFeature(AxisFeature):
             return None
         mesh = self.mesh_j(p)
         v, ell = p["variance"], p["lengthscale"]
-        if bool(ratio < 0.7):
-            return ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell,
-                                              config.WHITEN_MATMUL_PRECISION,
-                                              config.MATMUL_PRECISION)
-        kuf, dkuf = ck.cell_kuf_with_dl(mesh, x, v, ell)
-        with config.matmul_precision(config.WHITEN_MATMUL_PRECISION):
+        if below_band_gate(ratio):
+            with span("vggp.dispatch.whiten"):
+                return ck.fused_banded_whiten_kuf(finv, mesh, x, v, ell,
+                                                  config.WHITEN_MATMUL_PRECISION,
+                                                  config.MATMUL_PRECISION)
+        with span("vggp.dispatch.kuf"):
+            kuf, dkuf = ck.cell_kuf_with_dl(mesh, x, v, ell)
+        with span("vggp.dispatch.whiten"), \
+                config.matmul_precision(config.WHITEN_MATMUL_PRECISION):
             a = finv @ kuf
-        with config.matmul_precision(config.MATMUL_PRECISION):
+        with span("vggp.dispatch.tangent"), config.matmul_precision(config.MATMUL_PRECISION):
             t = finv @ dkuf
         return a, t
 

@@ -22,6 +22,7 @@ from vggp_tpu_torch.ops import toeplitz
 from vggp_tpu_torch.ops.chol import (F32_MIN_JITTER, PSDFactor, psd_factor, safe_cholesky,
                                     tri_solve)
 from vggp_tpu_torch.ops.kron import khatri_rao_rows, kron_dense, kron_diag
+from vggp_tpu_torch.tracing import span, traced
 
 Params = Dict
 
@@ -125,6 +126,7 @@ def _kuu_jittered_dl(feat, kind, rel_jitter, ell, var):
                                                     device=dk.device)
 
 
+@traced("vggp.dispatch.finv")
 def _finv_of_params(feat, kind, rel_jitter, ell, var):
     """(F⁻¹, band ratio or None) of the jittered Kuu: the closed form of
     ``ops.kms`` where the feature has one (Matérn-1/2 on a uniform mesh) and
@@ -143,6 +145,7 @@ def _finv_of_params(feat, kind, rel_jitter, ell, var):
     return torch.linalg.solve_triangular(F, eye, upper=False), None
 
 
+@traced("vggp.dispatch.whiten")
 def _apply_finv(finv, ratio, kuf):
     from vggp_tpu_torch.ops.kms import banded_whiten_apply
 
@@ -172,7 +175,8 @@ def _whitened_kuf_tangent(feat, kind, rel_jitter, ell, var, x):
     likelihoods, on an H100.
     """
     prec = config.MATMUL_PRECISION
-    dK = _kuu_jittered_dl(feat, kind, rel_jitter, ell, var)
+    with span("vggp.dispatch.tangent"):
+        dK = _kuu_jittered_dl(feat, kind, rel_jitter, ell, var)
     finv, ratio = _finv_of_params(feat, kind, rel_jitter, ell, var)
     p_lv = {"lengthscale": ell, "variance": var}
     fused = feat.whitened_kuf_fused(kind, p_lv, finv, ratio, x)
@@ -181,9 +185,9 @@ def _whitened_kuf_tangent(feat, kind, rel_jitter, ell, var, x):
     else:
         kuf, dkuf = feat.Kuf_with_dl(kind, p_lv, x)
         a = _apply_finv(finv, ratio, kuf)
-        with matmul_precision(prec):
+        with span("vggp.dispatch.tangent"), matmul_precision(prec):
             t = finv @ dkuf
-    with matmul_precision(prec):
+    with span("vggp.dispatch.tangent"), matmul_precision(prec):
         M = finv @ dK @ finv.T
         Phi = torch.tril(M, -1) + 0.5 * torch.diag(torch.diagonal(M))
         da_dl = t - Phi @ a
@@ -268,7 +272,8 @@ def whitened_kuf_scalar(feat, kind: str, rel_jitter: float, p: Params,
         with torch.no_grad():
             a, da_dl = _whitened_kuf_tangent(feat, kind, rel_jitter, ell.detach(),
                                              var.detach(), x)
-        return WhitenedKufScalar.apply(ell, var, a, da_dl)
+        with span("vggp.dispatch.tangent"):   # its backward is the tangent's
+            return WhitenedKufScalar.apply(ell, var, a, da_dl)
     return _whitened_kuf_primal(feat, kind, rel_jitter, ell, var, x)
 
 

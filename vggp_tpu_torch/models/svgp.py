@@ -32,6 +32,7 @@ from vggp_tpu_torch.config import highest_precision, matmul_precision
 from vggp_tpu_torch.models import common
 from vggp_tpu_torch.models.common import Gaussian
 from vggp_tpu_torch.ops.kron import kron_dense, kron_diag
+from vggp_tpu_torch.tracing import span, traced
 
 Params = Dict
 
@@ -225,6 +226,7 @@ class KronMoments(torch.autograd.Function):
         return (dmu, *dLs, *das)
 
 
+@traced("vggp.model.moments")
 def _qf_mean_var(spec: SVGPSpec, params: Params, blocks,
                  Ls=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Marginal q(f) mean and the two variance terms at the points whose
@@ -242,6 +244,7 @@ def _qf_mean_var(spec: SVGPSpec, params: Params, blocks,
     return mean, var_red, var_add
 
 
+@traced("vggp.model.kl")
 @highest_precision
 def kl(spec: SVGPSpec, params: Params) -> torch.Tensor:
     """KL[q(w) ‖ N(0, I)] in whitened coordinates."""
@@ -271,17 +274,20 @@ def elbo(spec: SVGPSpec, params: Params, xb: torch.Tensor, yb: torch.Tensor) -> 
     nb = yb.shape[0]
     _, blocks = _whitened_blocks(spec, params, xb)
     mean, var_red, var_add = _qf_mean_var(spec, params, blocks)
-    mean = mean + common.mean_fn(spec, params, xb)
-    kff = common.kdiag(spec, params, xb)
-    var_f = torch.clamp(kff - var_red, min=0.0) + var_add
-    noise = common.obs_noise(spec, params, xb)   # a scalar, or (nb,) per output
-    if spec.likelihood == "gaussian":
-        ell_i = (-0.5 * torch.log(2.0 * math.pi * noise)
-                 - ((yb - mean) ** 2 + var_f) / (2.0 * noise))
-    else:
-        ell_i = likelihoods.expected_log_lik(spec.likelihood, yb, mean, var_f,
-                                             {**params, "noise": noise}, spec.likelihood_opts)
-    return (spec.num_data / nb) * torch.sum(ell_i) - kl(spec, params)
+    with span("vggp.model.likelihood"):
+        mean = mean + common.mean_fn(spec, params, xb)
+        kff = common.kdiag(spec, params, xb)
+        var_f = torch.clamp(kff - var_red, min=0.0) + var_add
+        noise = common.obs_noise(spec, params, xb)   # a scalar, or (nb,) per output
+        if spec.likelihood == "gaussian":
+            ell_i = (-0.5 * torch.log(2.0 * math.pi * noise)
+                     - ((yb - mean) ** 2 + var_f) / (2.0 * noise))
+        else:
+            ell_i = likelihoods.expected_log_lik(spec.likelihood, yb, mean, var_f,
+                                                 {**params, "noise": noise},
+                                                 spec.likelihood_opts)
+        ell = (spec.num_data / nb) * torch.sum(ell_i)
+    return ell - kl(spec, params)
 
 
 def loss(spec: SVGPSpec, params: Params, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
@@ -326,12 +332,13 @@ def _posterior_from_blocks(spec: SVGPSpec, params: Params, blocks, Ls, xstar,
     factors ``Ls``: marginals, or for ``full_cov`` the dense (n*, n*)
     covariance through the (m, n*) Khatri–Rao block (small n* only)."""
     mean, var_red, var_add = _qf_mean_var(spec, params, blocks, Ls=Ls)
-    mean = mean + common.mean_fn(spec, params, xstar)
-    noise = common.obs_noise(spec, params, xstar) if predictive else 0.0
-    if not full_cov:
-        kss = common.kdiag(spec, params, xstar)
-        var = torch.clamp(kss - var_red, min=0.0) + var_add + noise
-        return Gaussian(mean=mean, var=var)
+    with span("vggp.model.likelihood"):
+        mean = mean + common.mean_fn(spec, params, xstar)
+        noise = common.obs_noise(spec, params, xstar) if predictive else 0.0
+        if not full_cov:
+            kss = common.kdiag(spec, params, xstar)
+            var = torch.clamp(kss - var_red, min=0.0) + var_add + noise
+            return Gaussian(mean=mean, var=var)
     a = common.khatri_rao_all(blocks)
     sa = _cov_half(spec, Ls, blocks)
     cov = common.gram_full(spec, params, xstar, xstar) - a.T @ a + sa.T @ sa
@@ -487,6 +494,7 @@ def precompute(spec: SVGPSpec, params: Params):
     return common.axis_chol_kuu(spec, params), _var_chols(spec, params["q"])
 
 
+@traced("vggp.entry.posterior")
 @highest_precision
 def posterior_from_state(spec: SVGPSpec, params: Params, state, xstar: torch.Tensor,
                          full_cov: bool = False, predictive: bool = False) -> Gaussian:

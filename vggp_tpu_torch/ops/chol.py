@@ -9,6 +9,7 @@ import torch
 
 from vggp_tpu_torch import config
 from vggp_tpu_torch.config import matmul_precision
+from vggp_tpu_torch.tracing import traced
 
 DEFAULT_JITTER = 1e-6
 # float32 relative jitter floor (see the JAX package for its derivation).
@@ -97,6 +98,7 @@ class PSDFactor:
         self.Finv = Finv    # (m, m) explicit F⁻¹, only for tri=False
         self.tri = tri
 
+    @traced("vggp.dispatch.whiten")
     def whiten(self, b: torch.Tensor) -> torch.Tensor:
         """F⁻¹ b. Cholesky: a triangular solve, or, when b has more columns
         than F has rows, one explicit triangular inverse and one

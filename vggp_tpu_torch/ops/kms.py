@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from vggp_tpu_torch.config import matmul_precision
 from vggp_tpu_torch.ops.stablemath import expm1mx, expm1s, sinhmx
 from vggp_tpu_torch.ops.toeplitz import sym_toeplitz_dense
+from vggp_tpu_torch.tracing import span
 
 
 def _tridiag_coefficients(delta, variance, lengthscale, rel_jitter):
@@ -147,6 +148,14 @@ def m12_geometric_ratio(delta, lengthscale, rel_jitter):
 BAND_BLOCK = 128
 
 
+def below_band_gate(q) -> bool:
+    """Whether the geometric ratio ``q`` is below the 0.7 gate of the
+    banded applies: a Python branch that reads ``q`` back to the host, so
+    the host waits for the device (inside ``vggp.sync.band_gate``)."""
+    with span("vggp.sync.band_gate"):
+        return bool(q < 0.7)
+
+
 def band_blocks(finv: torch.Tensor):
     """(diag, sub) blocks of a block-bidiagonal F⁻¹ at :data:`BAND_BLOCK`:
     ``diag[r] = F⁻¹[r, r]`` (nb, BB, BB) and ``sub[r] = F⁻¹[r+1, r]``
@@ -176,12 +185,12 @@ def banded_whiten_apply(finv, kuf, q, precision):
 
     The block-bidiagonal product discards entries ≤ q^(BAND_BLOCK+1), at
     most 9e-16 below the q < 0.7 gate; at or above the gate, and for shapes
-    that do not block evenly, the dense product is taken. The gate is a
-    Python branch and reads ``q`` back to the host.
+    that do not block evenly, the dense product is taken. The gate is
+    :func:`below_band_gate`.
     """
     m = finv.shape[0]
     with matmul_precision(precision):
-        if m % BAND_BLOCK != 0 or m // BAND_BLOCK < 2 or not bool(q < 0.7):
+        if m % BAND_BLOCK != 0 or m // BAND_BLOCK < 2 or not below_band_gate(q):
             return finv @ kuf
         return banded_apply(finv, kuf)
 

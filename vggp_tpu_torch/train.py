@@ -20,6 +20,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from vggp_tpu_torch.tracing import span, traced
+
 POSITIVE_KEYS = ("variance", "lengthscale", "noise", "kappa")
 
 # Positivity floors added under the softplus bijector (the noise floor keeps
@@ -175,6 +177,7 @@ def informative_init(params: Dict, X: torch.Tensor, y: torch.Tensor,
             "noise": _like(torch.maximum(yvar - var, 1e-6 * yvar), params["noise"])}
 
 
+@traced("vggp.entry.update")
 def guarded_update(optimizer: torch.optim.Optimizer, leaves, val: torch.Tensor) -> bool:
     """Take the optimizer step only when the loss and every gradient are
     finite; otherwise skip it whole, optimizer state included — the
@@ -187,7 +190,9 @@ def guarded_update(optimizer: torch.optim.Optimizer, leaves, val: torch.Tensor) 
     for p in leaves:
         if p.grad is not None:
             finite = finite & torch.isfinite(p.grad).all()
-    if not bool(finite):
+    with span("vggp.sync.guarded_update"):
+        ok = bool(finite)
+    if not ok:
         return False
     optimizer.step()
     return True
@@ -204,11 +209,13 @@ def make_step_fn(loss_fn: Callable, raw: Dict, optimizer: torch.optim.Optimizer)
     leaves = tree_leaves(raw)
 
     def step(*args) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        val = loss_fn(constrain(raw), *args)
-        val.backward()
-        guarded_update(optimizer, leaves, val)
-        return val.detach()
+        with span("vggp.entry.step"):
+            optimizer.zero_grad(set_to_none=True)
+            val = loss_fn(constrain(raw), *args)
+            with span("vggp.entry.backward"):
+                val.backward()
+            guarded_update(optimizer, leaves, val)
+            return val.detach()
 
     return step
 
@@ -579,7 +586,9 @@ class MetricsLogger:
 
 def profile_trace(log_dir: str):
     """A ``torch.profiler`` context (the CPU, and the card where there is
-    one) that writes a Chrome trace into ``log_dir`` on exit."""
+    one) that writes a Chrome trace into ``log_dir`` on exit. While it
+    records, the port's ``vggp.*`` spans (``tracing``) appear in the trace
+    beside the operators they enclose: each step, request and layer."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
