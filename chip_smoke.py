@@ -721,6 +721,100 @@ def check_finv(device) -> None:
               f"the same bounds")
 
 
+# Phase 3d: the closed-form F⁻¹ kernel (csrc/m12_finv.cu) against its plain
+# version on the card at these m (every per-axis cell count the phases build
+# a closed-form F⁻¹ at, and m = 1, 2), on both branches of u = δ/ℓ (ℓ/δ in
+# FINV_ELL_OVER_DELTA). Tolerances, max|Δ|/max|plain| per output: float64
+# 1e-12 (roundoff); float32 1e-6 for the raw F⁻¹ and F, whose entries q^k
+# and r^k the plain version takes by cumprod (a rounding a factor) and the
+# kernel by squaring, and for the refined F⁻¹ (the Newton–Schulz step
+# cancels the raw factor's error to first order; its products round alike
+# on both sides): on an H100 the largest gap was 1.8e-9 raw and 6.0e-8
+# refined. q bit for bit: one thread repeats the plain version's scalar
+# operations with no contraction.
+FINV_HELD_M = (1, 2, 9, 10, 12, 15, 16, 20, 32, 60, 64, 128, 256, 512)
+FINV_ELL_OVER_DELTA = (0.4, 3.0)
+TOL_FINV_KERNEL = {"float64": 1e-12, "float32": 1e-6}
+# (dtype name, m) held in phase 3d (or at the end of main, for an m that a
+# phase launched first), and every m12_finv launch of the script by (dtype
+# name, m): the launch counters are reset by every phase
+FINV_HELD = {}
+FINV_LAUNCHED = collections.Counter()
+
+
+def record_finv_launches() -> None:
+    """Count every launch of the ``m12_finv`` kernel of the script into
+    FINV_LAUNCHED (``ops.kms.m12_finv`` and ``M12FinvOp`` look the launcher
+    up at call time)."""
+    from vggp_tpu_torch.ops import kms
+
+    launch = kms._m12_finv_values
+
+    def recording(m, delta, variance, lengthscale, rel_jitter):
+        if lengthscale.device.type == "cuda":
+            FINV_LAUNCHED[str(lengthscale.dtype).removeprefix("torch."), m] += 1
+        return launch(m, delta, variance, lengthscale, rel_jitter)
+
+    kms._m12_finv_values = recording
+
+
+def hold_finv_kernel(device, ms, dtypes=("float64", "float32")) -> None:
+    """Phase 3d: the ``m12_finv`` kernel against ``kms.m12_finv_plain`` on the
+    card at each m of ``ms``: raw F⁻¹, F, q and the F⁻¹ after the
+    Newton–Schulz step, at both ℓ/δ of FINV_ELL_OVER_DELTA; the zeros above
+    the diagonal exact; each launch counted once at (m, m). Records the
+    largest relative gap in FINV_HELD[dtype name, m]."""
+    import torch
+
+    from vggp_tpu_torch.ops import cell_kuf as ck
+    from vggp_tpu_torch.ops import kms
+
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        for m in ms:
+            worst = 0.0
+            for ratio in FINV_ELL_OVER_DELTA:
+                args = (m, 1.0 / m, torch.tensor(1.3, dtype=dtype, device=device),
+                        torch.tensor(ratio / m, dtype=dtype, device=device), 1e-6)
+                ck.reset_launch_counts()
+                got = kms.m12_finv(*args)
+                torch.cuda.synchronize()
+                check(ck.LAUNCHES["m12_finv"] == 1 and dict(ck.SHAPE_LAUNCHES)
+                      == {("m12_finv", m, m): 1}, f"3d m12_finv {name} m={m}: launches "
+                      f"{dict(ck.SHAPE_LAUNCHES)}")
+                want = kms.m12_finv_plain(*args)
+                upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=device), 1)
+                check(all(bool((t[upper] == 0).all()) for t in got[:2]),
+                      f"3d m12_finv {name} m={m}: nonzero above the diagonal")
+                check(float(got[2]) == float(want[2]), f"3d m12_finv {name} m={m} ℓ/δ={ratio}: "
+                      f"q {float(got[2])!r} vs plain {float(want[2])!r}")
+                gaps = [rel_err(g, w) for g, w in zip(got[:2], want[:2])]
+                gaps.append(rel_err(kms.newton_schulz_step(*got[:2]),
+                                    kms.newton_schulz_step(*want[:2])))
+                print(f"check 3d m12_finv {name} m={m} ℓ/δ={ratio}: raw F⁻¹ {gaps[0]:.3e}, "
+                      f"F {gaps[1]:.3e}, refined {gaps[2]:.3e}, q equal")
+                check(max(gaps) < TOL_FINV_KERNEL[name],
+                      f"3d m12_finv {name} m={m} ℓ/δ={ratio}: gaps {gaps}")
+                worst = max(worst, *gaps)
+            FINV_HELD[name, m] = worst
+
+
+def hold_finv_launched(device) -> dict:
+    """The end of :func:`main`: every (dtype, m) the script launched the
+    ``m12_finv`` kernel at is held against plain (phase 3d's, or now for an
+    m it did not list). Returns {"launches": …, "held late": […],
+    "held_max_rel_gap": …}."""
+    late = sorted({k for k in FINV_LAUNCHED} - set(FINV_HELD))
+    for name, m in late:
+        hold_finv_kernel(device, (m,), (name,))
+    launched = {f"{name} m={m}": n for (name, m), n in sorted(FINV_LAUNCHED.items())}
+    print(f"m12_finv launches of the script by dtype and m: {launched}; held against plain: "
+          f"{sorted(FINV_HELD)}, of them only after a launch: {late}")
+    check(set(FINV_LAUNCHED) <= set(FINV_HELD), "m12_finv launched at a shape never held")
+    return {"launches": launched, "held late": [f"{name} m={m}" for name, m in late],
+            "held_max_rel_gap": {f"{name} m={m}": e for (name, m), e in sorted(FINV_HELD.items())}}
+
+
 def make_data(device):
     """Synthetic data from a numpy seed, as bench.py:365-371 makes its batch."""
     import numpy as np
@@ -771,29 +865,31 @@ def drive_main_path(device, X, y, Xs):
                               model.raw_params(), opt)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    launches = {k: 0 for k in ck.LAUNCHES}
+    launches = dict(NO_LAUNCHES)
     timings = {}
 
     ck.reset_launch_counts()
     losses, timings["step_ms_batch4096"] = run_steps(step, X, y, TRAIN_BATCH, TRAIN_STEPS, gen)
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     print(f"train batch {TRAIN_BATCH}: losses {losses[0]:.6g} -> {losses[-1]:.6g}, "
           f"launches {got}")
     check(all(torch.isfinite(torch.tensor(losses))), f"non-finite loss at {TRAIN_BATCH}")
     check(sum(losses[-3:]) < sum(losses[:3]), f"loss did not fall at {TRAIN_BATCH}: {losses}")
     check(got == {"cell_kuf": 0, "cell_kuf_with_dl": 2 * TRAIN_STEPS,
                   "fused_banded_whiten_kuf": 0}, f"launches at {TRAIN_BATCH}: {got}")
+    check_finv_launches(2 * TRAIN_STEPS, f"training at {TRAIN_BATCH}")
     launches = {k: launches[k] + got[k] for k in got}
 
     ck.reset_launch_counts()
     losses16, timings["step_ms_batch16384"] = run_steps(step, X, y, FUSED_BATCH,
                                                         FUSED_STEPS, gen)
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     print(f"train batch {FUSED_BATCH}: losses {losses16[0]:.6g} -> {losses16[-1]:.6g}, "
           f"launches {got}")
     check(all(torch.isfinite(torch.tensor(losses16))), f"non-finite loss at {FUSED_BATCH}")
     check(got == {"cell_kuf": 0, "cell_kuf_with_dl": 0,
                   "fused_banded_whiten_kuf": 2 * FUSED_STEPS}, f"launches at {FUSED_BATCH}: {got}")
+    check_finv_launches(2 * FUSED_STEPS, f"training at {FUSED_BATCH}")
     launches = {k: launches[k] + got[k] for k in got}
 
     ck.reset_launch_counts()
@@ -803,7 +899,7 @@ def drive_main_path(device, X, y, Xs):
         post = model.posterior(Xs)
     torch.cuda.synchronize()
     timings["posterior_ms_4096"] = (time.perf_counter() - t0) * 1e3
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     print(f"serve {SERVE_POINTS} points: launches {got}, mean range "
           f"[{float(post.mean.min()):.4g}, {float(post.mean.max()):.4g}], "
           f"var range [{float(post.var.min()):.4g}, {float(post.var.max()):.4g}]")
@@ -814,8 +910,21 @@ def drive_main_path(device, X, y, Xs):
     check(bool((post.var > 0).all()), "posterior variance not positive")
     check(got == {"cell_kuf": 2, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0},
           f"launches at serving: {got}")
+    check_finv_launches(0, "serving (the dense factors)")
     launches = {k: launches[k] + got[k] for k in got}
     return spec, model, post, launches, timings, step, gen
+
+
+def check_finv_launches(want: int, what: str) -> None:
+    """The main path's closed-form F⁻¹: ``want`` launches of ``m12_finv``
+    since the last reset, all at (M_AXIS, M_AXIS) — one an axis a step."""
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    got = {k: v for k, v in ck.SHAPE_LAUNCHES.items() if k[0] == "m12_finv"}
+    print(f"{what}: m12_finv launches {ck.LAUNCHES['m12_finv']}, by shape {got}")
+    check(ck.LAUNCHES["m12_finv"] == want
+          and got == ({("m12_finv", M_AXIS, M_AXIS): want} if want else {}),
+          f"{what}: m12_finv launches {ck.LAUNCHES['m12_finv']} {got}, expected {want}")
 
 
 def serving_grid_points(device):
@@ -950,7 +1059,7 @@ def serve_heads(device, spec, model, Xs):
           and all(bool(torch.isfinite(L).all()) for L in Ls),
           "the warm state's float32 Kuu factors on the card are not finite")
 
-    launches = {k: 0 for k in ck.LAUNCHES}
+    launches = dict(NO_LAUNCHES)
     edge_launches = 0
     for name, which, n_launch, n, fn in head_table(device, spec, Xs):
         run = lambda tag: fn(specs[which], *ctx[which, tag])
@@ -958,7 +1067,7 @@ def serve_heads(device, spec, model, Xs):
         with torch.no_grad():
             g = run("card")
         torch.cuda.synchronize()
-        got = dict(ck.LAUNCHES)
+        got = cell_launches()
         check(got == {"cell_kuf": n_launch, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0},
               f"{name}: launches {got}, expected {n_launch} of cell_kuf")
         launches = {k: launches[k] + got[k] for k in got}
@@ -1153,7 +1262,7 @@ def run_counted(name, fn, n_cell_kuf):
         out = fn()
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     want = {"cell_kuf": 2 * n_cell_kuf, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
     check(got == want, f"{name}: launches of two calls {got}, expected {want}")
     check(finite(out), f"{name}: not finite")
@@ -1179,7 +1288,7 @@ def fit_counted(what, loss_fn, params, n_steps, trainable=None):
     params, hist = train.fit(loss_fn, params, n_steps, FIT_LR, trainable=trainable)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     losses = hist["loss"].double().cpu()
     print(f"{what}: fit {n_steps} steps, {ms:.3f} ms a step, loss {float(losses[0]):.6g} -> "
           f"{float(losses[-1]):.6g}, launches {got}")
@@ -1319,7 +1428,7 @@ def collapsed_phase(device, X, y, Xs) -> tuple:
         step()
     torch.cuda.synchronize()
     timings["sgpr_step_ms"] = (time.perf_counter() - t0) * 1e3 / WARM_STEPS
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     print(f"collapsed m=4096 n={SGPR_N}: steady-state step {timings['sgpr_step_ms']:.3f} ms, "
           f"launches {got}")
     check(got == {"cell_kuf": 0, "cell_kuf_with_dl": 4 * WARM_STEPS,
@@ -1493,7 +1602,7 @@ def train_likelihood(device, X, y, i) -> tuple:
     gen.manual_seed(i)
     ck.reset_launch_counts()
     losses, ms = run_steps(step, X, t, TRAIN_BATCH, LIK_STEPS, gen)
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     print(f"{name}: {LIK_STEPS} steps at batch {TRAIN_BATCH}, loss {losses[0]:.6g} -> "
           f"{losses[-1]:.6g}, {ms:.3f} ms a step, launches {got}")
     check(all(v == v and abs(v) != float("inf") for v in losses), f"{name}: loss not finite")
@@ -1511,7 +1620,7 @@ def likelihood_phase(device, X, y, Xs) -> tuple:
     from vggp_tpu_torch import svgp, train
     from vggp_tpu_torch.ops import cell_kuf as ck
 
-    launches = {k: 0 for k in ck.LAUNCHES}
+    launches = dict(NO_LAUNCHES)
     timings = {}
     cpu = torch.device("cpu")
     for i, (name, _) in enumerate(LIKELIHOODS):
@@ -1560,6 +1669,24 @@ RBF_CELLS, RBF_N, RBF_STEPS, RBF_LR = 64, 384, 30, 3e-2
 RBF_RATIOS = (0.1, 1.0, 10.0, 50.0)
 LAMBDA_RATIOS = (0.1, 1.0, 10.0, 50.0, 512.0)   # ℓ/δ of the λ_min readings, m = 512
 NO_LAUNCHES = {"cell_kuf": 0, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+
+
+def cell_launches() -> dict:
+    """``ops.cell_kuf.LAUNCHES`` of the three cell kernels, whose routes the
+    phases hold launch for launch. The closed-form F⁻¹'s kernel
+    (``m12_finv``) is held apart: against plain at every m it launches
+    (phase 3d and the end of :func:`main`), exactly in phase 4's steps, and
+    by shape in phase 14."""
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    return {k: ck.LAUNCHES[k] for k in NO_LAUNCHES}
+
+
+def cell_shape_launches() -> dict:
+    """``ops.cell_kuf.SHAPE_LAUNCHES`` of the three cell kernels."""
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    return {k: v for k, v in ck.SHAPE_LAUNCHES.items() if k[0] in NO_LAUNCHES}
 # The Matérn-3/2 models of 10b and 10d take the float32 jitter floor of their
 # cells (KIND_JITTER_F32 and the feature's 2e-4) as their spec's jitter, so
 # that the float64 references are the same model: with the default 1e-6 the
@@ -1693,7 +1820,7 @@ def train_svgp(device, spec, X, y, runs, seed, after_run=None) -> tuple:
     for batch, n_steps in runs:
         ck.reset_launch_counts()
         losses, ms = run_steps(step, X, y, batch, n_steps, gen)
-        out.append((losses, ms, dict(ck.LAUNCHES)))
+        out.append((losses, ms, cell_launches()))
         check(all(v == v and abs(v) != float("inf") for v in losses),
               f"{spec.kinds}: loss not finite at batch {batch}: {losses}")
         if after_run is not None:
@@ -1731,7 +1858,7 @@ def hold_against_cpu(what, quantities, device, floor, head_floor=TOL_E2E_POST,
     cpu = torch.device("cpu")
     ck.reset_launch_counts()
     got = quantities(cast_to(device, torch.float32))
-    counted = dict(ck.LAUNCHES)
+    counted = cell_launches()
     if launches is not None:
         print(f"{what}: the card's evaluation launched {counted}")
         check(counted == launches, f"{what}: launches {counted}, expected {launches}")
@@ -1749,7 +1876,7 @@ def timed_heads(heads, spec, params, state, cast) -> dict:
     for name, fn in heads:
         ck.reset_launch_counts()
         out[name] = host_ms(lambda: fn(spec, params, state, cast))
-        check(dict(ck.LAUNCHES) == NO_LAUNCHES, f"{name}: launches {dict(ck.LAUNCHES)}")
+        check(cell_launches() == NO_LAUNCHES, f"{name}: launches {cell_launches()}")
     return out
 
 
@@ -2194,7 +2321,7 @@ def full_2d_part(device, X, y, Xs, timings) -> tuple:
     val.backward()
     torch.cuda.synchronize()
     timings["full2d_elbo_muS_value_and_grad_ms"] = (time.perf_counter() - t0) * 1e3
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     print(f"11a elbo_muS at batch {TRAIN_BATCH}: {float(val.detach()):.6g}, value and grad "
           f"{timings['full2d_elbo_muS_value_and_grad_ms']:.3f} ms, launches {got}")
     check(got == {**NO_LAUNCHES, "cell_kuf_with_dl": 2}, f"11a elbo_muS launches {got}")
@@ -2765,8 +2892,8 @@ def check_family_kernels(device, X) -> dict:
 
     ck.reset_launch_counts()
     got = backward(ck.cell_kuf_op, device, torch.float32)
-    check(dict(ck.LAUNCHES) == {**NO_LAUNCHES, "cell_kuf": 1},
-          f"CellKufOp forward launches {dict(ck.LAUNCHES)}")
+    check(cell_launches() == {**NO_LAUNCHES, "cell_kuf": 1},
+          f"CellKufOp forward launches {cell_launches()}")
     plain = backward(ck.cell_kuf_plain, device, torch.float32)
     ref = backward(ck.cell_kuf_op, torch.device("cpu"), torch.float64)
     for what, want, bound in (("plain autograd f32 on the card", plain, TOL_F32),
@@ -2826,7 +2953,7 @@ def icm_svgp_part(device, Xm, ym, Xsm, timings) -> dict:
                                            learning_rate=1e-2, seed=61 + k)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / n_steps
-        got = dict(ck.LAUNCHES)
+        got = cell_launches()
         losses = [float(v) for v in hist["loss"]]
         print(f"12a ICM SVGP: {n_steps} steps at batch {batch}, loss {losses[0]:.6g} -> "
               f"{losses[-1]:.6g}, {ms:.3f} ms a step, launches {got}")
@@ -3230,7 +3357,7 @@ def counted(name, fn, n_cell_kuf, shapes=MF_SHAPE_LAUNCHES):
         out = fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     shapes.update(ck.SHAPE_LAUNCHES)
     if n_cell_kuf is not None:
         want = {**NO_LAUNCHES, "cell_kuf": n_cell_kuf}
@@ -3375,8 +3502,8 @@ def mf_solve_part(device, X, y, Xs, main, timings) -> tuple:
         iterative.solve_w(spec, p32, X32, y32, maxiter=MF_PROFILE_ITERS)
         prof, wall = _profiled(lambda: iterative.solve_w(spec, p32, X32, y32,
                                                          maxiter=MF_PROFILE_ITERS), 1)
-    got = dict(ck.LAUNCHES)
-    MF_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
+    got = cell_launches()
+    MF_SHAPE_LAUNCHES.update(cell_shape_launches())
     check(got == {**NO_LAUNCHES, "cell_kuf": 2 * spec.ndim},
           f"13a warm and profiled solves' launches {got}")
     launches = add_launches(launches, got)
@@ -3779,7 +3906,8 @@ def matrix_free_phase(device, X, y, Xs, main, collapsed, matern32, icm) -> tuple
           "at_16384_cells": MF_SHAPE_LAUNCHES["cell_kuf", 16384, 256]}
     print(f"phase 13's cell_kuf launches by shape: {dict(MF_SHAPE_LAUNCHES)}")
     check(all(v > 0 for v in at.values()), f"phase 13: a new shape never launched: {at}")
-    check(sum(MF_SHAPE_LAUNCHES.values()) == launches["cell_kuf"],
+    check(sum(v for k, v in MF_SHAPE_LAUNCHES.items() if k[0] in NO_LAUNCHES)
+          == launches["cell_kuf"],
           f"phase 13: launches by shape {dict(MF_SHAPE_LAUNCHES)} vs {launches}")
     return launches, timings, errs, at
 
@@ -4229,12 +4357,16 @@ def sampler_stream_phase(device, X, y, Xs, models) -> tuple:
         timings[f"{name}_s"] = time.perf_counter() - t0
         print(f"{name}: {timings[f'{name}_s']:.1f} s")
     at = {(m, n): c for (name, m, n), c in P14_SHAPE_LAUNCHES.items() if name == "cell_kuf"}
+    finv_at = {(m, n): c for (name, m, n), c in P14_SHAPE_LAUNCHES.items() if name == "m12_finv"}
     print(f"phase 14's cell_kuf launches by shape: {at}; the other kernels: "
           f"{ {k: v for k, v in P14_SHAPE_LAUNCHES.items() if k[0] != 'cell_kuf'} }")
-    check(sum(P14_SHAPE_LAUNCHES.values()) == sum(launches.values()),
+    check(sum(v for k, v in P14_SHAPE_LAUNCHES.items() if k[0] in NO_LAUNCHES)
+          == sum(launches.values()),
           f"phase 14: launches by shape {dict(P14_SHAPE_LAUNCHES)} vs {launches}")
     check(launches["cell_kuf"] == sum(at.values()) and set(at) <= set(P14_NEW_SHAPES)
           | set(P14_HELD_SHAPES), f"phase 14 launched a shape never held against plain: {at}")
+    check(all(m == n and (dt, m) in FINV_HELD for m, n in finv_at for dt in ("float32", "float64")),
+          f"phase 14 launched m12_finv at a shape never held against plain: {finv_at}")
     check(all(at.get(s, 0) > 0 for s in P14_NEW_SHAPES),
           f"phase 14: a new shape never launched: {at}")
     torch.cuda.synchronize()
@@ -4323,7 +4455,7 @@ def p15_count(fn):
 
     from vggp_tpu_torch.ops import cell_kuf as ck
 
-    before = dict(ck.LAUNCHES)
+    before = cell_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
@@ -4786,8 +4918,8 @@ def hyperpost_phase(device, X, y, Xs, models) -> tuple:
         readings[name] = part()
         timings[f"p15_{name}_s"] = time.perf_counter() - t0
         print(f"15 {name}: {timings[f'p15_{name}_s']:.1f} s")
-    at = dict(ck.SHAPE_LAUNCHES)
-    launches = dict(ck.LAUNCHES)
+    at = cell_shape_launches()
+    launches = cell_launches()
     print(f"phase 15's launches by shape: {at}")
     allowed = set(P15_NEW_SHAPES) | set(P15_HELD_SHAPES)
     check(all((m, n) in allowed for _, m, n in at), f"phase 15 launched a shape never held "
@@ -4876,10 +5008,10 @@ def hold_pair(phase, what, first, second, sides, shapes, tol, want=None, no_grad
             with ctx:
                 out = fn()
             torch.cuda.synchronize()
-            got = dict(ck.LAUNCHES)
+            got = cell_launches()
             runs[side].append((out, (time.perf_counter() - t0) * 1e3, got))
             if side == a:
-                shapes.update(ck.SHAPE_LAUNCHES)
+                shapes.update(cell_shape_launches())
                 total = add_launches(total, got)
         check(runs[a][-1][2] == runs[b][-1][2],
               f"{phase} {what}: {a} launches {runs[a][-1][2]}, {b} {runs[b][-1][2]}")
@@ -5583,8 +5715,8 @@ def experiments_phase(device, card) -> tuple:
         out = run(device)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        got = dict(ck.LAUNCHES)
-        P20_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
+        got = cell_launches()
+        P20_SHAPE_LAUNCHES.update(cell_shape_launches())
         launches = add_launches(launches, got)
         return out, seconds, got
 
@@ -5934,8 +6066,8 @@ def experiments_phase21(device, card) -> tuple:
         out = run(device)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        got = dict(ck.LAUNCHES)
-        P21_SHAPE_LAUNCHES.update(ck.SHAPE_LAUNCHES)
+        got = cell_launches()
+        P21_SHAPE_LAUNCHES.update(cell_shape_launches())
         launches = add_launches(launches, got)
         return out, seconds, got
 
@@ -6058,7 +6190,7 @@ def check_fused_against_cpu_f64(spec, model, X, y) -> None:
     xb, yb = X[:FUSED_BATCH], y[:FUSED_BATCH]
     ck.reset_launch_counts()
     l_dev = float(svgp.loss(spec, model.params(), xb, yb).detach())
-    got = dict(ck.LAUNCHES)
+    got = cell_launches()
     check(got == {"cell_kuf": 0, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 2},
           f"launches of the loss at {FUSED_BATCH} with gradients on: {got}")
     with torch.no_grad():
@@ -6189,7 +6321,7 @@ def time_serving_grid(device, spec, model, state) -> dict:
     for name in ("posterior", "posterior_from_state", "posterior_from_state", "posterior"):
         ck.reset_launch_counts()
         times[name].append(host_ms(heads[name]))
-        got = dict(ck.LAUNCHES)
+        got = cell_launches()
         check(got["cell_kuf"] == 4, f"launches of two {name} calls on the grid: {got}")
     out["posterior_ms"] = sum(times["posterior"]) / 2
     out["posterior_from_state_ms"] = sum(times["posterior_from_state"]) / 2
@@ -6344,9 +6476,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds():.2f} s) -> "
           + ", ".join(_build.library_path(src).name for src in _build.SOURCES))
 
+    record_finv_launches()
     errs = check_kernels(device)
     check_goldens(device)
     check_finv(device)
+    hold_finv_kernel(device, FINV_HELD_M)
     t0 = time.perf_counter()
     p20_errs, p21_errs = time_kernels_early(device)
     kernel_timings_s = time.perf_counter() - t0
@@ -6568,6 +6702,7 @@ def main() -> int:
         if name == "cell_kuf_with_dl":
             row[f"at_{SGPR_CELLS}_cells_{SGPR_CUT_N}"]["launches_phase15"] = p15_at.get(
                 (name, SGPR_CELLS, SGPR_CUT_N), 0)
+    timings["m12_finv"] = hold_finv_launched(device)
     timings["card"] = card
     print(json.dumps({"steps": timings}))
     print(json.dumps({"kernels": rows, "card": card}))

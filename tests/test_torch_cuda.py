@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import gauss_err, heads_tol, stretched_mesh
+from chip_smoke import (FINV_ELL_OVER_DELTA, FINV_HELD_M, TOL_FINV_KERNEL, gauss_err, heads_tol,
+                        stretched_mesh)
 from vggp_tpu_torch import CellIntegralFeature, SVGPSpec, convert, svgp, train
 from vggp_tpu_torch.ops import cell_kuf as ck
 from vggp_tpu_torch.ops import kms
@@ -50,7 +51,9 @@ def test_cuda_kernels_match_plain(cuda, dtype, rtol, m, n, precisions):
     if not tf32_t:
         pairs.append((t, t_p, rtol if dtype == torch.float64 else 1e-3))
     torch.cuda.synchronize()
-    assert all(ck.LAUNCHES[k] == before[k] + 1 for k in ck.LAUNCHES)
+    assert ck.LAUNCHES == {**{k: before[k] + 1 for k in ("cell_kuf", "cell_kuf_with_dl",
+                                                         "fused_banded_whiten_kuf")},
+                           "m12_finv": before["m12_finv"]}
     for got, want, tol in pairs:
         assert got.shape == want.shape
         err = float((got - want).abs().max() / want.abs().max())
@@ -75,7 +78,8 @@ def test_cuda_small_shapes_launch_the_kernels(cuda, m, n):
     ck.reset_launch_counts()
     kuf = g.Kuf("matern12", p, x)
     kuf_dl = g.Kuf_with_dl("matern12", p, x)
-    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0}
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0,
+                           "m12_finv": 0}
     pairs = [(kuf, ck.cell_kuf_plain(mesh, x, p["variance"], p["lengthscale"]))]
     pairs += zip(kuf_dl, ck.cell_kuf_with_dl_plain(mesh, x, p["variance"], p["lengthscale"]))
     for got, want in pairs:
@@ -263,7 +267,8 @@ def test_cuda_cell_kernels_on_64_cell_axes_match_plain(cuda, dtype, rtol, n):
     pairs = [(ck.cell_kuf(mesh, x, v, ell), ck.cell_kuf_plain(mesh, x, v, ell))]
     pairs += zip(ck.cell_kuf_with_dl(mesh, x, v, ell), ck.cell_kuf_with_dl_plain(mesh, x, v, ell))
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0}
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0,
+                           "m12_finv": 0}
     for got, want in pairs:
         assert got.shape == want.shape == (64, n)
         assert float((got - want).abs().max() / want.abs().max()) < rtol
@@ -312,7 +317,8 @@ def test_cuda_cell_kernels_on_uneven_meshes_match_plain(cuda, dtype, rtol, point
     pairs = [(ck.cell_kuf(mesh, x, v, ell), ck.cell_kuf_plain(mesh, x, v, ell))]
     pairs += zip(ck.cell_kuf_with_dl(mesh, x, v, ell), ck.cell_kuf_with_dl_plain(mesh, x, v, ell))
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0}
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0,
+                           "m12_finv": 0}
     for got, want in pairs:
         assert got.shape == want.shape == (mesh.shape[0] - 1, x.shape[0])
         assert float((got - want).abs().max() / want.abs().max()) < rtol
@@ -349,7 +355,7 @@ def test_cuda_collapsed_bound_matches_cpu_f64(cuda):
         if tag == "card":
             torch.cuda.synchronize()
             assert ck.LAUNCHES == {"cell_kuf": 0, "cell_kuf_with_dl": 2,
-                                   "fused_banded_whiten_kuf": 0}
+                                   "fused_banded_whiten_kuf": 0, "m12_finv": 2}
         out[tag] = {"loss": val, **grads}
     check_quantities("collapsed bound", out["card"], out["f64"], out["f32"], 1e-3)
 
@@ -371,7 +377,8 @@ def test_cuda_cell_kernels_at_the_full_family_and_zoo_shapes(cuda, dtype, rtol, 
     pairs = [(ck.cell_kuf(mesh, x, v, ell), ck.cell_kuf_plain(mesh, x, v, ell))]
     pairs += zip(ck.cell_kuf_with_dl(mesh, x, v, ell), ck.cell_kuf_with_dl_plain(mesh, x, v, ell))
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0}
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1, "fused_banded_whiten_kuf": 0,
+                           "m12_finv": 0}
     for got, want in pairs:
         assert got.shape == want.shape == (m, n)
         assert float((got - want).abs().max() / want.abs().max()) < rtol
@@ -460,7 +467,7 @@ def test_cuda_cell_kernels_at_the_family_shapes(cuda, dtype, rtol, m, n):
         pairs += list(zip(got, want, (rtol, 1e-12 if dtype == torch.float64 else 1e-3)))
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 1,
-                           "fused_banded_whiten_kuf": int(fused)}
+                           "fused_banded_whiten_kuf": int(fused), "m12_finv": int(fused)}
     for got, want, tol in pairs:
         assert got.shape == want.shape == (m, n)
         assert float((got - want).abs().max() / want.abs().max()) < tol
@@ -524,7 +531,8 @@ def test_cuda_icm_svgp_matches_cpu_f64(cuda):
     got = svgp.loss(spec, p, f32(X), f32(y))
     got.backward()
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"cell_kuf": 2, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+    assert ck.LAUNCHES == {"cell_kuf": 2, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0,
+                           "m12_finv": 0}
     np.testing.assert_allclose(float(got.detach()), want, rtol=1e-4)
     with torch.no_grad():
         served = svgp.posterior(spec, train.tree_map(lambda t: t.detach(), p), f32(xs))
@@ -548,11 +556,11 @@ def test_cuda_collapsed_families_match_cpu_f64(cuda, family):
     spec, mod, want_launches = {
         "sum": (SumSGPRSpec(components=tuple(SGPRSpec(kinds=("matern12",) * 2,
                                                       features=cells(m)) for m in (8, 20))),
-                msum, {"cell_kuf": 4, "cell_kuf_with_dl": 0}),
+                msum, {"cell_kuf": 4, "cell_kuf_with_dl": 0, "m12_finv": 0}),
         "additive": (AdditiveSGPRSpec(kinds=("matern12",) * 2, features=cells(256)), additive,
-                     {"cell_kuf": 0, "cell_kuf_with_dl": 2}),
+                     {"cell_kuf": 0, "cell_kuf_with_dl": 2, "m12_finv": 2}),
         "free": (FreeSVGPSpec(kinds=("matern12",) * 2, m=64), freesvgp,
-                 {"cell_kuf": 0, "cell_kuf_with_dl": 0})}[family]
+                 {"cell_kuf": 0, "cell_kuf_with_dl": 0, "m12_finv": 0})}[family]
     p_np = convert.params_to_numpy(spec.init_params(torch.float64, "cpu"))
     X = rng.random((2048, 2))
     y = np.sin(6 * X[:, 0]) * np.cos(5 * X[:, 1]) + 0.1 * rng.standard_normal(2048)
@@ -586,7 +594,8 @@ def test_cuda_cell_kuf_at_the_matrix_free_shapes(cuda, dtype, rtol, m, n, edges)
     got = ck.cell_kuf(mesh, x, v, ell)
     want = ck.cell_kuf_plain(mesh, x, v, ell)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+    assert ck.LAUNCHES == {"cell_kuf": 1, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0,
+                           "m12_finv": 0}
     assert ck.SHAPE_LAUNCHES == {("cell_kuf", m, n): 1}
     assert got.shape == want.shape == (m, n)
     assert float((got - want).abs().max() / want.abs().max()) < rtol
@@ -623,7 +632,8 @@ def test_cuda_solve_w_at_512_cells_matches_float64(cuda):
         w, info = iterative.solve_w(spec, params(dtype), X.to(dtype), y.to(dtype),
                                     maxiter=maxiter, return_info=True)
         torch.cuda.synchronize()
-        assert ck.LAUNCHES == {"cell_kuf": 2, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+        assert ck.LAUNCHES == {"cell_kuf": 2, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0,
+                               "m12_finv": 0}
         assert info["preconditioner"] == "jacobi"
         out[dtype] = w
     w32, w64 = out[torch.float32], out[torch.float64]
@@ -716,9 +726,9 @@ def test_cuda_assimilate_matches_cpu_f64(cuda):
         assert float((got - want).abs().max() / want.abs().max()) < 1e-10
 
 
-def _case_1d(dev):
+def _case_1d(dev, dtype=torch.float64):
     """ROADMAP queue 3, item 16's 1-D case (32 Matérn-1/2 cells, 200
-    points, σ² 1.3, ℓ 0.08, noise 0.02) in float64 on ``dev``: (params,
+    points, σ² 1.3, ℓ 0.08, noise 0.02) in ``dtype`` on ``dev``: (params,
     loss)."""
     from vggp_tpu_torch import SGPRSpec, sgpr
 
@@ -726,7 +736,7 @@ def _case_1d(dev):
     x = rng.random(200)
     y = np.sin(6 * x) + 0.05 * rng.standard_normal(200)
     spec = SGPRSpec(kinds=("matern12",), features=(CellIntegralFeature.from_lims(32, 0.0, 1.0),))
-    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
     X, Y = t(x), t(y)
     p = {"axes": ({"variance": t(1.3), "lengthscale": t(0.08)},), "noise": t(0.02)}
     return p, lambda q: sgpr.loss(spec, q, X, Y)
@@ -918,10 +928,100 @@ def test_cuda_spacetime_experiment_matches_cpu(cuda):
     ck.reset_launch_counts()
     card, _ = p21_records("spacetime", spacetime.run(n_iters=5, device=cuda), 5)
     torch.cuda.synchronize()
-    assert dict(ck.SHAPE_LAUNCHES) == {("cell_kuf_with_dl", 32, 1024): 15}
+    assert dict(ck.SHAPE_LAUNCHES) == {("cell_kuf_with_dl", 32, 1024): 15,
+                                       ("m12_finv", 32, 32): 15}
     cpu, _ = p21_records("spacetime", spacetime.run(n_iters=5, device="cpu"), 5)
     assert sorted(card) == sorted(cpu)
     for key, (want, hold) in cpu.items():
         assert np.all(np.isfinite(card[key][0])), key
         gap, floor = p21_gap(card[key][0], want, hold)
         assert gap <= floor, (key, gap, floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", FINV_ELL_OVER_DELTA)
+@pytest.mark.parametrize("m", FINV_HELD_M)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_m12_finv_matches_plain(cuda, dtype, m, ratio):
+    """The closed-form F⁻¹ kernel against ``kms.m12_finv_plain`` on the card,
+    at every m ``chip_smoke.py``'s phases build it at and on both branches
+    of u = δ/ℓ (ℓ/δ 0.4 and 3): the raw F⁻¹, F and the F⁻¹ after the
+    Newton–Schulz step within chip_smoke.TOL_FINV_KERNEL of max|plain| (f64
+    1e-12, roundoff; f32 1e-6: the plain version's cumprod rounds once a
+    factor of q^k and r^k, the kernel squares; the step cancels the raw
+    factor's error to first order; on an H100 the largest gap was 6.0e-8),
+    zeros above the diagonal, q equal to ``m12_geometric_ratio``'s bit for
+    bit, one launch at (m, m)."""
+    args = (m, 1.0 / m, torch.tensor(1.3, dtype=dtype, device=cuda),
+            torch.tensor(ratio / m, dtype=dtype, device=cuda), 1e-6)
+    ck.reset_launch_counts()
+    finv, f_mat, q = kms.m12_finv(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"cell_kuf": 0, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0,
+                           "m12_finv": 1}
+    assert dict(ck.SHAPE_LAUNCHES) == {("m12_finv", m, m): 1}
+    want = kms.m12_finv_plain(*args)
+    tol = TOL_FINV_KERNEL[str(dtype).removeprefix("torch.")]
+    rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
+    assert finv.shape == f_mat.shape == (m, m) and q.shape == ()
+    upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=cuda), 1)
+    assert bool((finv[upper] == 0).all()) and bool((f_mat[upper] == 0).all())
+    assert rel(finv, want[0]) < tol and rel(f_mat, want[1]) < tol
+    assert rel(kms.newton_schulz_step(finv, f_mat), kms.newton_schulz_step(*want[:2])) < tol
+    assert float(q) == float(kms.m12_geometric_ratio(1.0 / m, args[3], 1e-6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10), (torch.float32, 1e-3)])
+def test_cuda_second_order_hessian_through_m12_finv_matches_the_plain_route(
+        cuda, dtype, rtol, monkeypatch):
+    """``hyperpost.raw_hessian`` of the 1-D case on the card, its closed-form
+    F⁻¹ through ``M12FinvOp`` (the kernel forward, the plain version's
+    backward under ``create_graph``), against the same Hessian with
+    ``kms.m12_finv`` swapped for its plain version: rtol of max|H| 1e-10 in
+    f64; in f32 1e-3, the two forwards' F⁻¹ differing by float32 roundoff
+    that the Hessian's float32 evaluation carries."""
+    from vggp_tpu_torch import hyperpost
+
+    p, loss = _case_1d(cuda, dtype)
+    out = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(kms, "m12_finv", kms.m12_finv_plain)
+        ck.reset_launch_counts()
+        H, *_ = hyperpost.raw_hessian(loss, p)
+        torch.cuda.synchronize()
+        assert (ck.LAUNCHES["m12_finv"] > 0) == (route == "kernel")
+        out[route] = H.double().cpu()
+    assert float((out["kernel"] - out["plain"]).abs().max()
+                 / out["plain"].abs().max()) < rtol
+
+
+@pytest.mark.cuda
+def test_cuda_svgp_step_at_4096_launches_m12_finv_twice(cuda):
+    """One training step of the 512² Matérn-1/2 SVGP at batch 4096 (the
+    benchmark's fit step) builds each axis's F⁻¹ with one ``m12_finv``
+    launch: two in all, at (512, 512), beside cell_kuf_with_dl's two."""
+    from vggp_tpu_torch.models.svgp import SVGP
+
+    spec = SVGPSpec(kinds=("matern12", "matern12"),
+                    features=tuple(CellIntegralFeature.from_lims(512, 0.0, 1.0)
+                                   for _ in range(2)),
+                    num_data=1_000_000, variational="kron")
+    model = SVGP(spec, device=cuda)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    step = train.make_step_fn(lambda p, xb, yb: svgp.loss(spec, p, xb, yb),
+                              model.raw_params(), opt)
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.random((4096, 2)), dtype=torch.float32, device=cuda)
+    y = torch.sin(6 * x[:, 0]) * torch.cos(5 * x[:, 1])
+    step(x, y)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    loss = step(x, y)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    assert ck.LAUNCHES == {"cell_kuf": 0, "cell_kuf_with_dl": 2, "fused_banded_whiten_kuf": 0,
+                           "m12_finv": 2}
+    assert dict(ck.SHAPE_LAUNCHES) == {("cell_kuf_with_dl", 512, 4096): 2,
+                                       ("m12_finv", 512, 512): 2}

@@ -148,6 +148,105 @@ def test_m12_cell_inv_chol_f32_is_consistent_with_its_factor(ell):
     assert float(resid.abs().max()) < 2e-6
 
 
+# --------------------------------------------------------------------------- #
+# ops/kms.m12_finv, the closed-form F⁻¹ kernel's wrapper: its CPU route is
+# the plain version bit for bit; its autograd Function's derivatives are the
+# plain version's; float64 against the JAX package on both branches of
+# u = δ/ℓ (ℓ/δ = 3 and 0.4) at every m from 1 to the main path's 512
+# --------------------------------------------------------------------------- #
+
+_FINV_ELL_OVER_DELTA = {"u<1": 3.0, "u>=1": 0.4}
+
+
+@pytest.mark.parametrize("branch", sorted(_FINV_ELL_OVER_DELTA))
+@pytest.mark.parametrize("m", [1, 2, 15, 64, 512])
+def test_m12_finv_matches_jax_f64(m, branch):
+    """F⁻¹ and q as ``_finv_of_params`` takes them (one ``m12_finv`` and
+    the Newton–Schulz step) against ``vggp_tpu/ops/kms``: rtol 1e-10, as
+    the m = 256 test above."""
+    ell, var, rel = _FINV_ELL_OVER_DELTA[branch] / m, 1.3, 1e-6
+    finv, q = kms.m12_cell_inv_chol_and_ratio(m, 1.0 / m, T(var), T(ell), rel)
+    want = jax_kms.m12_cell_inv_chol(m, 1.0 / m, jnp.asarray(var), jnp.asarray(ell), rel)
+    _assert_close_scaled(N(finv), want, 1e-10)
+    np.testing.assert_array_equal(N(finv), N(kms.m12_cell_inv_chol(m, 1.0 / m, T(var), T(ell),
+                                                                  rel)))
+    want_q = jax_kms.m12_geometric_ratio(1.0 / m, jnp.asarray(ell), rel)
+    np.testing.assert_allclose(float(q), float(want_q), rtol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 15, 64])
+def test_m12_finv_cpu_route_is_the_plain_version(m, dtype):
+    """On the CPU the wrapper and the public names built on it return the
+    plain version's tensors bit for bit and count no launch."""
+    args = (m, 1.0 / m, torch.tensor(1.3, dtype=dtype), torch.tensor(0.27, dtype=dtype), 1e-6)
+    ck.reset_launch_counts()
+    got, want = kms.m12_finv(*args), kms.m12_finv_plain(*args)
+    assert len(got) == 3 and all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(kms.m12_cell_factors(*args), want[:2]))
+    finv, q = kms.m12_cell_inv_chol_and_ratio(*args)
+    assert torch.equal(finv, kms.newton_schulz_step(*want[:2])) and torch.equal(q, want[2])
+    assert torch.equal(q, kms.m12_geometric_ratio(1.0 / m, args[3], 1e-6))
+    assert ck.LAUNCHES == {k: 0 for k in ck.LAUNCHES}
+
+
+@pytest.mark.parametrize("bad", ["dtype", "variance dtype", "variance not a tensor",
+                                 "lengthscale not 0-d", "variance not 0-d", "m < 1"])
+def test_m12_finv_checks_raise(bad):
+    v, ell, m = torch.tensor(1.3, dtype=torch.float64), torch.tensor(0.27, dtype=torch.float64), 8
+    err = TypeError
+    if bad == "dtype":
+        v, ell = v.half(), ell.half()
+    elif bad == "variance dtype":
+        v = v.float()
+    elif bad == "variance not a tensor":
+        v = 1.3
+    elif bad == "lengthscale not 0-d":
+        ell, err = ell.reshape(1), ValueError
+    elif bad == "variance not 0-d":
+        v, err = v.reshape(1), ValueError
+    else:
+        m, err = 0, ValueError
+    for fn in (kms.m12_finv, kms.m12_cell_factors):
+        with pytest.raises(err):
+            fn(m, 1.0 / 8, v, ell, 1e-6)
+
+
+@pytest.mark.parametrize("branch", sorted(_FINV_ELL_OVER_DELTA))
+@pytest.mark.parametrize("wrt", ["both", "variance", "lengthscale"])
+def test_m12_finv_op_derivatives_are_the_plain_versions(wrt, branch):
+    """``M12FinvOp`` on the CPU (its values the plain version's under
+    ``no_grad``): the gradient, without and with a graph of itself, and the
+    Hessian in σ² and ℓ of a scalar of all three outputs, the raw F⁻¹
+    through the Newton–Schulz step as the models use it, equal those of the
+    plain version to 1e-12 (float64; the same graph is differentiated on
+    both sides)."""
+    m = 15
+    rng = np.random.default_rng(12)
+    w1, w2 = T(rng.standard_normal((m, m))), T(rng.standard_normal((m, m)))
+
+    def scalar(fn, v, ell):
+        finv, f_mat, q = fn(v, ell)
+        return (torch.sum(w1 * kms.newton_schulz_step(finv, f_mat)) + torch.sum(w2 * f_mat)
+                + 3.0 * q * torch.sum(finv))
+
+    op = lambda v, ell: kms.M12FinvOp.apply(v, ell, m, 1.0 / m, 1e-6)
+    plain = lambda v, ell: kms.m12_finv_plain(m, 1.0 / m, v, ell, 1e-6)
+    ell0 = _FINV_ELL_OVER_DELTA[branch] / m
+    out = {}
+    for name, fn in (("op", op), ("plain", plain)):
+        v = T(1.3).requires_grad_(wrt != "lengthscale")
+        ell = T(ell0).requires_grad_(wrt != "variance")
+        leaves = [t for t in (v, ell) if t.requires_grad]
+        first = torch.autograd.grad(scalar(fn, v, ell), leaves)
+        grads = torch.autograd.grad(scalar(fn, v, ell), leaves, create_graph=True)
+        hess = [torch.autograd.grad(g, leaves, retain_graph=True) for g in grads]
+        out[name] = (torch.stack(first), torch.stack(grads),
+                     torch.stack([torch.stack(h) for h in hess]))
+    for got, want in zip(out["op"], out["plain"]):
+        np.testing.assert_allclose(N(got), N(want), rtol=1e-12, atol=0)
+
+
 @pytest.mark.parametrize("q", [0.3, 0.8])
 def test_banded_whiten_apply_matches_jax(q):
     """q < 0.7 takes the banded product, q ≥ 0.7 the dense one."""

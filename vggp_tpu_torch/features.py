@@ -432,6 +432,12 @@ class AxisFeature:
         """Geometric decay ratio of a banded F⁻¹, or None."""
         return None
 
+    def inv_chol_kuu_and_ratio(self, kind: str, p: Params, rel_jitter: float):
+        """(:meth:`inv_chol_kuu`, :meth:`whiten_band_ratio`), or None where
+        there is no closed-form F⁻¹."""
+        finv = self.inv_chol_kuu(kind, p, rel_jitter)
+        return None if finv is None else (finv, self.whiten_band_ratio(kind, p, rel_jitter))
+
     def whitened_kuf_fused(self, kind: str, p: Params, finv, ratio, x):
         """(F⁻¹Kuf, F⁻¹∂Kuf/∂ℓ) from one fused kernel, or None."""
         return None
@@ -1063,6 +1069,16 @@ class CellIntegralFeature(AxisFeature):
         from vggp_tpu_torch.ops.kms import m12_geometric_ratio
 
         return m12_geometric_ratio(self.delta, p["lengthscale"], rel_jitter)
+
+    def inv_chol_kuu_and_ratio(self, kind: str, p: Params, rel_jitter: float):
+        """Both of the above from one ``ops.kms.m12_finv`` (on the card one
+        launch of its kernel), or None off Matérn-1/2 on a uniform mesh."""
+        if kind != "matern12" or not self.uniform:
+            return None
+        from vggp_tpu_torch.ops.kms import m12_cell_inv_chol_and_ratio
+
+        return m12_cell_inv_chol_and_ratio(self.m, self.delta, p["variance"],
+                                           p["lengthscale"], rel_jitter)
 
     @traced("vggp.dispatch.kuf")
     def Kuf(self, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -134,11 +134,10 @@ def _finv_of_params(feat, kind, rel_jitter, ell, var):
     triangular inverse."""
     p_lv = {"lengthscale": ell, "variance": var}
     if config.STRUCTURED_FINV:
-        fi = feat.inv_chol_kuu(kind, p_lv, rel_jitter)
-        if fi is not None:
-            ratio = (feat.whiten_band_ratio(kind, p_lv, rel_jitter)
-                     if config.BANDED_WHITEN_APPLY else None)
-            return fi, ratio
+        closed = feat.inv_chol_kuu_and_ratio(kind, p_lv, rel_jitter)
+        if closed is not None:
+            fi, ratio = closed
+            return fi, (ratio if config.BANDED_WHITEN_APPLY else None)
     K = _kuu_jittered(feat, kind, rel_jitter, ell, var)
     F = torch.linalg.cholesky(K)
     eye = torch.eye(F.shape[0], dtype=F.dtype, device=F.device)

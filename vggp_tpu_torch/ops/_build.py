@@ -4,8 +4,9 @@ Each source in :data:`SOURCES` is compiled with ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface and loaded with ``ctypes``;
 the builds of a first use run side by side, one ``nvcc`` per source. A
 library is built into ``vggp_tpu_torch/_build/``, keyed by a hash of its
-source, the shared header and the flags, so an edited source builds anew and
-an unchanged one is loaded from disk. Nothing here runs at import time.
+source, the shared header and its flags (:data:`NVCC_FLAGS` and the
+source's :data:`EXTRA_FLAGS`), so an edited source builds anew and an
+unchanged one is loaded from disk. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # source → {C entry point: argument types}; every entry point returns an int
 SOURCES = {
     _CSRC / "cell_kuf.cu": {
@@ -40,7 +41,14 @@ SOURCES = {
     _CSRC / "fused_whiten_tc.cu": {
         "fused_banded_whiten_kuf_f32": [_P] * 6 + [_I, _I, _I, _I, _P],
     },
+    _CSRC / "m12_finv.cu": {
+        "m12_finv_f32": [_P, _D, _D, _P, _P, _P, _I, _P],
+        "m12_finv_f64": [_P, _D, _D, _P, _P, _P, _I, _P],
+    },
 }
+# flags of one source on top of NVCC_FLAGS: the closed-form F⁻¹ keeps every
+# product and sum rounded apart, as the PyTorch operators it replaces do
+EXTRA_FLAGS = {_CSRC / "m12_finv.cu": ("-fmad=false",)}
 
 _lib = None
 _build_seconds = None
@@ -55,9 +63,13 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
+def _flags(source: Path) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(source, ())
+
+
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes() + HEADER.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode())
+                            + " ".join(_flags(source)).encode())
     return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
@@ -69,7 +81,7 @@ def _compile_all(sources) -> None:
         for src in sources:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            proc = subprocess.Popen([_nvcc(), *_flags(src), "-o", tmp, str(src)],
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             jobs.append((src, tmp, proc))
         for src, tmp, proc in jobs:

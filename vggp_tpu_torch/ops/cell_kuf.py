@@ -14,7 +14,9 @@ version here, written from the same tile math:
 A wrapper takes its plain version only for CPU tensors (the tests); for a
 CUDA tensor it launches the kernel or raises. Each launch adds one to
 :data:`LAUNCHES` (and, by shape, to :data:`SHAPE_LAUNCHES`), so a run can show
-that its path went through the kernels.
+that its path went through the kernels. The counters also hold the closed-form
+F⁻¹ kernel of ``ops.kms.m12_finv`` (``csrc/m12_finv.cu``), as ``m12_finv``
+at (m, m).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from vggp_tpu_torch.ops.kms import BAND_BLOCK, banded_apply
 from vggp_tpu_torch.ops.stablemath import expm1s
 
 # Kernel launches since the last reset_launch_counts(), by wrapper name.
-LAUNCHES = {"cell_kuf": 0, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0}
+LAUNCHES = {"cell_kuf": 0, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0,
+            "m12_finv": 0}
 # The same launches by (wrapper name, m, n).
 SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 

@@ -7,6 +7,11 @@ work from the minors of a tridiagonal matrix, then refined by one
 Newton–Schulz step against the analytic factor. The module docstring of the
 JAX package derives every step; the code below keeps its order of operations
 so that the two agree to roundoff in float64.
+
+On a CUDA tensor the raw factor, the analytic factor and the band ratio come
+from one launch of ``csrc/m12_finv.cu`` (:func:`m12_finv`); its plain
+version, :func:`m12_cell_factors_plain` with :func:`m12_geometric_ratio`, is
+what the CPU runs.
 """
 
 from __future__ import annotations
@@ -69,6 +74,13 @@ def m12_cell_inv_chol(m: int, delta, variance, lengthscale, rel_jitter):
     return newton_schulz_step(finv, f_mat)
 
 
+def m12_cell_inv_chol_and_ratio(m: int, delta, variance, lengthscale, rel_jitter):
+    """(:func:`m12_cell_inv_chol`, :func:`m12_geometric_ratio`) from one
+    :func:`m12_finv`: on the card one launch and the Newton–Schulz step."""
+    finv, f_mat, q = m12_finv(m, delta, variance, lengthscale, rel_jitter)
+    return newton_schulz_step(finv, f_mat), q
+
+
 def newton_schulz_step(finv, f_mat):
     """One Newton–Schulz step X ← X + X(I − F X), full fp32, lower part.
 
@@ -85,7 +97,16 @@ def newton_schulz_step(finv, f_mat):
 
 def m12_cell_factors(m: int, delta, variance, lengthscale, rel_jitter):
     """(raw closed-form F⁻¹, analytic F = L·G), both (m, m) lower-triangular;
-    :func:`m12_cell_inv_chol` refines the first against the second."""
+    :func:`m12_cell_inv_chol` refines the first against the second. The
+    plain version on the CPU, the ``m12_finv`` kernel on the card."""
+    if _checked_on_cpu(m, variance, lengthscale):
+        return m12_cell_factors_plain(m, delta, variance, lengthscale, rel_jitter)
+    return m12_finv(m, delta, variance, lengthscale, rel_jitter)[:2]
+
+
+def m12_cell_factors_plain(m: int, delta, variance, lengthscale, rel_jitter):
+    """:func:`m12_cell_factors` on tensors — the plain version of the
+    ``m12_finv`` kernel's two (m, m) outputs."""
     dtype, device = lengthscale.dtype, lengthscale.device
     co = _tridiag_coefficients(delta, variance, lengthscale, rel_jitter)
     u, rho, s = co["u"], co["rho"], co["s"]
@@ -139,10 +160,114 @@ def m12_cell_factors(m: int, delta, variance, lengthscale, rel_jitter):
 
 def m12_geometric_ratio(delta, lengthscale, rel_jitter):
     """The geometric decay ratio q = |b|/λ₁ of the F⁻¹ entries (variance
-    cancels). Gates the banded apply."""
+    cancels). Gates the banded apply. Plain torch on every device: the
+    ``m12_finv`` kernel returns the same number beside the factors."""
     co = _tridiag_coefficients(delta, torch.ones_like(lengthscale), lengthscale,
                                rel_jitter)
     return torch.abs(co["b"]) / co["lam1"]
+
+
+# --------------------------------------------------------------------------- #
+# the m12_finv kernel (csrc/m12_finv.cu): wrapper and autograd
+# --------------------------------------------------------------------------- #
+
+def _checked_on_cpu(m: int, variance, lengthscale) -> bool:
+    """Validate :func:`m12_finv`'s inputs; True when they lie on the CPU."""
+    from vggp_tpu_torch.ops.cell_kuf import _SUFFIX
+
+    if not isinstance(lengthscale, torch.Tensor) or lengthscale.dtype not in _SUFFIX:
+        raise TypeError("m12_finv takes a float32 or float64 lengthscale tensor, got "
+                        f"{getattr(lengthscale, 'dtype', type(lengthscale))}")
+    if not isinstance(variance, torch.Tensor) or variance.dtype != lengthscale.dtype:
+        raise TypeError(f"variance must be a {lengthscale.dtype} tensor, got "
+                        f"{getattr(variance, 'dtype', type(variance))}")
+    for name, t in (("variance", variance), ("lengthscale", lengthscale)):
+        if t.dim() != 0:
+            raise ValueError(f"{name} must be 0-d, got shape {tuple(t.shape)}")
+    if int(m) != m or m < 1:
+        raise ValueError(f"m12_finv needs m ≥ 1 cells, got {m}")
+    if variance.device != lengthscale.device:
+        raise ValueError(f"variance on {variance.device}, lengthscale on {lengthscale.device}")
+    if lengthscale.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"m12_finv runs on CUDA (or plainly on the CPU), not "
+                         f"{lengthscale.device}")
+    return lengthscale.device.type == "cpu"
+
+
+def m12_finv_plain(m: int, delta, variance, lengthscale, rel_jitter):
+    """(raw F⁻¹, F, q) on tensors — the plain version of :func:`m12_finv`."""
+    return (*m12_cell_factors_plain(m, delta, variance, lengthscale, rel_jitter),
+            m12_geometric_ratio(delta, lengthscale, rel_jitter))
+
+
+def _m12_finv_values(m: int, delta, variance, lengthscale, rel_jitter):
+    """(raw F⁻¹, F, q) as values: one kernel launch on the card, the plain
+    version under ``no_grad`` on the CPU."""
+    if lengthscale.device.type == "cpu":
+        with torch.no_grad():
+            return m12_finv_plain(m, delta, variance, lengthscale, rel_jitter)
+    from vggp_tpu_torch.ops import _build
+    from vggp_tpu_torch.ops import cell_kuf as ck
+
+    lib = _build.load()
+    like = lengthscale
+    scal = ck._scal(variance, lengthscale, like)
+    finv = torch.empty((m, m), dtype=like.dtype, device=like.device)
+    f_mat = torch.empty_like(finv)
+    q = torch.empty((), dtype=like.dtype, device=like.device)
+    rc = getattr(lib, f"m12_finv_{ck._SUFFIX[like.dtype]}")(
+        ck._ptr(scal), float(delta), float(rel_jitter), ck._ptr(finv), ck._ptr(f_mat),
+        ck._ptr(q), m, ck._stream(like))
+    ck._raise_on(rc, "m12_finv")
+    ck._count("m12_finv", m, m)
+    return finv, f_mat, q
+
+
+class M12FinvOp(torch.autograd.Function):
+    """(raw F⁻¹, F, q) with the values of :func:`_m12_finv_values` (the
+    kernel on the card) and the backward of the plain version: it rebuilds
+    :func:`m12_finv_plain` under autograd and differentiates it, with a graph
+    when one is asked for (``create_graph``, the first pass of a Hessian), so
+    every order of derivative is the plain version's."""
+
+    @staticmethod
+    def forward(ctx, variance, lengthscale, m, delta, rel_jitter):
+        ctx.save_for_backward(variance, lengthscale)
+        ctx.args = (m, delta, rel_jitter)
+        return _m12_finv_values(m, delta, variance, lengthscale, rel_jitter)
+
+    @staticmethod
+    def backward(ctx, g_finv, g_f, g_q):
+        m, delta, rel_jitter = ctx.args
+        graph = torch.is_grad_enabled()
+        needs = ctx.needs_input_grad[:2]
+        inputs = [t if graph else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        wrt = [t for t, need in zip(inputs, needs) if need]
+        with torch.enable_grad():
+            outs = [(o, g) for o, g in zip(m12_finv_plain(m, delta, *inputs, rel_jitter),
+                                           (g_finv, g_f, g_q)) if o.requires_grad]
+            grads = iter(torch.autograd.grad([o for o, _ in outs], wrt, [g for _, g in outs],
+                                             create_graph=graph))
+        return (*(next(grads) if need else None for need in needs), None, None, None)
+
+
+def m12_finv(m: int, delta, variance, lengthscale, rel_jitter):
+    """(raw closed-form F⁻¹, analytic F = L·G, band ratio q) of the
+    Matérn-1/2 cell Gram on a uniform mesh of m cells of width ``delta``.
+
+    On the CPU the plain version (:func:`m12_finv_plain`, autograd as any
+    torch code). On the card one launch of the ``m12_finv`` kernel, counted
+    in ``ops.cell_kuf.LAUNCHES``; where σ² or ℓ needs a gradient, through
+    :class:`M12FinvOp`. ``variance`` and ``lengthscale`` are 0-d tensors of
+    one floating dtype on one device; ``q`` is :func:`m12_geometric_ratio`'s
+    number (variance 1).
+    """
+    if _checked_on_cpu(m, variance, lengthscale):
+        return m12_finv_plain(m, delta, variance, lengthscale, rel_jitter)
+    if torch.is_grad_enabled() and (variance.requires_grad or lengthscale.requires_grad):
+        return M12FinvOp.apply(variance, lengthscale, m, delta, rel_jitter)
+    return _m12_finv_values(m, delta, variance, lengthscale, rel_jitter)
 
 
 BAND_BLOCK = 128
