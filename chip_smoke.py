@@ -3358,7 +3358,8 @@ def counted(name, fn, n_cell_kuf, shapes=MF_SHAPE_LAUNCHES):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     got = cell_launches()
-    shapes.update(ck.SHAPE_LAUNCHES)
+    # kernel launches only: the three-axis moments count their contraction there too
+    shapes.update({k: v for k, v in ck.SHAPE_LAUNCHES.items() if k[0] in ck.LAUNCHES})
     if n_cell_kuf is not None:
         want = {**NO_LAUNCHES, "cell_kuf": n_cell_kuf}
         check(got == want, f"{name}: launches {got}, expected {want}")

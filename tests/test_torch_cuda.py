@@ -921,7 +921,7 @@ def test_cuda_spacetime_experiment_matches_cpu(cuda):
     mean, variance and metric row within 1e-3 of their largest magnitude.
     The minibatches come from one CPU generator, so both runs see the same
     batches; each step launches ``cell_kuf_with_dl`` once an axis, at
-    (32, 1024)."""
+    (32, 1024), and counts its three-axis contraction once."""
     from chip_smoke import p21_gap, p21_records
     from vggp_tpu_torch.experiments import spacetime
 
@@ -929,7 +929,8 @@ def test_cuda_spacetime_experiment_matches_cpu(cuda):
     card, _ = p21_records("spacetime", spacetime.run(n_iters=5, device=cuda), 5)
     torch.cuda.synchronize()
     assert dict(ck.SHAPE_LAUNCHES) == {("cell_kuf_with_dl", 32, 1024): 15,
-                                       ("m12_finv", 32, 32): 15}
+                                       ("m12_finv", 32, 32): 15,
+                                       ("kron_contract", 32 ** 3, 1024): 5}
     cpu, _ = p21_records("spacetime", spacetime.run(n_iters=5, device="cpu"), 5)
     assert sorted(card) == sorted(cpu)
     for key, (want, hold) in cpu.items():

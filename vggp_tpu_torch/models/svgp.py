@@ -31,6 +31,7 @@ from vggp_tpu_torch import config, likelihoods
 from vggp_tpu_torch.config import highest_precision, matmul_precision
 from vggp_tpu_torch.models import common
 from vggp_tpu_torch.models.common import Gaussian
+from vggp_tpu_torch.ops.cell_kuf import SHAPE_LAUNCHES
 from vggp_tpu_torch.ops.kron import kron_dense, kron_diag
 from vggp_tpu_torch.tracing import span, traced
 
@@ -166,8 +167,7 @@ def _mean_cotangent_einsums(d: int):
     return dmu, das
 
 
-def _moments_math(mu, Ls, blocks):
-    mean = _kron_contract(mu, blocks)
+def _var_terms(Ls, blocks):
     ts, rs, vs = [], [], []
     for i, a in enumerate(blocks):
         t = Ls[i].T @ a                # (m_i, n)
@@ -178,7 +178,63 @@ def _moments_math(mu, Ls, blocks):
     for i in range(1, len(blocks)):
         var_red = var_red * rs[i]
         var_add = var_add * vs[i]
-    return mean, var_red, var_add, ts, rs, vs
+    return var_red, var_add, ts, rs, vs
+
+
+def _moments_math(mu, Ls, blocks):
+    return (_kron_contract(mu, blocks), *_var_terms(Ls, blocks))
+
+
+def _gemm_axis(blocks) -> int:
+    """The axis that :func:`_contract_forward` leaves to the products: the
+    widest (the first of equals), so that the Khatri–Rao of the others
+    covers the least product of widths."""
+    ms = [b.shape[0] for b in blocks]
+    return ms.index(max(ms))
+
+
+def _khatri_rao_t(blocks) -> torch.Tensor:
+    """(n, Π m_j) Khatri–Rao of the (m_j, n) ``blocks``, points leading (the
+    transpose of ``common.khatri_rao_all``), the columns row-major over the
+    blocks in order (μ's flattening)."""
+    n = blocks[0].shape[1]
+    out = blocks[0].T
+    for b in blocks[1:]:
+        out = (out[:, :, None] * b.T[:, None, :]).reshape(n, -1)
+    return out
+
+
+def _contract_forward(mu, blocks):
+    """The q(f) mean at d ≥ 3 as one product: with g the widest axis, A its
+    block, K = KR(other blocks) and μ̃ = μ as (m_g, Π others),
+    P = μ̃·Kᵀ (m_g, n) and mean = Σ_a A ⊙ P. Returns (mean, P, Kᵀ)."""
+    g = _gemm_axis(blocks)
+    kt = _khatri_rao_t([b for i, b in enumerate(blocks) if i != g])
+    p = mu.movedim(g, 0).reshape(mu.shape[g], -1) @ kt.T
+    SHAPE_LAUNCHES["kron_contract", mu.numel(), kt.shape[0]] += 1
+    return torch.sum(blocks[g] * p, dim=0), p, kt
+
+
+def _contract_backward(mu, blocks, p, kt, gm):
+    """(∂μ, the mean's part of each ∂a_i) of :func:`_contract_forward` at the
+    mean's cotangent ``gm``: with G = A ⊙ gm, ∂μ̃ = G·K, ∂A = P ⊙ gm, and
+    Y = Gᵀ·μ̃ (n, Π others) summed against the other blocks for each of them.
+    Two more products of Π m_i·n FMAs, no intermediate above K's size."""
+    g = _gemm_axis(blocks)
+    others = [i for i in range(len(blocks)) if i != g]
+    mu_g = mu.movedim(g, 0).reshape(mu.shape[g], -1)
+    ag = blocks[g] * gm[None, :]
+    dmu = (ag @ kt).reshape(mu.movedim(g, 0).shape).movedim(0, g)
+    y = (ag.T @ mu_g).reshape(kt.shape[0], *(blocks[i].shape[0] for i in others))
+    letters = _AXIS_LETTERS[:len(others)]
+    das = [None] * len(blocks)
+    das[g] = p * gm[None, :]
+    for j, i in enumerate(others):
+        rest = [r for r in range(len(others)) if r != j]
+        subs = "".join(f",n{letters[r]}" for r in rest)
+        das[i] = torch.einsum(f"n{letters}{subs}->{letters[j]}n", y,
+                              *(blocks[others[r]].T for r in rest))
+    return dmu, das
 
 
 class KronMoments(torch.autograd.Function):
@@ -186,6 +242,14 @@ class KronMoments(torch.autograd.Function):
     backward of ``svgp.py:213-242``, whose matmuls ride
     ``config.MATMUL_PRECISION``. Called as ``apply(mu, *Ls, *blocks)``; the
     full family is its one-axis case, L and the Khatri–Rao block.
+
+    At three axes or more the mean's contraction and its backward are three
+    explicit products against the Khatri–Rao of all axes but the widest
+    (:func:`_contract_forward`, :func:`_contract_backward`), each of Π m_i·n
+    FMAs and inside a ``vggp.model.contract`` span; each forward counts one
+    ``("kron_contract", Π m_i, n)`` in ``ops.cell_kuf.SHAPE_LAUNCHES``. An
+    einsum's path, and so its largest intermediate, would depend on whether
+    ``opt_einsum`` is installed: without it ∂μ wrote an m₁·m₂·n tensor.
 
     The backward reads t, r and v saved without a graph: it is exact to
     first order only (its Hessian was 0.19–0.43 of max|H| off
@@ -196,9 +260,16 @@ class KronMoments(torch.autograd.Function):
     def forward(ctx, mu, *mats):
         d = len(mats) // 2
         Ls, blocks = mats[:d], mats[d:]
-        mean, var_red, var_add, ts, rs, vs = _moments_math(mu, Ls, blocks)
+        if d >= 3:
+            with span("vggp.model.contract"):
+                mean, p, kt = _contract_forward(mu, blocks)
+            var_red, var_add, ts, rs, vs = _var_terms(Ls, blocks)
+            extra = (p, kt)
+        else:
+            mean, var_red, var_add, ts, rs, vs = _moments_math(mu, Ls, blocks)
+            extra = ()
         ctx.d = d
-        ctx.save_for_backward(mu, *Ls, *blocks, *ts, *rs, *vs)
+        ctx.save_for_backward(mu, *Ls, *blocks, *ts, *rs, *vs, *extra)
         return mean, var_red, var_add
 
     @staticmethod
@@ -208,16 +279,25 @@ class KronMoments(torch.autograd.Function):
         saved = ctx.saved_tensors
         mu = saved[0]
         Ls, blocks, ts, rs, vs = (saved[1 + k * d:1 + (k + 1) * d] for k in range(5))
-        dmu_str, da_strs = _mean_cotangent_einsums(d)
         with matmul_precision(config.MATMUL_PRECISION):
-            dmu = torch.einsum(dmu_str, gm, *blocks)
+            if d >= 3:
+                # opened here: a backward's device time would otherwise
+                # fall to its forward operator's span
+                with span("vggp.model.contract"):
+                    dmu, da_means = _contract_backward(mu, blocks, *saved[1 + 5 * d:], gm)
+            else:
+                dmu_str, da_strs = _mean_cotangent_einsums(d)
+                dmu = torch.einsum(dmu_str, gm, *blocks)
             dLs, das = [], []
             for i in range(d):
                 others = [k for k in range(d) if k != i]
                 r_oth = math.prod(rs[k] for k in others)
                 v_oth = math.prod(vs[k] for k in others)
-                da = (torch.einsum(da_strs[i], mu, *[blocks[k] for k in others]) if others
-                      else mu[:, None]) * gm[None, :]
+                if d >= 3:
+                    da = da_means[i]
+                else:
+                    da = (torch.einsum(da_strs[i], mu, *[blocks[k] for k in others]) if others
+                          else mu[:, None]) * gm[None, :]
                 da = da + 2.0 * blocks[i] * (gr * r_oth)[None, :]
                 dt = 2.0 * ts[i] * (gv * v_oth)[None, :]
                 da = da + Ls[i] @ dt

@@ -16,7 +16,9 @@ CUDA tensor it launches the kernel or raises. Each launch adds one to
 :data:`LAUNCHES` (and, by shape, to :data:`SHAPE_LAUNCHES`), so a run can show
 that its path went through the kernels. The counters also hold the closed-form
 F⁻¹ kernel of ``ops.kms.m12_finv`` (``csrc/m12_finv.cu``), as ``m12_finv``
-at (m, m).
+at (m, m). :data:`SHAPE_LAUNCHES` alone also counts each forward of the
+three-axis moments' contraction (``models.svgp.KronMoments``), a step's
+three products, as ``kron_contract`` at (Π m_i, n).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from vggp_tpu_torch.ops.stablemath import expm1s
 # Kernel launches since the last reset_launch_counts(), by wrapper name.
 LAUNCHES = {"cell_kuf": 0, "cell_kuf_with_dl": 0, "fused_banded_whiten_kuf": 0,
             "m12_finv": 0}
-# The same launches by (wrapper name, m, n).
+# The same launches by (wrapper name, m, n), and the ``kron_contract`` counts.
 SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 
